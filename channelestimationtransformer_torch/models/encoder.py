@@ -1,0 +1,150 @@
+"""Informer encoder: attention layers + conv-distilling pyramid + stack
+(reference ``models/Informer/encoder.py``; JAX counterpart ``models/encoder.py``).
+
+Submodules carry the JAX package's parameter names (``layer_0``,
+``distil_0``, ``encoder_0``, ...) so that ``utils/convert.py`` maps one tree
+onto the other name for name.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import AttentionLayer
+from .embed import circular_conv1d
+from .init import variance_scaling_
+
+LN_EPS = 1e-6  # flax LayerNorm; torch's default is 1e-5
+
+
+def distilled_length(l: int) -> int:
+    """Sequence length after one ConvLayer (maxpool k=3, s=2, p=1)."""
+    return (l - 1) // 2 + 1
+
+
+def activation_fn(name: str):
+    # flax nn.gelu is the tanh approximation
+    return (lambda x: F.gelu(x, approximate="tanh")) if name == "gelu" else F.relu
+
+
+class ConvLayer(nn.Module):
+    """Distilling layer: circular conv k=3 + bias -> BatchNorm (eps 1e-5) ->
+    ELU -> MaxPool(3, 2, 1), halving the sequence."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_model, d_model, 3))
+        self.bias = nn.Parameter(torch.zeros(d_model))
+        self.norm = nn.BatchNorm1d(d_model, eps=1e-5, momentum=0.1)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        variance_scaling_(self.weight, 1.0, generator=generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        y = circular_conv1d(x, self.weight, self.bias).transpose(1, 2)  # [B, C, L]
+        y = F.max_pool1d(F.elu(self.norm(y)), kernel_size=3, stride=2, padding=1)
+        return y.transpose(1, 2)
+
+
+class FeedForward(nn.Module):
+    """Position-wise FFN: the reference's two k=1 convs as dense layers."""
+
+    def __init__(self, d_model: int, d_ff: int, activation: str):
+        super().__init__()
+        self.conv1 = nn.Linear(d_model, d_ff)
+        self.conv2 = nn.Linear(d_ff, d_model)
+        self.act = activation_fn(activation)
+
+    def forward(self, x):
+        return self.conv2(self.act(self.conv1(x)))
+
+
+class EncoderLayer(nn.Module):
+    """Self-attention + FFN. Post-norm (the reference): norm after the
+    attention residual, FFN residual from the normed x, norm at the end.
+    ``pre_norm``: LayerNorm before each block, plain residuals."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str, *,
+                 output_attention: bool = False, use_pallas: bool = False,
+                 pre_norm: bool = False, **attn_kwargs):
+        super().__init__()
+        self.pre_norm = pre_norm
+        self.attention = AttentionLayer(
+            d_model, n_heads, mask_flag=False, mix=False,
+            output_attention=output_attention, use_pallas=use_pallas, **attn_kwargs)
+        self.ffn = FeedForward(d_model, d_ff, activation)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x):
+        if self.pre_norm:
+            a_in = self.norm1(x)
+            new_x, attn = self.attention(a_in, a_in, a_in)
+            x = x + new_x
+            return x + self.ffn(self.norm2(x)), attn
+        new_x, attn = self.attention(x, x, x)
+        x = self.norm1(x + new_x)
+        return self.norm2(x + self.ffn(x)), attn
+
+
+class Encoder(nn.Module):
+    """EncoderLayers with interleaved distilling ConvLayers and a final
+    LayerNorm (reference ``encoder.py:57-82``)."""
+
+    def __init__(self, num_layers: int, d_model: int, *, distil: bool = True,
+                 **layer_kwargs):
+        super().__init__()
+        self.num_layers = num_layers
+        self.num_distil = num_layers - 1 if distil and num_layers > 1 else 0
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", EncoderLayer(d_model, **layer_kwargs))
+        for i in range(self.num_distil):
+            self.add_module(f"distil_{i}", ConvLayer(d_model))
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x):
+        attns = []
+        for i in range(self.num_layers):
+            x, attn = getattr(self, f"layer_{i}")(x)
+            attns.append(attn)
+            if i < self.num_distil:
+                x = getattr(self, f"distil_{i}")(x)
+        return self.norm(x), attns
+
+
+class EncoderStack(nn.Module):
+    """Multi-resolution stack (reference ``encoder.py:84-99``): encoder ``i``
+    reads the last ``L // 2**i`` slots; outputs concatenate on the sequence."""
+
+    def __init__(self, e_layers: Sequence[int], d_model: int, **encoder_kwargs):
+        super().__init__()
+        self.num_encoders = len(e_layers)
+        for i, el in enumerate(e_layers):
+            self.add_module(f"encoder_{i}", Encoder(el, d_model, **encoder_kwargs))
+
+    def forward(self, x):
+        outs, attns = [], []
+        l = x.shape[1]
+        for i in range(self.num_encoders):
+            x_s, attn = getattr(self, f"encoder_{i}")(x[:, l - l // 2**i:])
+            outs.append(x_s)
+            attns.append(attn)
+        return torch.cat(outs, dim=1), attns
+
+
+def encoder_stack_output_length(seq_len: int, e_layers: Sequence[int], distil: bool) -> int:
+    """Output length of :class:`EncoderStack` for a given input length."""
+    total = 0
+    for i, el in enumerate(e_layers):
+        l = seq_len // (2**i)
+        if distil:
+            for _ in range(max(el - 1, 0)):
+                l = distilled_length(l)
+        total += l
+    return total
