@@ -12,23 +12,28 @@
 //
 // The TPU kernel packs all H heads into one block-diagonal [Lq, H*128]
 // matmul to fill the 128-wide MXU, doing ~8x the needed FLOPs. None of that
-// is carried over: one thread block per (b, h) stages that head's K (as K^T)
-// and V in shared memory as f32, and each warp owns query rows. Lanes stride
-// over keys for Q K^T, a warp-shuffle max and sum give the softmax, and the
-// P V product splits the keys over lane groups (E a power of two <= 32) or
-// strides lanes over E otherwise.
+// is carried over. One thread block per (b, h) stages that head's K and V in
+// shared memory as f32 (rows zero-padded to EP = 16, 32 or 64 columns), and
+// each thread owns one query row: its q and its output accumulator live in
+// registers, and every thread of a warp reads the same K or V row, a
+// broadcast float4 load. Two passes over the keys: the row maximum, then
+// p = exp(s - max), the sum and p * V (the scores are recomputed rather than
+// stored).
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores):
 // at the flagship encoder shape (B 256, H 8, E 16, Lq = Lk = 90, f32) the
 // call reads Q, K, V and writes O once: 4 B * B*H*E*(2*Lq + 2*Lk) = 47.2 MB,
 // 14.1 us; it does 4*B*H*Lq*Lk*E = 1.06 GFLOP, 15.8 us on the f32 CUDA
-// cores. The f32 CUDA-core design is therefore bound by operations, barely
-// above the byte bound. This simple design reads each input byte once (K and
-// V once per block, each Q row once per warp) and keeps the scores in
-// registers, so it stays near the byte bound on traffic; its arithmetic is
-// scalar FMAs with shared-memory operands, which is what keeps it above the
-// bound. Tensor-core MMAs (mma.sync / wgmma) and several heads per block are
-// the later work that closes that gap.
+// cores. So the f32 CUDA-core design is bound by operations, barely above
+// the byte bound; at the shorter shapes of the path the bytes bound it. This
+// design reads each input byte from device memory once and keeps scores and
+// probabilities out of it. Its arithmetic is scalar FMAs fed by broadcast
+// float4 loads from shared memory, and the second pass's recomputed scores
+// cost 1.5x the minimal FMAs. Measured on an H100 SXM at 700 W
+// (chip_smoke.py), the L 90 call takes ~7x its bound, held by those
+// shared-memory loads. Tensor-core MMAs (mma.sync / wgmma), several query
+// rows per thread, several heads per block and a one-pass online softmax are
+// the later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,9 +41,9 @@
 
 namespace {
 
-constexpr int kWarps = 4;     // warps per block; each owns query rows
-constexpr int kMaxLk = 128;   // key length limit (the TPU kernel's LP)
-constexpr int kMaxE = 64;     // head width limit
+constexpr int kMaxThreads = 128;  // query rows per pass of a block
+constexpr int kMaxLk = 128;       // key length limit (the TPU kernel's LP)
+constexpr int kMaxE = 64;         // head width limit
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -52,32 +57,29 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+template <int EP>
+__device__ __forceinline__ float dot_row(const float (&q)[EP], const float* __restrict__ row) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < EP / 4; ++c) {
+    const float4 k = r4[c];
+    acc = fmaf(q[4 * c], k.x, acc);
+    acc = fmaf(q[4 * c + 1], k.y, acc);
+    acc = fmaf(q[4 * c + 2], k.z, acc);
+    acc = fmaf(q[4 * c + 3], k.w, acc);
+  }
+  return acc;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-size_t smem_bytes(int lk, int e) {
-  const int ldk = lk | 1;
-  return sizeof(float) * (size_t)(e * ldk + lk * e + kWarps * e + kWarps * kMaxLk);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename T, int EP>
+__global__ void __launch_bounds__(kMaxThreads)
 bd_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o,
                         int H, int Lq, int Lk, int E, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ldk = Lk | 1;           // odd row stride: conflict-free K^T stores and reads
-  float* kT = smem;                 // [E][ldk]      K transposed
-  float* vs = kT + E * ldk;         // [Lk][E]
-  float* qs = vs + Lk * E;          // [kWarps][E]   one query row per warp
-  float* ps = qs + kWarps * E;      // [kWarps][kMaxLk] that row's probabilities
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [Lk][EP]
+  float* vs = ks + Lk * EP;                     // [Lk][EP]
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
@@ -87,80 +89,68 @@ bd_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (size_t)b * Lk * row + (size_t)h * E;
   T* ob = o + (size_t)b * Lq * row + (size_t)h * E;
 
-  for (int t = threadIdx.x; t < Lk * E; t += blockDim.x) {
-    const int j = t / E, e = t - j * E;
-    kT[e * ldk + j] = to_f32(kb[j * row + e]);
-    vs[j * E + e] = to_f32(vb[j * row + e]);
+  for (int t = threadIdx.x; t < Lk * EP; t += blockDim.x) {
+    const int j = t / EP, e = t - j * EP;
+    ks[t] = e < E ? to_f32(kb[j * row + e]) : 0.f;
+    vs[t] = e < E ? to_f32(vb[j * row + e]) : 0.f;
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qw = qs + warp * E;
-  float* pw = ps + warp * kMaxLk;
-  for (int i = warp; i < Lq; i += kWarps) {
-    for (int e = lane; e < E; e += 32) qw[e] = to_f32(qb[i * row + e]);
-    __syncwarp();
+  for (int i = threadIdx.x; i < Lq; i += blockDim.x) {
+    float qr[EP];
+#pragma unroll
+    for (int e = 0; e < EP; ++e) qr[e] = e < E ? to_f32(qb[i * row + e]) : 0.f;
     const int nk = causal ? min(i + 1, Lk) : Lk;
 
-    float s[kMaxLk / 32];
     float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < kMaxLk / 32; ++c) {
-      const int j = lane + 32 * c;
-      s[c] = -INFINITY;
-      if (j < nk) {
-        float dot = 0.f;
-        for (int e = 0; e < E; ++e) dot = fmaf(qw[e], kT[e * ldk + j], dot);
-        s[c] = dot * scale;
-        m = fmaxf(m, s[c]);
-      }
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxLk / 32; ++c) {
-      const int j = lane + 32 * c;
-      if (j < nk) {
-        const float p = expf(s[c] - m);
-        pw[j] = p;
-        sum += p;
-      }
-    }
-    const float inv = 1.f / warp_sum(sum);
-    __syncwarp();
+    for (int j = 0; j < nk; ++j) m = fmaxf(m, dot_row<EP>(qr, ks + j * EP) * scale);
 
-    if (32 % E == 0) {
-      // E a power of two <= 32: 32/E lane groups each sum a stride of keys,
-      // then an xor-shuffle adds the groups.
-      const int groups = 32 / E, e = lane % E;
-      float acc = 0.f;
-      for (int j = lane / E; j < nk; j += groups) acc = fmaf(pw[j], vs[j * E + e], acc);
-      for (int off = 16; off >= E; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane < E) ob[i * row + e] = from_f32<T>(acc * inv);
-    } else {
-      for (int e = lane; e < E; e += 32) {
-        float acc = 0.f;
-        for (int j = 0; j < nk; ++j) acc = fmaf(pw[j], vs[j * E + e], acc);
-        ob[i * row + e] = from_f32<T>(acc * inv);
+    float acc[EP];
+#pragma unroll
+    for (int e = 0; e < EP; ++e) acc[e] = 0.f;
+    float sum = 0.f;
+    for (int j = 0; j < nk; ++j) {
+      const float p = expf(dot_row<EP>(qr, ks + j * EP) * scale - m);
+      sum += p;
+      const float4* v4 = reinterpret_cast<const float4*>(vs + j * EP);
+#pragma unroll
+      for (int c = 0; c < EP / 4; ++c) {
+        const float4 x = v4[c];
+        acc[4 * c] = fmaf(p, x.x, acc[4 * c]);
+        acc[4 * c + 1] = fmaf(p, x.y, acc[4 * c + 1]);
+        acc[4 * c + 2] = fmaf(p, x.z, acc[4 * c + 2]);
+        acc[4 * c + 3] = fmaf(p, x.w, acc[4 * c + 3]);
       }
     }
-    __syncwarp();  // qw/pw are rewritten by this warp's next row
+    const float inv = 1.f / sum;
+#pragma unroll
+    for (int e = 0; e < EP; ++e)
+      if (e < E) ob[i * row + e] = from_f32<T>(acc[e] * inv);
   }
 }
 
-template <typename T>
+template <typename T, int EP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
                    int Lq, int Lk, int E, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes(Lk, E);
+  const size_t smem = sizeof(float) * 2 * (size_t)Lk * EP;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bd_attention_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        bd_attention_fwd_kernel<T, EP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  bd_attention_fwd_kernel<T><<<B * H, kWarps * 32, smem, stream>>>(
+  const int threads = min(kMaxThreads, (Lq + 31) / 32 * 32);
+  bd_attention_fwd_kernel<T, EP><<<B * H, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), H, Lq, Lk, E, scale, causal);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_e(const void* q, const void* k, const void* v, void* o, int B, int H,
+                     int Lq, int Lk, int E, float scale, int causal, cudaStream_t stream) {
+  if (E <= 16) return launch<T, 16>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, stream);
+  if (E <= 32) return launch<T, 32>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, stream);
+  return launch<T, 64>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, stream);
 }
 
 }  // namespace
@@ -174,8 +164,8 @@ extern "C" int bd_attention_fwd(const void* q, const void* k, const void* v, voi
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch<float>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, s);
-    case 1: return (int)launch<__nv_bfloat16>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, s);
+    case 0: return (int)launch_e<float>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, s);
+    case 1: return (int)launch_e<__nv_bfloat16>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

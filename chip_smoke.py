@@ -53,21 +53,49 @@ def fail(msg):
     raise SystemExit(1)
 
 
-def time_ms(torch, fn, reps=21, inner=10):
-    """Median over ``reps`` CUDA-event windows of ``inner`` calls, per call."""
-    for _ in range(3):
-        fn()
+def _median_ms(torch, run, reps, per_run):
+    """Median over ``reps`` CUDA-event windows around ``run()``, per call."""
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
-            fn()
+        run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end) / per_run)
     return statistics.median(times)
+
+
+def time_ms(torch, fn, reps=21, inner=20):
+    """Device time of one call: ``inner`` calls captured in a CUDA graph and
+    timed by replay. The graph removes the host's launch cost, which eager
+    calls at these sizes are bound by (see :func:`eager_ms`). Inputs stay in
+    the 50 MB L2 from call to call, as on the main path, where the
+    projections that make them run just before."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    return _median_ms(torch, graph.replay, reps, inner)
+
+
+def eager_ms(torch, fn, reps=21, inner=20):
+    """Time per eager call, host launch cost included."""
+    for _ in range(3):
+        fn()
+
+    def run():
+        for _ in range(inner):
+            fn()
+    return _median_ms(torch, run, reps, inner)
 
 
 def bound(l_q, l_k, causal, dtype):
@@ -100,7 +128,10 @@ def phase_kernel(torch, F, ops):
             ok = bool(torch.isfinite(got).all()) and torch.allclose(
                 got.float(), want.float(), rtol=rtol, atol=atol)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            ms = time_ms(torch, lambda: ops.bd_attention(q, k, v, causal=causal))
+            def kernel():
+                return ops.bd_attention(q, k, v, causal=causal)
+            ms = time_ms(torch, kernel)
+            kernel_eager_ms = eager_ms(torch, kernel)
             plain_ms = time_ms(torch, lambda: ops.bd_attention_reference(q, k, v, causal=causal))
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal))
@@ -109,14 +140,15 @@ def phase_kernel(torch, F, ops):
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
             row = dict(shape=label, dtype=dtype_name, l_q=l_q, l_k=l_k, causal=causal,
                        calls_per_batch=calls, max_abs_err=abs_err, max_rel_err=rel_err,
-                       rtol=rtol, atol=atol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       rtol=rtol, atol=atol, ms=ms, eager_ms=kernel_eager_ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms,
                        ops_ms=ops_ms)
             rows.append(row)
             print(f"kernel {label:22s} {dtype_name:8s} max_abs {abs_err:.3e} max_rel "
                   f"{rel_err:.3e} (rtol {rtol}, atol {atol}) {'ok' if ok else 'MISMATCH'} | "
-                  f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, sdpa "
-                  f"{lib_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({bound_by})",
+                  f"kernel {ms * 1e3:.1f} us (eager {kernel_eager_ms * 1e3:.1f}), plain "
+                  f"{plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({bound_by})",
                   flush=True)
             if not ok:
                 fail(f"kernel disagrees with its plain version at {label} {dtype_name}")
@@ -197,12 +229,24 @@ def phase_main_path(torch, ops, card, profile):
     if profile:
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(model, 7)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
-        (OUT / "profile_eval.txt").write_text(f"{card}\n{table}\n")
-        print(table, flush=True)
+        report = [card]
+        for name, m in (("kernel", model), ("plain", plain)):
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(m, 7)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            events = prof.key_averages()
+            busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+            line = (f"profile {name} path: one eval_chunk, wall {wall_us:.0f} us under the "
+                    f"profiler, device kernels {busy_us:.0f} us, busy share "
+                    f"{busy_us / wall_us:.3f}")
+            print(line, flush=True)
+            summary[f"profile_{name}"] = dict(wall_us=wall_us, device_busy_us=busy_us)
+            report += [line, events.table(sort_by="self_cuda_time_total", row_limit=25)]
+        (OUT / "profile_eval.txt").write_text("\n".join(report) + "\n")
     return dict(nmse=nmse, split=split, launches=launches, vs_plain_max_abs=err, **summary)
 
 
