@@ -4,11 +4,17 @@
 Routing of ``AttentionLayer`` with ``attn="full"``:
 
 - ``use_pallas=True`` and no attention maps requested: the hand-written
-  kernel's wrapper (``ops/cuda/bd_attention.py``), which launches the CUDA
-  kernel on CUDA tensors (raising on a shape it does not take) and runs its
-  plain version on CPU tensors.
+  kernels' wrapper (``ops/cuda/bd_attention.py``), which launches the CUDA
+  forward kernel, and the backward kernel when a gradient is needed, on CUDA
+  tensors (raising on a shape they do not take) and runs their plain
+  versions on CPU tensors.
 - otherwise: :func:`full_attention`, the plain torch counterpart of the JAX
   package's XLA path, kept as the reference.
+
+In train mode with ``dropout`` > 0 both routes draw one seed per call from
+the step's generator and drop attention probabilities with that seed's
+Philox mask (``dropout_keep_mask``), so the two routes draw the same masks
+from the same generator.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.cuda.bd_attention import bd_attention
+from ..ops.cuda.bd_attention import bd_attention, draw_seed, dropout_keep_mask
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -31,16 +37,25 @@ def causal_mask(l_q: int, l_k: int, device=None) -> torch.Tensor:
 
 
 def full_attention(q, k, v, *, mask_flag: bool, scale: Optional[float] = None,
+                   dropout: float = 0.0, generator: torch.Generator | None = None,
                    return_attn: bool = False):
-    """Dense softmax attention over ``[B, L, H, E]`` tensors, without
-    dropout (reference ``FullAttention.forward``, ``attn.py:54-82``)."""
-    e = q.shape[-1]
+    """Dense softmax attention over ``[B, L, H, E]`` tensors (reference
+    ``FullAttention.forward``, ``attn.py:54-82``). With ``dropout`` > 0 the
+    probabilities are dropped by the Philox mask of a seed drawn from
+    ``generator`` and kept ones scaled by ``1 / (1 - dropout)`` (JAX
+    ``models/attention.py:69-73``, which draws Bernoulli bits instead)."""
+    b, l, h, e = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(e)
     scores = torch.einsum("blhe,bshe->bhls", q, k)
     if mask_flag:
-        scores = scores.masked_fill(causal_mask(q.shape[1], k.shape[1], q.device), NEG_INF)
+        scores = scores.masked_fill(causal_mask(l, k.shape[1], q.device), NEG_INF)
     a = torch.softmax(scale * scores, dim=-1)
-    out = torch.einsum("bhls,bshd->blhd", a, v)
+    a_dropped = a
+    if dropout > 0.0:
+        keep = dropout_keep_mask(draw_seed(generator, q.device), b, h, l, k.shape[1],
+                                 1.0 - dropout)
+        a_dropped = torch.where(keep, a / (1.0 - dropout), 0.0)
+    out = torch.einsum("bhls,bshd->blhd", a_dropped, v)
     return (out, a) if return_attn else (out, None)
 
 
@@ -52,7 +67,7 @@ class AttentionLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, *, attn: str = "full",
                  mask_flag: bool = False, mix: bool = False,
                  output_attention: bool = False, use_pallas: bool = False,
-                 fuse_qkv: bool = False, lsq_nbits: int | None = None):
+                 fuse_qkv: bool = False, lsq_nbits: int | None = None, dropout: float = 0.0):
         super().__init__()
         if attn != "full":
             raise NotImplementedError(
@@ -68,23 +83,30 @@ class AttentionLayer(nn.Module):
         self.mix = mix
         self.output_attention = output_attention
         self.use_pallas = use_pallas
+        self.dropout = dropout
         d = (d_model // n_heads) * n_heads
         self.query = nn.Linear(d_model, d)
         self.key = nn.Linear(d_model, d)
         self.value = nn.Linear(d_model, d)
         self.out = nn.Linear(d, d_model)
 
-    def forward(self, queries, keys, values):
+    def forward(self, queries, keys, values, generator: torch.Generator | None = None):
         b, l, _ = queries.shape
         s = keys.shape[1]
         h = self.n_heads
         q = self.query(queries).view(b, l, h, -1)
         k = self.key(keys).view(b, s, h, -1)
         v = self.value(values).view(b, s, h, -1)
+        drop = self.dropout if self.training else 0.0
+        if drop > 0.0 and generator is None:
+            raise ValueError("attention dropout in train mode needs a torch.Generator")
         if self.use_pallas and not self.output_attention:
-            out, attn = bd_attention(q, k, v, causal=self.mask_flag), None
+            seed = draw_seed(generator, q.device) if drop > 0.0 else None
+            out = bd_attention(q, k, v, causal=self.mask_flag, dropout=drop, seed=seed)
+            attn = None
         else:
-            out, attn = full_attention(q, k, v, mask_flag=self.mask_flag,
+            out, attn = full_attention(q, k, v, mask_flag=self.mask_flag, dropout=drop,
+                                       generator=generator,
                                        return_attn=self.output_attention)
         if self.mix:
             # Reference transposes [B, L, H, D] -> [B, H, L, D] then flattens,

@@ -3,41 +3,51 @@
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from .attention import AttentionLayer
+from .dropout import dropout
 from .encoder import LN_EPS, FeedForward
 
 
 class DecoderLayer(nn.Module):
     """Causal self-attention (``mix``) -> cross-attention (``mix=False``) ->
-    FFN, each with a residual; post-norm after each (norm1..3), or
-    ``pre_norm`` before each."""
+    FFN, each with a residual (dropout on the two attention outputs, JAX
+    ``decoder.py:58, 78``); post-norm after each (norm1..3), or ``pre_norm``
+    before each."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str, *,
                  mix: bool = True, use_pallas: bool = False, pre_norm: bool = False,
-                 **attn_kwargs):
+                 dropout: float = 0.0, **attn_kwargs):
         super().__init__()
         self.pre_norm = pre_norm
+        self.dropout = dropout
         self.self_attention = AttentionLayer(
-            d_model, n_heads, mask_flag=True, mix=mix, use_pallas=use_pallas, **attn_kwargs)
+            d_model, n_heads, mask_flag=True, mix=mix, use_pallas=use_pallas,
+            dropout=dropout, **attn_kwargs)
         self.cross_attention = AttentionLayer(
             d_model, n_heads, mask_flag=False, mix=False, use_pallas=use_pallas,
-            **attn_kwargs)
-        self.ffn = FeedForward(d_model, d_ff, activation)
+            dropout=dropout, **attn_kwargs)
+        self.ffn = FeedForward(d_model, d_ff, activation, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, cross):
+    def _residual(self, x, attn_out, norm, generator):
+        x = x + dropout(attn_out, self.dropout, generator, self.training)
+        return x if self.pre_norm else norm(x)
+
+    def forward(self, x, cross, generator: torch.Generator | None = None):
+        s_in = self.norm1(x) if self.pre_norm else x
+        x = self._residual(x, self.self_attention(s_in, s_in, s_in, generator)[0],
+                           self.norm1, generator)
+        c_in = self.norm2(x) if self.pre_norm else x
+        x = self._residual(x, self.cross_attention(c_in, cross, cross, generator)[0],
+                           self.norm2, generator)
         if self.pre_norm:
-            s_in = self.norm1(x)
-            x = x + self.self_attention(s_in, s_in, s_in)[0]
-            x = x + self.cross_attention(self.norm2(x), cross, cross)[0]
-            return x + self.ffn(self.norm3(x))
-        x = self.norm1(x + self.self_attention(x, x, x)[0])
-        x = self.norm2(x + self.cross_attention(x, cross, cross)[0])
-        return self.norm3(x + self.ffn(x))
+            return x + self.ffn(self.norm3(x), generator)
+        return self.norm3(x + self.ffn(x, generator))
 
 
 class Decoder(nn.Module):
@@ -50,7 +60,7 @@ class Decoder(nn.Module):
             self.add_module(f"layer_{i}", DecoderLayer(d_model, **layer_kwargs))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, cross):
+    def forward(self, x, cross, generator: torch.Generator | None = None):
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, cross)
+            x = getattr(self, f"layer_{i}")(x, cross, generator)
         return self.norm(x)

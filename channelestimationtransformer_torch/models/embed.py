@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dropout import dropout
 from .init import variance_scaling_
 
 
@@ -55,15 +56,27 @@ class TokenEmbedding(nn.Module):
 
 
 class DataEmbedding(nn.Module):
-    """Token conv embedding + sinusoid positions (the reference's unused
-    ``x_mark`` path is dropped, as in the JAX package)."""
+    """Token conv embedding + sinusoid positions, then dropout (the
+    reference's unused ``x_mark`` path is dropped, as in the JAX package).
 
-    def __init__(self, c_in: int, d_model: int):
+    The position table is built once per (length, dtype, device) and kept,
+    as the JAX package's is constant-folded: after the first call for a key,
+    ``forward`` copies nothing from the host."""
+
+    def __init__(self, c_in: int, d_model: int, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout = dropout
         self.token = TokenEmbedding(c_in, d_model)
+        self._tables: dict = {}
 
-    def forward(self, x):
-        pe = sinusoid_position_encoding(x.shape[-2], self.d_model, dtype=x.dtype,
-                                        device=x.device)
-        return self.token(x) + pe
+    def position_table(self, length: int, dtype, device) -> torch.Tensor:
+        key = (length, dtype, torch.device(device))
+        if key not in self._tables:
+            self._tables[key] = sinusoid_position_encoding(length, self.d_model, dtype=dtype,
+                                                           device=device)
+        return self._tables[key]
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        out = self.token(x) + self.position_table(x.shape[-2], x.dtype, x.device)
+        return dropout(out, self.dropout, generator, self.training)

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import AttentionLayer
+from .dropout import dropout
 from .embed import circular_conv1d
 from .init import variance_scaling_
 
@@ -31,6 +32,28 @@ def activation_fn(name: str):
     return (lambda x: F.gelu(x, approximate="tanh")) if name == "gelu" else F.relu
 
 
+class BatchNorm(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` over ``[B, C, L]`` with flax ``nn.BatchNorm``'s
+    train-mode semantics. It normalises with the batch mean and the biased
+    batch variance ``E[x^2] - E[x]^2`` (clipped at 0), and it updates
+    ``running_var`` with that biased variance:
+    ``running = (1 - momentum) * running + momentum * batch``, momentum 0.1
+    here being flax's 0.9. ``nn.BatchNorm1d`` updates ``running_var`` with
+    the unbiased variance instead. Eval mode is ``nn.BatchNorm1d``'s."""
+
+    def forward(self, y):
+        if not self.training:
+            return super().forward(y)
+        mean = y.mean(dim=(0, 2))
+        var = torch.clamp_min(torch.square(y).mean(dim=(0, 2)) - torch.square(mean), 0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (y - mean[:, None]) * mul[:, None] + self.bias[:, None]
+
+
 class ConvLayer(nn.Module):
     """Distilling layer: circular conv k=3 + bias -> BatchNorm (eps 1e-5) ->
     ELU -> MaxPool(3, 2, 1), halving the sequence."""
@@ -39,7 +62,7 @@ class ConvLayer(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_model, d_model, 3))
         self.bias = nn.Parameter(torch.zeros(d_model))
-        self.norm = nn.BatchNorm1d(d_model, eps=1e-5, momentum=0.1)
+        self.norm = BatchNorm(d_model, eps=1e-5, momentum=0.1)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -53,16 +76,19 @@ class ConvLayer(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Position-wise FFN: the reference's two k=1 convs as dense layers."""
+    """Position-wise FFN: the reference's two k=1 convs as dense layers, with
+    dropout after the activation and after ``conv2`` (JAX ``encoder.py:84-86``)."""
 
-    def __init__(self, d_model: int, d_ff: int, activation: str):
+    def __init__(self, d_model: int, d_ff: int, activation: str, dropout: float = 0.0):
         super().__init__()
         self.conv1 = nn.Linear(d_model, d_ff)
         self.conv2 = nn.Linear(d_ff, d_model)
         self.act = activation_fn(activation)
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.conv2(self.act(self.conv1(x)))
+    def forward(self, x, generator: torch.Generator | None = None):
+        y = dropout(self.act(self.conv1(x)), self.dropout, generator, self.training)
+        return dropout(self.conv2(y), self.dropout, generator, self.training)
 
 
 class EncoderLayer(nn.Module):
@@ -72,25 +98,26 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str, *,
                  output_attention: bool = False, use_pallas: bool = False,
-                 pre_norm: bool = False, **attn_kwargs):
+                 pre_norm: bool = False, dropout: float = 0.0, **attn_kwargs):
         super().__init__()
         self.pre_norm = pre_norm
+        self.dropout = dropout
         self.attention = AttentionLayer(
-            d_model, n_heads, mask_flag=False, mix=False,
-            output_attention=output_attention, use_pallas=use_pallas, **attn_kwargs)
-        self.ffn = FeedForward(d_model, d_ff, activation)
+            d_model, n_heads, mask_flag=False, mix=False, output_attention=output_attention,
+            use_pallas=use_pallas, dropout=dropout, **attn_kwargs)
+        self.ffn = FeedForward(d_model, d_ff, activation, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
+        a_in = self.norm1(x) if self.pre_norm else x
+        new_x, attn = self.attention(a_in, a_in, a_in, generator)
+        # Residual dropout after attention (JAX encoder.py:132).
+        x = x + dropout(new_x, self.dropout, generator, self.training)
         if self.pre_norm:
-            a_in = self.norm1(x)
-            new_x, attn = self.attention(a_in, a_in, a_in)
-            x = x + new_x
-            return x + self.ffn(self.norm2(x)), attn
-        new_x, attn = self.attention(x, x, x)
-        x = self.norm1(x + new_x)
-        return self.norm2(x + self.ffn(x)), attn
+            return x + self.ffn(self.norm2(x), generator), attn
+        x = self.norm1(x)
+        return self.norm2(x + self.ffn(x, generator)), attn
 
 
 class Encoder(nn.Module):
@@ -108,10 +135,10 @@ class Encoder(nn.Module):
             self.add_module(f"distil_{i}", ConvLayer(d_model))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         attns = []
         for i in range(self.num_layers):
-            x, attn = getattr(self, f"layer_{i}")(x)
+            x, attn = getattr(self, f"layer_{i}")(x, generator)
             attns.append(attn)
             if i < self.num_distil:
                 x = getattr(self, f"distil_{i}")(x)
@@ -128,11 +155,11 @@ class EncoderStack(nn.Module):
         for i, el in enumerate(e_layers):
             self.add_module(f"encoder_{i}", Encoder(el, d_model, **encoder_kwargs))
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         outs, attns = [], []
         l = x.shape[1]
         for i in range(self.num_encoders):
-            x_s, attn = getattr(self, f"encoder_{i}")(x[:, l - l // 2**i:])
+            x_s, attn = getattr(self, f"encoder_{i}")(x[:, l - l // 2**i:], generator)
             outs.append(x_s)
             attns.append(attn)
         return torch.cat(outs, dim=1), attns

@@ -3,9 +3,10 @@
 
 Forward contract: ``model(enc_in [B, seq_len, F], dec_in [B, label_len +
 pred_len, F]) -> pred [B, pred_len, c_out]`` (plus attention maps with
-``output_attention``). This slice of the port serves: the models run in
-``eval()`` mode only (training, with dropout and BatchNorm statistics, is
-the next slice).
+``output_attention``). In ``train()`` mode every dropout (embeddings,
+attention probabilities, FFN, residuals) draws from the ``generator``
+passed to ``forward``, and the distilling BatchNorms use and update batch
+statistics; in ``eval()`` mode the forward is deterministic.
 """
 
 from __future__ import annotations
@@ -32,31 +33,33 @@ class InformerBase(nn.Module):
                 f"dtype={cfg.dtype!r}: the port runs float32 activations only so "
                 "far (ROADMAP Queue 1: bf16 activations)")
         self.config = cfg
-        self.enc_embedding = DataEmbedding(cfg.enc_in, cfg.d_model)
-        self.dec_embedding = DataEmbedding(cfg.dec_in, cfg.d_model)
+        self.enc_embedding = DataEmbedding(cfg.enc_in, cfg.d_model, cfg.dropout)
+        self.dec_embedding = DataEmbedding(cfg.dec_in, cfg.d_model, cfg.dropout)
         self.encoder = self._encoder(dict(
             n_heads=cfg.n_heads, d_ff=cfg.d_ff, activation=cfg.activation,
             attn=cfg.attn, distil=cfg.distil, output_attention=cfg.output_attention,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
-            lsq_nbits=cfg.lsq_nbits))
+            lsq_nbits=cfg.lsq_nbits, dropout=cfg.dropout))
         self.decoder = Decoder(
             cfg.d_layers, cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
             activation=cfg.activation, attn=cfg.attn, mix=cfg.mix,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
-            lsq_nbits=cfg.lsq_nbits)
+            lsq_nbits=cfg.lsq_nbits, dropout=cfg.dropout)
         self.projection = nn.Linear(cfg.d_model, cfg.c_out)
 
     def _encoder(self, kwargs) -> nn.Module:
         raise NotImplementedError
 
-    def forward(self, x_enc, x_dec):
-        if self.training:
-            raise NotImplementedError(
-                "the port serves only so far: call .eval() (ROADMAP Queue 1: "
-                "training step)")
+    def forward(self, x_enc, x_dec, generator: torch.Generator | None = None):
+        """``generator`` (on the inputs' device) feeds every dropout and
+        every attention-kernel seed in train mode; it is required there when
+        ``dropout`` > 0 and unused in eval mode."""
         cfg = self.config
-        enc_out, attns = self.encoder(self.enc_embedding(x_enc))
-        dec_out = self.decoder(self.dec_embedding(x_dec), enc_out)
+        if self.training and cfg.dropout > 0.0 and generator is None:
+            raise ValueError("train mode with dropout > 0 needs a torch.Generator "
+                             "(model(x_enc, x_dec, generator=...))")
+        enc_out, attns = self.encoder(self.enc_embedding(x_enc, generator), generator)
+        dec_out = self.decoder(self.dec_embedding(x_dec, generator), enc_out, generator)
         pred = self.projection(dec_out)[:, -cfg.pred_len:, :]
         return (pred, attns) if cfg.output_attention else pred
 

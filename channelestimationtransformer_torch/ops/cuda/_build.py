@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled for
 ``sm_90a`` into ``channelestimationtransformer_torch/build/`` (git-ignored)
 at first use, never at import, so modules that wrap a kernel import on a
 machine without ``nvcc``. The library's file name carries a hash of its
-source, so an edited source is rebuilt and a stale build is never loaded.
+source and of the shared headers (``csrc/*.cuh``), so an edited source is
+rebuilt and a stale build is never loaded.
 """
 
 from __future__ import annotations
@@ -39,7 +40,10 @@ def build(name: str) -> tuple[Path, str]:
     library's path and ``nvcc``'s log (``-Xptxas -v``: registers, shared
     memory, spills), empty when the build was already there."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    sha = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    digest = sha.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib, ""

@@ -1,14 +1,16 @@
 // Block-diagonal attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel ops/pallas/bd_attention.py:_fwd_kernel (launched by
-// _fwd_call) of channelestimationtransformer_tpu, with dropout 0. For each
-// (batch, head):
+// _fwd_call) of channelestimationtransformer_tpu. For each (batch, head):
 //
-//     out = softmax(scale * Q K^T, masked) V
+//     out = dropout(softmax(scale * Q K^T, masked)) V
 //
 // over [B, L, H, E] tensors (E == D), f32 or bf16 in, f32 math, output in the
 // input dtype. Keys at positions >= l_k do not exist here (no padding in
-// device memory); with `causal`, key column > query row is excluded.
+// device memory); with `causal`, key column > query row is excluded. With a
+// seed (training), probabilities are dropped by the Philox mask of
+// bd_attention_common.cuh and kept ones scaled by 1 / keep_prob, and the row log-sum-exp
+// lse [B, H, Lq] (f32) may be written for the backward kernel.
 //
 // The TPU kernel packs all H heads into one block-diagonal [Lq, H*128]
 // matmul to fill the 128-wide MXU, doing ~8x the needed FLOPs. None of that
@@ -18,7 +20,8 @@
 // registers, and every thread of a warp reads the same K or V row, a
 // broadcast float4 load. Two passes over the keys: the row maximum, then
 // p = exp(s - max), the sum and p * V (the scores are recomputed rather than
-// stored).
+// stored). Dropout costs one Philox call per four (row, key) pairs, made by
+// the thread that owns the row; the mask is never stored.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores):
 // at the flagship encoder shape (B 256, H 8, E 16, Lq = Lk = 90, f32) the
@@ -39,44 +42,20 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bd_attention_common.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 128;  // query rows per pass of a block
 constexpr int kMaxLk = 128;       // key length limit (the TPU kernel's LP)
 constexpr int kMaxE = 64;         // head width limit
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <int EP>
-__device__ __forceinline__ float dot_row(const float (&q)[EP], const float* __restrict__ row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < EP / 4; ++c) {
-    const float4 k = r4[c];
-    acc = fmaf(q[4 * c], k.x, acc);
-    acc = fmaf(q[4 * c + 1], k.y, acc);
-    acc = fmaf(q[4 * c + 2], k.z, acc);
-    acc = fmaf(q[4 * c + 3], k.w, acc);
-  }
-  return acc;
-}
-
-template <typename T, int EP>
+template <typename T, int EP, bool DROPOUT, bool LSE>
 __global__ void __launch_bounds__(kMaxThreads)
 bd_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o,
-                        int H, int Lq, int Lk, int E, float scale, int causal) {
+                        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                        const long long* __restrict__ seed, int H, int Lq, int Lk, int E,
+                        float scale, int causal, unsigned thresh, float inv_keep) {
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // [Lk][EP]
   float* vs = ks + Lk * EP;                     // [Lk][EP]
@@ -95,6 +74,7 @@ bd_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     vs[t] = e < E ? to_f32(vb[j * row + e]) : 0.f;
   }
   __syncthreads();
+  const uint2 key = DROPOUT ? philox_key(seed) : make_uint2(0u, 0u);
 
   for (int i = threadIdx.x; i < Lq; i += blockDim.x) {
     float qr[EP];
@@ -109,63 +89,97 @@ bd_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < EP; ++e) acc[e] = 0.f;
     float sum = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float p = expf(dot_row<EP>(qr, ks + j * EP) * scale - m);
-      sum += p;
-      const float4* v4 = reinterpret_cast<const float4*>(vs + j * EP);
+    if constexpr (!DROPOUT) {
+      for (int j = 0; j < nk; ++j) {
+        const float p = expf(dot_row<EP>(qr, ks + j * EP) * scale - m);
+        sum += p;
+        axpy_row<EP>(p, vs + j * EP, acc);
+      }
+    } else {
+      for (int j0 = 0; j0 < nk; j0 += 4) {
+        const unsigned keep = keep_bits4(j0, i, blockIdx.x, key, thresh);
 #pragma unroll
-      for (int c = 0; c < EP / 4; ++c) {
-        const float4 x = v4[c];
-        acc[4 * c] = fmaf(p, x.x, acc[4 * c]);
-        acc[4 * c + 1] = fmaf(p, x.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(p, x.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(p, x.w, acc[4 * c + 3]);
+        for (int t = 0; t < 4; ++t) {
+          const int j = j0 + t;
+          if (j < nk) {
+            const float p = expf(dot_row<EP>(qr, ks + j * EP) * scale - m);
+            sum += p;
+            if ((keep >> t) & 1u) axpy_row<EP>(p, vs + j * EP, acc);
+          }
+        }
       }
     }
-    const float inv = 1.f / sum;
+    const float inv = (DROPOUT ? inv_keep : 1.f) / sum;
 #pragma unroll
     for (int e = 0; e < EP; ++e)
       if (e < E) ob[i * row + e] = from_f32<T>(acc[e] * inv);
+    if constexpr (LSE) lse[(size_t)blockIdx.x * Lq + i] = m + logf(sum);
   }
 }
 
-template <typename T, int EP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int Lq, int Lk, int E, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 2 * (size_t)Lk * EP;
+struct Args {
+  const void *q, *k, *v;
+  void *o;
+  float* lse;
+  const long long* seed;
+  int B, H, Lq, Lk, E;
+  float scale;
+  int causal;
+  unsigned thresh;
+  float inv_keep;
+};
+
+template <typename T, int EP, bool DROPOUT, bool LSE>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * (size_t)a.Lk * EP;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bd_attention_fwd_kernel<T, EP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(bd_attention_fwd_kernel<T, EP, DROPOUT, LSE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const int threads = min(kMaxThreads, (Lq + 31) / 32 * 32);
-  bd_attention_fwd_kernel<T, EP><<<B * H, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Lq, Lk, E, scale, causal);
+  const int threads = min(kMaxThreads, (a.Lq + 31) / 32 * 32);
+  bd_attention_fwd_kernel<T, EP, DROPOUT, LSE><<<a.B * a.H, threads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.o), a.lse, a.seed, a.H, a.Lq, a.Lk, a.E, a.scale, a.causal, a.thresh,
+      a.inv_keep);
   return cudaGetLastError();
 }
 
+template <typename T, bool DROPOUT, bool LSE>
+cudaError_t launch_e(const Args& a, cudaStream_t stream) {
+  if (a.E <= 16) return launch<T, 16, DROPOUT, LSE>(a, stream);
+  if (a.E <= 32) return launch<T, 32, DROPOUT, LSE>(a, stream);
+  return launch<T, 64, DROPOUT, LSE>(a, stream);
+}
+
+// The eval path (no dropout, no lse) gets a variant with neither in its code.
 template <typename T>
-cudaError_t launch_e(const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int Lq, int Lk, int E, float scale, int causal, cudaStream_t stream) {
-  if (E <= 16) return launch<T, 16>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, stream);
-  if (E <= 32) return launch<T, 32>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, stream);
-  return launch<T, 64>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, stream);
+cudaError_t launch_d(const Args& a, cudaStream_t stream) {
+  if (a.seed != nullptr)
+    return a.lse != nullptr ? launch_e<T, true, true>(a, stream)
+                            : launch_e<T, true, false>(a, stream);
+  return a.lse != nullptr ? launch_e<T, false, true>(a, stream)
+                          : launch_e<T, false, false>(a, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success);
+// dtype: 0 = float32, 1 = bfloat16. `lse` may be null (not written); `seed`
+// null means no dropout, else keep iff the Philox word < `thresh` and scale
+// kept probabilities by `inv_keep`. Returns a cudaError_t (0 on success);
 // launches on `stream` and does not synchronise.
-extern "C" int bd_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                int H, int Lq, int Lk, int E, float scale, int causal,
-                                int dtype, void* stream) {
+extern "C" int bd_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                float* lse, const long long* seed, int B, int H, int Lq,
+                                int Lk, int E, float scale, int causal, unsigned thresh,
+                                float inv_keep, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || Lk > kMaxLk || E <= 0 || E > kMaxE)
     return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, o, lse, seed, B, H, Lq, Lk, E, scale, causal, thresh, inv_keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_e<float>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, s);
-    case 1: return (int)launch_e<__nv_bfloat16>(q, k, v, o, B, H, Lq, Lk, E, scale, causal, s);
+    case 0: return (int)launch_d<float>(a, s);
+    case 1: return (int)launch_d<__nv_bfloat16>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,64 @@
+"""Checkpoint save/restore with step-exact resume (JAX counterpart
+``train/checkpoint.py``; reference ``FullPrecision/QuantizationAwareTraining.py:301-313``
+and latest-checkpoint globbing, ``config.py:36-50``).
+
+A checkpoint holds the model's ``state_dict`` (parameters and BatchNorm
+statistics), the optimizer's, the update count and the epoch, in torch's own
+format (``torch.save``). Writes are atomic (tmp + rename), so an interrupted
+job can always resume from the newest file. The JAX package's flax-msgpack
+checkpoints are not read here: a JAX checkpoint reaches the port through
+``utils/convert.py:from_flax`` on arrays that a caller loaded with flax.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+
+def checkpoint_path(folder: str, basename: str, epoch) -> str:
+    return str(Path(folder) / f"{basename}{epoch}.pt")
+
+
+def save_checkpoint(state, folder: str, basename: str, epoch, *,
+                    extra: Optional[dict] = None) -> str:
+    """Atomically write a :class:`~.trainer.TrainState` (+ optional metadata)."""
+    os.makedirs(folder, exist_ok=True)
+    payload = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+               "step": state.step, "epoch": epoch}
+    if extra:
+        payload["extra"] = extra
+    path = checkpoint_path(folder, basename, epoch)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str, state):
+    """Restore into ``state`` in place; returns ``(state, epoch, extra)``."""
+    device = next(state.model.parameters()).device
+    payload = torch.load(path, map_location=device, weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = payload["step"]
+    return state, payload.get("epoch"), payload.get("extra")
+
+
+def latest_checkpoint(folder: str, basename: str) -> Optional[str]:
+    """Newest checkpoint by numeric epoch suffix (reference
+    ``latest_weights_file_path``, ``FullPrecision/config.py:44-50``)."""
+    p = Path(folder)
+    if not p.exists():
+        return None
+    best, best_epoch = None, -1
+    pat = re.compile(re.escape(basename) + r"(\d+)\.pt$")
+    for f in p.glob(f"{basename}*.pt"):
+        m = pat.match(f.name)
+        if m and int(m.group(1)) > best_epoch:
+            best, best_epoch = str(f), int(m.group(1))
+    return best

@@ -18,6 +18,7 @@ from channelestimationtransformer_tpu.ops.pallas.bd_attention import bd_attentio
 from channelestimationtransformer_torch.models.attention import full_attention
 from channelestimationtransformer_torch.ops.cuda.bd_attention import (
     bd_attention,
+    bd_attention_fwd,
     bd_attention_reference,
     supported_shape,
 )
@@ -48,9 +49,9 @@ def test_cpu_path_matches_pallas_interpret(b, l_q, l_k, h, e, causal):
                                        causal=causal, interpret=True))
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     assert supported_shape(tq, tk, tv)
-    before = bd_attention.launches
+    before = bd_attention_fwd.launches
     got = bd_attention(tq, tk, tv, causal=causal)
-    assert bd_attention.launches == before  # the CPU path launches nothing
+    assert bd_attention_fwd.launches == before  # the CPU path launches nothing
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
 
 

@@ -1,14 +1,18 @@
-"""The CUDA attention kernel against its plain version, on the card.
+"""The CUDA attention kernels (forward, with and without dropout, and
+backward) against their plain versions, on the card.
 
 Marked ``cuda``; each test skips when no card is present. This file imports
 only torch and numpy, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: float32 rtol 1e-4 / atol 1e-5 (the kernel sums in another order
-than the plain version's matmuls, both in f32); bfloat16 is checked in its
-own dtype against the plain version on the upcast inputs, rtol/atol 1e-2
-(one bf16 rounding of the output, 2^-8 relative).
+Tolerances: forward float32 rtol 1e-4 / atol 1e-5 (the kernel sums in
+another order than the plain version's matmuls, both in f32); backward
+float32 rtol 2e-4 / atol 2e-5 (longer sums: dK and dV run over up to 512
+query rows); bfloat16 is checked in its own dtype against the plain version
+on the same bf16 inputs, rtol/atol 1e-2 (one bf16 rounding of the result,
+2^-8 relative). The dropout mask is compared exactly: both run the same
+Philox.
 """
 
 import numpy as np
@@ -17,8 +21,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from channelestimationtransformer_torch.ops.cuda.bd_attention import (
+    _reference_forward,
     bd_attention,
+    bd_attention_bwd,
+    bd_attention_bwd_reference,
+    bd_attention_fwd,
     bd_attention_reference,
+    dropout_keep_mask,
 )
 
 pytestmark = pytest.mark.cuda
@@ -38,7 +47,7 @@ def _qkv(b, l_q, l_k, h, e, dtype, device, seed=0):
                  for l in (l_q, l_k, l_k))
 
 
-@pytest.mark.parametrize("b,l_q,l_k,h,e,causal", [
+SHAPES = [
     (256, 90, 90, 8, 16, False),
     (256, 15, 15, 8, 16, True),
     (256, 15, 24, 8, 16, False),
@@ -46,14 +55,30 @@ def _qkv(b, l_q, l_k, h, e, dtype, device, seed=0):
     (2, 128, 128, 2, 64, True),   # largest E: dynamic shared memory > 48 KB
     (2, 512, 100, 2, 24, False),  # long query tiled over the warps; E not a power of two
     (3, 1, 1, 1, 1, True),
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _seed(device, value=0x1234_5678_9ABC):
+    return torch.tensor([value], dtype=torch.int64, device=device)
+
+
+def _assert_close(got, want, dtype, tol=(1e-4, 1e-5)):
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+    else:
+        torch.testing.assert_close(got, want.to(dtype), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,causal", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, causal, dtype):
     q, k, v = _qkv(b, l_q, l_k, h, e, dtype, cuda)
-    before = bd_attention.launches
+    before = bd_attention_fwd.launches
     got = bd_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert bd_attention.launches == before + 1
+    assert bd_attention_fwd.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = bd_attention_reference(q.float(), k.float(), v.float(), causal=causal)
     if dtype == torch.float32:
@@ -74,3 +99,100 @@ def test_kernel_raises_instead_of_falling_back(cuda):
         bd_attention(q, k[:, :1].expand(2, 200, 2, 16).contiguous(),
                      v[:, :1].expand(2, 200, 2, 16).contiguous())
     assert np.isfinite(bd_attention(q, k, v).cpu().numpy()).all()
+    with pytest.raises(ValueError, match="seed"):
+        bd_attention(q, k, v, dropout=0.1)
+    with pytest.raises(ValueError, match="seed"):
+        bd_attention(q, k, v, dropout=0.1, seed=_seed("cpu"))
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,causal", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_with_dropout_matches_plain_version(cuda, b, l_q, l_k, h, e, causal, dtype):
+    q, k, v = _qkv(b, l_q, l_k, h, e, dtype, cuda, seed=1)
+    seed = _seed(cuda)
+    got, lse = bd_attention_fwd(q, k, v, seed, causal=causal, scale=e ** -0.5, dropout=0.05,
+                                with_lse=True)
+    want, want_lse = _reference_forward(q.float(), k.float(), v.float(), causal=causal,
+                                        scale=e ** -0.5, dropout=0.05, seed=seed,
+                                        with_lse=True)
+    _assert_close(got, want, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,causal", [(256, 90, 90, 8, 16, False),
+                                                  (256, 15, 15, 8, 16, True),
+                                                  (2, 512, 100, 2, 24, False)])
+def test_kernel_dropout_mask_is_the_plain_mask(cuda, b, l_q, l_k, h, e, causal):
+    """The kernel's mask read back through one-hot values: with V's row j
+    the unit vector of column j - e*g, output column c of pass g is
+    P_drop[:, e*g + c], nonzero exactly where the key is kept."""
+    q, k, _ = _qkv(b, l_q, l_k, h, e, torch.float32, cuda, seed=2)
+    seed = _seed(cuda, 987654321)
+    kept = torch.zeros(b, h, l_q, l_k, dtype=torch.bool, device=cuda)
+    for g in range(0, l_k, e):
+        v = torch.zeros(b, l_k, h, e, device=cuda)
+        cols = torch.arange(g, min(g + e, l_k), device=cuda)
+        v[:, cols, :, cols - g] = 1.0
+        out = bd_attention(q, k, v, causal=causal, dropout=0.3, seed=seed)
+        kept[..., g:g + e] = (out.permute(0, 2, 1, 3) != 0)[..., :len(cols)]
+    want = dropout_keep_mask(seed, b, h, l_q, l_k, 0.7)
+    if causal:
+        want &= ~torch.ones(l_q, l_k, dtype=torch.bool, device=cuda).triu(1)
+    assert torch.equal(kept, want)
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,causal", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dropout", [0.0, 0.05])
+def test_backward_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, causal, dtype,
+                                               dropout):
+    q, k, v = _qkv(b, l_q, l_k, h, e, dtype, cuda, seed=3)
+    seed = _seed(cuda) if dropout else None
+    o, lse = _reference_forward(q, k, v, causal=causal, scale=e ** -0.5, dropout=dropout,
+                                seed=seed, with_lse=True)
+    o = o.contiguous()
+    do = torch.randn(o.shape, generator=torch.Generator(device=cuda).manual_seed(4),
+                     device=cuda).to(dtype)
+    before = bd_attention_bwd.launches
+    got = bd_attention_bwd(q, k, v, o, do, lse, seed, causal=causal, scale=e ** -0.5,
+                           dropout=dropout)
+    torch.cuda.synchronize()
+    assert bd_attention_bwd.launches == before + 1
+    want = bd_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                      lse, seed, causal=causal, dropout=dropout)
+    for g, w in zip(got, want):
+        _assert_close(g, w, dtype, tol=(2e-4, 2e-5))
+
+
+def test_autograd_through_the_kernels_matches_plain_autograd(cuda):
+    q, k, v = (t.requires_grad_() for t in _qkv(64, 45, 45, 8, 16, torch.float32, cuda,
+                                                seed=5))
+    seed = _seed(cuda)
+    fwd, bwd = bd_attention_fwd.launches, bd_attention_bwd.launches
+    out = bd_attention(q, k, v, dropout=0.05, seed=seed)
+    got = torch.autograd.grad(out.sin().sum(), (q, k, v))
+    assert (bd_attention_fwd.launches, bd_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    want = torch.autograd.grad(
+        bd_attention_reference(q, k, v, dropout=0.05, seed=seed).sin().sum(), (q, k, v))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+
+
+def test_backward_kernel_raises_instead_of_falling_back(cuda):
+    q, k, v = _qkv(2, 8, 8, 2, 16, torch.float32, cuda)
+    o, lse = _reference_forward(q, k, v, causal=False, scale=0.25, dropout=0.0, seed=None,
+                                with_lse=True)
+    o = o.contiguous()
+    kwargs = dict(causal=False, scale=0.25, dropout=0.0)
+    with pytest.raises(TypeError):
+        bd_attention_bwd(*(t.half() for t in (q, k, v, o, o)), lse, **kwargs)
+    with pytest.raises(ValueError, match="contiguous"):
+        bd_attention_bwd(q, k, v, o, o.transpose(1, 2).contiguous().transpose(1, 2), lse,
+                         **kwargs)
+    with pytest.raises(ValueError, match="lse"):
+        bd_attention_bwd(q, k, v, o, o, lse.double(), **kwargs)
+    with pytest.raises(ValueError, match="seed"):
+        bd_attention_bwd(q, k, v, o, o, lse, _seed("cpu"), causal=False, scale=0.25,
+                         dropout=0.1)
+    assert all(np.isfinite(g.cpu().numpy()).all()
+               for g in bd_attention_bwd(q, k, v, o, o, lse, **kwargs))

@@ -1,6 +1,7 @@
 """Rules the port keeps: it imports nothing of JAX or of the JAX package,
-its entry points refuse to run on the CPU unless asked, and its CUDA
-kernel's build and wrapper never run at import."""
+its entry points refuse to run on the CPU unless asked, its CUDA kernels'
+build and wrappers never run at import, and its random draws in training
+come from an explicit generator."""
 
 import ast
 import pathlib
@@ -68,12 +69,39 @@ def test_unported_options_raise():
 
 
 def test_model_serves_only_in_eval_mode():
+    """Built models serve: eval mode needs no generator and is
+    deterministic. Train mode with dropout refuses to run without one."""
     model = build_informer(InformerConfig(d_model=16, n_heads=2, e_layers=(1,), d_layers=1),
                            device="cpu")
     assert not model.training
+    x_enc, x_dec = torch.randn(2, 90, 16), torch.randn(2, 15, 16)
+    with torch.no_grad():
+        assert torch.equal(model(x_enc, x_dec), model(x_enc, x_dec))
     model.train()
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(torch.zeros(1, 90, 16), torch.zeros(1, 15, 16))
+    with pytest.raises(ValueError, match="Generator"):
+        model(x_enc, x_dec)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_model_trains_with_a_generator(use_pallas):
+    """Train mode runs from an explicit generator (same seed, same output;
+    the global RNG is not read), updates the BatchNorm statistics, and gives
+    every parameter a gradient."""
+    cfg = InformerConfig(d_model=16, n_heads=2, e_layers=(2, 1), d_layers=1, dropout=0.1,
+                         use_pallas=use_pallas)
+    model = build_informer(cfg, device="cpu").train()
+    x_enc, x_dec = torch.randn(4, 90, 16), torch.randn(4, 15, 16)
+    norm = model.encoder.encoder_0.distil_0.norm
+    before = norm.running_var.clone()
+    outs = []
+    for _ in range(2):
+        torch.manual_seed(len(outs))  # a different global RNG state each time
+        outs.append(model(x_enc, x_dec, generator=torch.Generator().manual_seed(3)))
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], model(x_enc, x_dec, generator=torch.Generator().manual_seed(4)))
+    assert not torch.equal(norm.running_var, before) and norm.num_batches_tracked == 3
+    outs[0].square().mean().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
 
 
 def test_build_is_seeded():
