@@ -38,8 +38,9 @@ class InformerConfig:
     output_attention: bool = False
     pre_norm: bool = False
     dtype: str = "float32"  # computation dtype for activations
-    # Hand-written attention kernel (ops/cuda/bd_attention.py) for every
-    # attention call; False = the plain torch path.
+    # Hand-written attention kernels (ops/cuda/bd_attention.py where it takes
+    # the shape, else ops/cuda/mha_attention.py in eval mode; routing in
+    # models/attention.py); False = the plain torch path.
     use_pallas: bool = False
     fuse_qkv: bool = False
     lsq_nbits: int | None = None

@@ -1,19 +1,27 @@
 """Full attention and the projection layer around it (reference
 ``models/Informer/attn.py``; JAX counterpart ``models/attention.py``).
 
-Routing of ``AttentionLayer`` with ``attn="full"``:
+Routing of ``AttentionLayer`` with ``attn="full"`` (the counterpart of JAX
+``models/attention.py:291-345``), first match wins:
 
-- ``use_pallas=True`` and no attention maps requested: the hand-written
-  kernels' wrapper (``ops/cuda/bd_attention.py``), which launches the CUDA
-  forward kernel, and the backward kernel when a gradient is needed, on CUDA
-  tensors (raising on a shape they do not take) and runs their plain
-  versions on CPU tensors.
-- otherwise: :func:`full_attention`, the plain torch counterpart of the JAX
-  package's XLA path, kept as the reference.
+1. ``use_pallas``, no attention maps, and ``bd_attention``'s
+   ``supported_shape`` takes the shape: ``ops/cuda/bd_attention.py``, which
+   launches the CUDA forward kernel, and the backward kernel when a gradient
+   is needed, on CUDA tensors and runs their plain versions on CPU tensors.
+2. ``use_pallas``, no attention maps, eval mode: the forward-only
+   ``ops/cuda/mha_attention.py`` (the JAX package's ``mha_attention``), for
+   the long or wide shapes route 1 does not take; CUDA kernel or plain
+   version likewise.
+3. otherwise: :func:`full_attention`, the plain torch counterpart of the JAX
+   package's XLA path, kept as the reference. At training time it is the
+   JAX package's own route for the shapes route 1 does not take.
 
-In train mode with ``dropout`` > 0 both routes draw one seed per call from
-the step's generator and drop attention probabilities with that seed's
-Philox mask (``dropout_keep_mask``), so the two routes draw the same masks
+The routes follow what the port's kernels take, not the TPU's VMEM budget,
+and a CUDA tensor stands where JAX tests for a TPU backend.
+
+In train mode with ``dropout`` > 0 routes 1 and 3 draw one seed per call
+from the step's generator and drop attention probabilities with that
+seed's Philox mask (``dropout_keep_mask``), so the two draw the same masks
 from the same generator.
 """
 
@@ -25,7 +33,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.cuda.bd_attention import bd_attention, draw_seed, dropout_keep_mask
+from ..ops.cuda.bd_attention import bd_attention, draw_seed, dropout_keep_mask, supported_shape
+from ..ops.cuda.mha_attention import mha_attention
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -100,9 +109,13 @@ class AttentionLayer(nn.Module):
         drop = self.dropout if self.training else 0.0
         if drop > 0.0 and generator is None:
             raise ValueError("attention dropout in train mode needs a torch.Generator")
-        if self.use_pallas and not self.output_attention:
+        kernel = self.use_pallas and not self.output_attention
+        if kernel and supported_shape(q, k, v):
             seed = draw_seed(generator, q.device) if drop > 0.0 else None
             out = bd_attention(q, k, v, causal=self.mask_flag, dropout=drop, seed=seed)
+            attn = None
+        elif kernel and not self.training:
+            out = mha_attention(q, k, v, causal=self.mask_flag)
             attn = None
         else:
             out, attn = full_attention(q, k, v, mask_flag=self.mask_flag, dropout=drop,

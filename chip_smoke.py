@@ -6,32 +6,42 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs;
-2. build: both CUDA kernel libraries, compiled in parallel with nvcc from the
-   sources here;
-3. kernel, eval: the attention forward kernel (dropout 0) against its plain
-   version at the six flagship shape classes in float32 and bfloat16, with
-   kernel, plain and ``F.scaled_dot_product_attention`` (yardstick only)
-   times;
-4. kernel, training: at the same shapes and dtypes, the forward kernel with
-   dropout 0.05 and its row log-sum-exp against the plain version on the
-   same seed, the kernel's dropout mask against ``dropout_keep_mask``
+2. build: the three CUDA kernel libraries, compiled in parallel with nvcc
+   from the sources here;
+3. kernel, eval: the bd-attention forward kernel (dropout 0) against its
+   plain version at the six flagship shape classes in float32 and bfloat16,
+   with kernel, plain and ``F.scaled_dot_product_attention`` (yardstick
+   only) times;
+4. kernel, xl eval: the mha-attention forward kernel against its plain
+   version at the six shape classes of the xl model (B 64, H 8, E 128) and
+   two shapes beyond the model (D != E; a long non-square causal shape), in
+   float32 and bfloat16, timed likewise;
+5. kernel, training: at the flagship shapes in both dtypes, the forward
+   kernel with dropout 0.05 and its row log-sum-exp against the plain
+   version on the same seed, the kernel's dropout mask against ``dropout_keep_mask``
    (exact), and the backward kernel's dQ/dK/dV against
    ``bd_attention_bwd_reference``, each timed beside its bound and the SDPA
    yardstick;
-5. eval path: ``build_informer(InformerConfig(use_pallas=True))`` at full
+6. eval path: ``build_informer(InformerConfig(use_pallas=True))`` at full
    width and ``eval_chunk`` over 8 batches of 256 from a 65,536-sample
-   dataset resident on the card, with the forward kernel's launch count,
-   NMSE, a comparison with the plain attention path on one batch, and
-   steady-state eval samples/s;
-6. training path: the same model in train mode (dropout 0.05). One step
+   dataset resident on the card, with the kernels' launch counts (all 104
+   attention calls through the bd forward kernel), NMSE, a comparison with
+   the plain attention path on one batch, the model's parameters and FLOPs
+   per batch, and steady-state eval samples/s and TFLOP/s;
+7. xl eval path: the same at the xl width (d_model 1024, d_ff 4096, seq_len
+   256; ``experiments/scale_demo.py``'s "xl" row), 8 batches of 64 from a
+   4,096 x 266 x 16 dataset: all 104 attention calls through the mha
+   kernel, none through the bd kernels;
+8. training path: the flagship model in train mode (dropout 0.05). One step
    through the kernels and one through the plain attention path from the
    same weights, batch and generator seed (so the same dropout masks),
    compared loss, output and gradient by gradient; ``train_chunk`` with the
    kernels' launch counts and a finite loss; steady-state training
    samples/s of both paths.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
+The last three lines are the card's name and power limit, the kernels' JSON
+record and ``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -58,6 +68,22 @@ SHAPES = [
     ("cross 15x24", 15, 24, False, 3),
 ]
 B, H, E = 256, 8, 16
+# The xl model's attention calls, (label, l_q, l_k, causal, calls per eval
+# batch) at B 64, H 8, E = D 128; then shapes beyond the model, (label, l_q,
+# l_k, causal, 0, b, h, e, d), counted in no batch.
+XL_SHAPES = [
+    ("xl enc L=256", 256, 256, False, 1),
+    ("xl enc L=128", 128, 128, False, 2),
+    ("xl enc L=64", 64, 64, False, 2),
+    ("xl enc L=32", 32, 32, False, 2),
+    ("xl dec self L=15 causal", 15, 15, True, 3),
+    ("xl cross 15x64", 15, 64, False, 3),
+]
+XL_B, XL_H, XL_E = 64, 8, 128
+MHA_EXTRA_SHAPES = [
+    ("E128 D64 100x333 causal", 100, 333, True, 0, 64, 8, 128, 64),
+    ("E64 512x1024 causal", 512, 1024, True, 0, 16, 8, 64, 64),
+]
 DROPOUT = 0.05  # InformerConfig().dropout
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}  # (rtol, atol), forward
 BWD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # longer sums in dK, dV
@@ -135,14 +161,16 @@ def _bound(nbytes, flops, dtype):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def fwd_bound(l_q, l_k, causal, dtype, with_lse=False):
+def fwd_bound(l_q, l_k, causal, dtype, *, b, h, e, d=None, with_lse=False):
     """Least time for one forward: Q, K, V read once and O (and lse) written
     once over HBM, or the matmul FLOPs of the unmasked (row, key) pairs
-    (4*E each) over the dtype's peak rate, whichever is larger. The dropout
-    mask's integer work is not counted."""
+    (2*(E + D) each) over the dtype's peak rate, whichever is larger. The
+    dropout mask's integer work is not counted."""
+    d = e if d is None else d
     size = 4 if dtype == "float32" else 2
-    nbytes = size * B * H * E * (2 * l_q + 2 * l_k) + (4 * B * H * l_q if with_lse else 0)
-    return _bound(nbytes, 4 * B * H * E * _pairs(l_q, l_k, causal), dtype)
+    nbytes = (size * b * h * (e + d) * (l_q + l_k)
+              + (4 * b * h * l_q if with_lse else 0))
+    return _bound(nbytes, 2 * b * h * (e + d) * _pairs(l_q, l_k, causal), dtype)
 
 
 def bwd_bound(l_q, l_k, causal, dtype):
@@ -162,43 +190,48 @@ def _compare(torch, got, want, tol):
     return diff.max().item(), rel, ok
 
 
-def _inputs(torch, gen, dtype, l_q, l_k):
-    return tuple(torch.randn(B, l, H, E, generator=gen, device="cuda").to(dtype)
-                 for l in (l_q, l_k, l_k))
+def _inputs(torch, gen, dtype, l_q, l_k, *, b=B, h=H, e=E, d=None):
+    return tuple(torch.randn(b, l, h, w, generator=gen, device="cuda").to(dtype)
+                 for l, w in ((l_q, e), (l_k, e), (l_k, e if d is None else d)))
 
 
-def phase_kernel(torch, F, ops):
+def phase_kernel(torch, F, kernel_fn, reference, shapes, prefix="kernel", seed=0):
+    """An eval forward kernel against its plain version at ``shapes``
+    ((label, l_q, l_k, causal, calls per eval batch, b, h, e, d)) in float32
+    and bfloat16, with kernel, plain and ``F.scaled_dot_product_attention``
+    times."""
     rows = []
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for label, l_q, l_k, causal, calls in SHAPES:
-            q, k, v = _inputs(torch, gen, dtype, l_q, l_k)
-            got = ops.bd_attention(q, k, v, causal=causal)
+        for label, l_q, l_k, causal, calls, b, h, e, d in shapes:
+            q, k, v = _inputs(torch, gen, dtype, l_q, l_k, b=b, h=h, e=e, d=d)
+            got = kernel_fn(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            want = ops.bd_attention_reference(q.float(), k.float(), v.float(), causal=causal)
+            want = reference(q.float(), k.float(), v.float(), causal=causal)
             rtol, atol = TOL[dtype_name]
             abs_err, rel_err, ok = _compare(torch, got, want.to(dtype), TOL[dtype_name])
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
             def kernel():
-                return ops.bd_attention(q, k, v, causal=causal)
+                return kernel_fn(q, k, v, causal=causal)
             ms = time_ms(torch, kernel)
             kernel_eager_ms = eager_ms(torch, kernel)
-            plain_ms = time_ms(torch, lambda: ops.bd_attention_reference(q, k, v, causal=causal))
+            plain_ms = time_ms(torch, lambda: reference(q, k, v, causal=causal))
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal))
-            row = dict(shape=label, dtype=dtype_name, l_q=l_q, l_k=l_k, causal=causal,
-                       calls_per_batch=calls, max_abs_err=abs_err, max_rel_err=rel_err,
-                       rtol=rtol, atol=atol, ms=ms, eager_ms=kernel_eager_ms,
-                       plain_ms=plain_ms, library_ms=lib_ms,
-                       **fwd_bound(l_q, l_k, causal, dtype_name))
+            row = dict(shape=label, dtype=dtype_name, b=b, h=h, e=e, d=d, l_q=l_q, l_k=l_k,
+                       causal=causal, calls_per_batch=calls, max_abs_err=abs_err,
+                       max_rel_err=rel_err, rtol=rtol, atol=atol, ms=ms,
+                       eager_ms=kernel_eager_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       **fwd_bound(l_q, l_k, causal, dtype_name, b=b, h=h, e=e, d=d))
             rows.append(row)
-            print(f"kernel {label:22s} {dtype_name:8s} max_abs {abs_err:.3e} max_rel "
+            print(f"{prefix} {label:24s} {dtype_name:8s} max_abs {abs_err:.3e} max_rel "
                   f"{rel_err:.3e} (rtol {rtol}, atol {atol}) {'ok' if ok else 'MISMATCH'} | "
                   f"kernel {ms * 1e3:.1f} us (eager {kernel_eager_ms * 1e3:.1f}), plain "
                   f"{plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.1f} us, bound "
                   f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']})", flush=True)
             if not ok:
-                fail(f"kernel disagrees with its plain version at {label} {dtype_name}")
+                fail(f"{prefix} disagrees with its plain version at {label} {dtype_name}")
     return rows
 
 
@@ -254,7 +287,8 @@ def phase_kernel_train(torch, F, ops):
                            q, k, v, seed=seed, with_lse=True, **kw)),
                        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                            qt, kt, vt, dropout_p=DROPOUT, is_causal=causal)),
-                       **fwd_bound(l_q, l_k, causal, dtype_name, with_lse=True))
+                       **fwd_bound(l_q, l_k, causal, dtype_name, b=B, h=H, e=E,
+                                   with_lse=True))
             fwd_rows.append(row)
             print(f"train fwd {label:22s} {dtype_name:8s} dropout {DROPOUT}: max_abs "
                   f"{abs_err:.3e} lse {lse_err:.3e} {'ok' if ok and lse_ok else 'MISMATCH'}, "
@@ -306,21 +340,34 @@ def phase_kernel_train(torch, F, ops):
     return fwd_rows, bwd_rows
 
 
-def _flagship(torch):
+def _models_and_data(torch, cfg=None, samples=65536, slots=None):
+    """The kernel-path model (seed 0), the plain-path model with the same
+    weights, and a random dataset resident on the card; by default the
+    flagship config on 65,536 x 100 x 16 samples (as ``bench.py``)."""
     from channelestimationtransformer_torch.core.config import DataConfig, InformerConfig
     from channelestimationtransformer_torch.data.windows import WindowDataset
     from channelestimationtransformer_torch.models.informer import build_informer
 
-    cfg = InformerConfig(use_pallas=True)
+    cfg = cfg or InformerConfig(use_pallas=True)
     data = DataConfig()
     model = build_informer(cfg, device="cuda", seed=0)
     plain = build_informer(dataclasses.replace(cfg, use_pallas=False), device="cuda", seed=0)
     plain.load_state_dict(model.state_dict())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    h = torch.randn(65536, data.slots, data.features, generator=gen, device="cuda")
+    h = torch.randn(samples, slots or data.slots, data.features, generator=gen, device="cuda")
     ds = WindowDataset(h=h, seq_len=cfg.seq_len, pred_len=cfg.pred_len,
                        snr_db=data.snr_db, device="cuda")
     return cfg, model, plain, ds
+
+
+def _zero_counts(ops, mha):
+    ops.bd_attention_fwd.launches = ops.bd_attention_bwd.launches = 0
+    mha.mha_attention_fwd.launches = 0
+
+
+def _counts(ops, mha):
+    return dict(bd_fwd=ops.bd_attention_fwd.launches, bd_bwd=ops.bd_attention_bwd.launches,
+                mha=mha.mha_attention_fwd.launches)
 
 
 def _alternate(torch, run, rounds=12):
@@ -361,12 +408,18 @@ def _profile(torch, run, label, card, out_name):
     return summary
 
 
-def phase_eval_path(torch, ops, card, profile):
+def phase_eval_path(torch, ops, mha, card, profile, name="eval path", cfg=None,
+                    samples=65536, slots=None, batch=256, route="bd_fwd"):
+    """``eval_chunk`` of 8 batches through the kernels: every attention call
+    on ``route`` (a key of :func:`_counts`) and none elsewhere, a finite
+    NMSE, one batch against the plain path, and samples/s of both paths."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from channelestimationtransformer_torch.data.windows import make_batch
     from channelestimationtransformer_torch.train.trainer import eval_chunk
 
-    cfg, model, plain, ds = _flagship(torch)
-    n_batches, batch = 8, 256
+    cfg, model, plain, ds = _models_and_data(torch, cfg, samples, slots)
+    n_batches = 8
 
     def run(m, seed):
         return eval_chunk(m, ds, num_batches=n_batches, batch_size=batch,
@@ -374,21 +427,21 @@ def phase_eval_path(torch, ops, card, profile):
                           generator=torch.Generator(device="cuda").manual_seed(seed))
 
     torch.cuda.synchronize()
-    ops.bd_attention_fwd.launches = ops.bd_attention_bwd.launches = 0
+    _zero_counts(ops, mha)
     res = run(model, 1)
     torch.cuda.synchronize()
-    launches, bwd_launches = ops.bd_attention_fwd.launches, ops.bd_attention_bwd.launches
+    launches = _counts(ops, mha)
+    expected = {key: 13 * n_batches if key == route else 0 for key in launches}
     nmse, split = res["nmse"].item(), res["split"].cpu().tolist()
-    print(f"eval path: eval_chunk {n_batches} x {batch}: nmse {nmse:.6f}, split "
-          f"{[round(s, 6) for s in split]}, kernel launches {launches} "
-          f"(expected {13 * n_batches}), backward launches {bwd_launches} (expected 0)",
-          flush=True)
-    if launches != 13 * n_batches or bwd_launches != 0:
-        fail(f"kernels launched {launches}/{bwd_launches} times on the eval path, "
-             f"not {13 * n_batches}/0")
+    print(f"{name}: eval_chunk {n_batches} x {batch}: nmse {nmse:.6f}, split "
+          f"{[round(s, 6) for s in split]}, launches bd {launches['bd_fwd']}, bd backward "
+          f"{launches['bd_bwd']}, mha {launches['mha']} (expected {expected['bd_fwd']}, "
+          f"{expected['bd_bwd']}, {expected['mha']})", flush=True)
+    if launches != expected:
+        fail(f"kernels launched {launches} times on the {name}, not {expected}")
     if not (math.isfinite(nmse) and len(split) == cfg.pred_len
             and all(math.isfinite(s) for s in split)):
-        fail("non-finite NMSE on the eval path")
+        fail(f"non-finite NMSE on the {name}")
 
     x_enc, x_dec, target = make_batch(ds, batch, cfg.label_len,
                                       generator=torch.Generator(device="cuda").manual_seed(2))
@@ -397,36 +450,46 @@ def phase_eval_path(torch, ops, card, profile):
     err = (p_kernel - p_plain).abs().max().item()
     ok = p_kernel.shape == target.shape and torch.allclose(
         p_kernel, p_plain, rtol=MAIN_TOL[0], atol=MAIN_TOL[1])
-    print(f"eval path vs plain attention path, one batch: max_abs {err:.3e} "
+    print(f"{name} vs plain attention path, one batch: max_abs {err:.3e} "
           f"(rtol {MAIN_TOL[0]}, atol {MAIN_TOL[1]}) {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
-        fail("kernel path and plain path disagree on the eval path")
+        fail(f"kernel path and plain path disagree on the {name}")
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        plain(x_enc, x_dec)
+    batch_flops = counter.get_total_flops()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{name}: {n_params:,} parameters, {batch_flops / 1e9:.1f} GFLOP per batch of "
+          f"{batch} (FlopCounterMode, plain path)", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    times = _alternate(torch, lambda name, i: run(model if name == "kernel" else plain, 100 + i))
-    samples = n_batches * batch
+    times = _alternate(torch, lambda path, i: run(model if path == "kernel" else plain, 100 + i))
+    samples_per_chunk = n_batches * batch
     summary = {}
-    for name, ts in times.items():
+    for path, ts in times.items():
         ts = ts[2:]  # the first rounds warm up
         med = statistics.median(ts)
-        summary[name] = dict(chunk_ms_median=med * 1e3, samples_per_s=samples / med,
+        tflops = n_batches * batch_flops / med / 1e12
+        summary[path] = dict(chunk_ms_median=med * 1e3,
+                             samples_per_s=samples_per_chunk / med, tflop_per_s=tflops,
                              chunk_ms=[t * 1e3 for t in ts])
-        print(f"eval {name:6s} path: {samples / med:.1f} samples/s (median of {len(ts)} "
-              f"chunks of {samples}, {med * 1e3:.3f} ms) on {card}", flush=True)
+        print(f"{name.replace(' path', '')} {path:6s} path: {samples_per_chunk / med:.1f} "
+              f"samples/s, {tflops:.2f} TFLOP/s (median of {len(ts)} chunks of "
+              f"{samples_per_chunk}, {med * 1e3:.3f} ms) on {card}", flush=True)
     summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     if profile:
-        summary.update(_profile(torch, lambda name: run(model if name == "kernel" else plain, 7),
-                                "eval_chunk", card, "profile_eval.txt"))
-    return dict(nmse=nmse, split=split, launches=launches, vs_plain_max_abs=err, **summary)
+        summary.update(_profile(torch, lambda path: run(model if path == "kernel" else plain, 7),
+                                "eval_chunk", card, f"profile_{name.replace(' ', '_')}.txt"))
+    return dict(nmse=nmse, split=split, launches=launches, vs_plain_max_abs=err,
+                parameters=n_params, batch_flops=batch_flops, **summary)
 
 
-def phase_train_path(torch, ops, card, profile):
+def phase_train_path(torch, ops, mha, card, profile):
     from channelestimationtransformer_torch.core.config import TrainConfig
     from channelestimationtransformer_torch.core.metrics import nmse
     from channelestimationtransformer_torch.data.windows import make_batch
     from channelestimationtransformer_torch.train.trainer import create_train_state, train_chunk
 
-    cfg, model, plain, ds = _flagship(torch)
+    cfg, model, plain, ds = _models_and_data(torch)
     batch = 256
 
     # (a) One step's loss and gradients, kernel path vs plain path: the same
@@ -472,18 +535,20 @@ def phase_train_path(torch, ops, card, profile):
                            generator=torch.Generator(device="cuda").manual_seed(seed))
 
     torch.cuda.synchronize()
-    ops.bd_attention_fwd.launches = ops.bd_attention_bwd.launches = 0
+    _zero_counts(ops, mha)
     m = run("kernel", 5)
     torch.cuda.synchronize()
-    fwd, bwd = ops.bd_attention_fwd.launches, ops.bd_attention_bwd.launches
+    launches = _counts(ops, mha)
+    fwd, bwd = launches["bd_fwd"], launches["bd_bwd"]
     loss = m["loss_sum"].item() / TRAIN_STEPS
     split = (m["split_sum"] / TRAIN_STEPS).cpu().tolist()
     print(f"train path: train_chunk {TRAIN_STEPS} x {batch}: mean loss {loss:.6f}, split "
           f"{[round(s, 6) for s in split]}, forward launches {fwd}, backward launches {bwd} "
-          f"(expected {13 * TRAIN_STEPS} each)", flush=True)
-    if fwd != 13 * TRAIN_STEPS or bwd != 13 * TRAIN_STEPS:
-        fail(f"kernels launched {fwd}/{bwd} times on the training path, "
-             f"not {13 * TRAIN_STEPS} each")
+          f"(expected {13 * TRAIN_STEPS} each), mha launches {launches['mha']} (expected 0)",
+          flush=True)
+    if fwd != 13 * TRAIN_STEPS or bwd != 13 * TRAIN_STEPS or launches["mha"] != 0:
+        fail(f"kernels launched {launches} times on the training path, "
+             f"not {13 * TRAIN_STEPS} forward and backward, 0 mha")
     if not (math.isfinite(loss) and all(math.isfinite(s) for s in split)):
         fail("non-finite loss on the training path")
 
@@ -510,7 +575,8 @@ def phase_train_path(torch, ops, card, profile):
 
 
 def _per_step(rows, key):
-    """Sum of ``key`` over the 13 float32 calls of one batch or step."""
+    """Sum of ``key`` over the 13 float32 calls of one batch or step (rows
+    beyond the model count 0 times)."""
     return sum(r[key] * r.get("calls_per_batch", r.get("calls_per_step"))
                for r in rows if r["dtype"] == "float32")
 
@@ -523,6 +589,8 @@ def main(argv):
         fail("torch.cuda.is_available() is false: this check runs on a CUDA card")
     from channelestimationtransformer_torch.ops.cuda import _build
     from channelestimationtransformer_torch.ops.cuda import bd_attention as ops
+    from channelestimationtransformer_torch.ops.cuda import mha_attention as mha
+    from channelestimationtransformer_torch.core.config import InformerConfig
 
     OUT.mkdir(exist_ok=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -535,11 +603,12 @@ def main(argv):
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        builds = list(pool.map(_build.build, (ops.FWD_LIB, ops.BWD_LIB)))
+    libs = (ops.FWD_LIB, ops.BWD_LIB, mha.LIB)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
+        builds = list(pool.map(_build.build, libs))
     build_s = time.perf_counter() - t0
     for lib, log in builds:
-        print(f"build: {lib.name} ({build_s:.2f} s for both)", flush=True)
+        print(f"build: {lib.name} ({build_s:.2f} s for all {len(libs)})", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
@@ -551,21 +620,36 @@ def main(argv):
         x = torch.tanh(x @ x)
         torch.cuda.synchronize()
 
-    eval_rows = phase_kernel(torch, F, ops)
+    profile = "--profile" in argv
+    eval_rows = phase_kernel(torch, F, ops.bd_attention, ops.bd_attention_reference,
+                             [s + (B, H, E, E) for s in SHAPES])
+    mha_rows = phase_kernel(torch, F, mha.mha_attention, mha.mha_attention_reference,
+                            [s + (XL_B, XL_H, XL_E, XL_E) for s in XL_SHAPES]
+                            + MHA_EXTRA_SHAPES, prefix="mha kernel", seed=2)
     fwd_rows, bwd_rows = phase_kernel_train(torch, F, ops)
-    eval_path = phase_eval_path(torch, ops, card, "--profile" in argv)
-    train_path = phase_train_path(torch, ops, card, "--profile" in argv)
+    eval_path = phase_eval_path(torch, ops, mha, card, profile)
+    xl_cfg = InformerConfig(d_model=1024, d_ff=4096, seq_len=256, use_pallas=True)
+    xl_eval_path = phase_eval_path(torch, ops, mha, card, profile, name="xl eval path",
+                                   cfg=xl_cfg, samples=4096, slots=xl_cfg.seq_len + 10,
+                                   batch=64, route="mha")
+    train_path = phase_train_path(torch, ops, mha, card, profile)
 
     per = "one training step: the 13 float32 calls at their flagship shapes (dropout 0.05)"
+    tpu = "channelestimationtransformer_tpu/ops/pallas/"
     kernels = []
-    for name, rows, launches, replaces in (
-            ("bd_attention_fwd", fwd_rows, train_path["launches_fwd"], 121),
-            ("bd_attention_bwd", bwd_rows, train_path["launches_bwd"], 153)):
+    for name, rows, launches, replaces, per in (
+            ("bd_attention_fwd", fwd_rows, train_path["launches_fwd"],
+             f"{tpu}bd_attention.py:121", per),
+            ("bd_attention_bwd", bwd_rows, train_path["launches_bwd"],
+             f"{tpu}bd_attention.py:153", per),
+            ("mha_attention_fwd", mha_rows, xl_eval_path["launches"]["mha"],
+             f"{tpu}attention.py:70, {tpu}attention.py:31",
+             "one xl eval batch: the 13 float32 calls at their xl shapes (B 64, H 8, E 128)")):
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"channelestimationtransformer_torch/ops/cuda/csrc/{name}.cu",
-            "replaces": f"channelestimationtransformer_tpu/ops/pallas/bd_attention.py:{replaces}",
+            "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
             "ms": _per_step(rows, "ms"),
@@ -576,13 +660,14 @@ def main(argv):
             "library_ms": _per_step(rows, "library_ms"),
             "per": per,
         })
-    kernels[0].update(eval_launches=eval_path["launches"], eval_ms=_per_step(eval_rows, "ms"),
+    kernels[0].update(eval_launches=eval_path["launches"]["bd_fwd"],
+                      eval_ms=_per_step(eval_rows, "ms"),
                       eval_bound_ms=_per_step(eval_rows, "bound_ms"),
                       eval_library_ms=_per_step(eval_rows, "library_ms"))
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, kernel_rows=eval_rows, train_fwd_rows=fwd_rows,
-        train_bwd_rows=bwd_rows, eval_path=eval_path, train_path=train_path,
-        kernels=kernels), indent=1))
+        card=card, build_s=build_s, kernel_rows=eval_rows, mha_kernel_rows=mha_rows,
+        train_fwd_rows=fwd_rows, train_bwd_rows=bwd_rows, eval_path=eval_path,
+        xl_eval_path=xl_eval_path, train_path=train_path, kernels=kernels), indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
-"""The CUDA attention kernels (forward, with and without dropout, and
-backward) against their plain versions, on the card.
+"""The CUDA attention kernels (bd-attention forward, with and without
+dropout, and backward; the mha-attention forward) against their plain
+versions, on the card.
 
 Marked ``cuda``; each test skips when no card is present. This file imports
 only torch and numpy, so it also runs where JAX is not installed:
@@ -28,6 +29,11 @@ from channelestimationtransformer_torch.ops.cuda.bd_attention import (
     bd_attention_fwd,
     bd_attention_reference,
     dropout_keep_mask,
+)
+from channelestimationtransformer_torch.ops.cuda.mha_attention import (
+    mha_attention,
+    mha_attention_fwd,
+    mha_attention_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -196,3 +202,50 @@ def test_backward_kernel_raises_instead_of_falling_back(cuda):
                          dropout=0.1)
     assert all(np.isfinite(g.cpu().numpy()).all()
                for g in bd_attention_bwd(q, k, v, o, o, lse, **kwargs))
+
+
+# (b, l_q, l_k, h, e, d, causal): the xl model's shape classes (B cut to 8),
+# then D != E, a long non-square causal shape (top-left mask), E below a
+# multiple of 4, and a single key.
+MHA_SHAPES = [
+    (8, 256, 256, 8, 128, 128, False),
+    (8, 32, 32, 8, 128, 128, False),
+    (8, 15, 15, 8, 128, 128, True),
+    (8, 15, 64, 8, 128, 128, False),
+    (2, 100, 333, 2, 64, 32, True),
+    (1, 512, 1024, 2, 64, 64, True),
+    (3, 70, 70, 2, 22, 22, False),
+    (2, 9, 1, 3, 128, 96, True),
+]
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,d,causal", MHA_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mha_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, d, causal, dtype):
+    q, k, _ = _qkv(b, l_q, l_k, h, e, dtype, cuda, seed=6)
+    v = torch.randn(b, l_k, h, d, generator=torch.Generator(device=cuda).manual_seed(7),
+                    device=cuda).to(dtype)
+    before = mha_attention_fwd.launches
+    got = mha_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert mha_attention_fwd.launches == before + 1
+    assert got.shape == (b, l_q, h, d)
+    _assert_close(got, mha_attention_reference(q.float(), k.float(), v.float(), causal=causal),
+                  dtype)
+
+
+def test_mha_kernel_raises_instead_of_falling_back(cuda):
+    q, k, v = _qkv(2, 8, 8, 2, 128, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        mha_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        mha_attention(q[:, ::2], k[:, ::2].contiguous(), v[:, ::2].contiguous())
+    with pytest.raises(ValueError, match="device"):
+        mha_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="128"):
+        wide = torch.zeros(2, 8, 2, 136, device=cuda)
+        mha_attention(wide, wide, wide)
+    with pytest.raises(RuntimeError, match="forward only"):
+        mha_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        assert np.isfinite(mha_attention(q, k, v).cpu().numpy()).all()

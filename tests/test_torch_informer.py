@@ -37,6 +37,10 @@ RTOL, ATOL = 2e-4, 2e-5
 # The small config of tests/test_torch_crosscheck.py.
 SMALL = dict(seq_len=24, label_len=6, pred_len=5, d_model=32, n_heads=4,
              e_layers=(2, 2), d_layers=2, d_ff=32, dropout=0.0)
+# Heads of the xl model (E 128) and keys past the bd kernel's 128: every
+# attention call of this config takes the port's mha_attention in eval mode.
+LONG = dict(seq_len=160, label_len=10, pred_len=5, d_model=256, n_heads=2, d_ff=64,
+            e_layers=(2, 1), d_layers=1, dropout=0.0)
 
 
 def _perturb(tree, rng, scale=0.1):
@@ -179,6 +183,33 @@ def test_flagship_width_forward_matches_flax():
     np.testing.assert_allclose(_torch_apply(tmod, x_enc, x_dec),
                                _flax_apply(fmod, params, stats, x_enc, x_dec),
                                rtol=RTOL, atol=ATOL)
+
+
+def test_long_wide_eval_forward_goes_through_mha_attention(monkeypatch):
+    """InformerStack at seq_len 160, E 128 in eval mode with use_pallas
+    against flax (whose attention takes XLA's full_attention on the CPU,
+    ``models/attention.py:324``). A spy shows that each call bd_attention
+    cannot take went to mha_attention (whose CPU path is the plain
+    version)."""
+    from channelestimationtransformer_torch.models import attention
+    from channelestimationtransformer_torch.ops.cuda.bd_attention import supported_shape
+
+    calls = {"bd": [], "mha": []}
+    for name, key in (("bd_attention", "bd"), ("mha_attention", "mha")):
+        real = getattr(attention, name)
+        monkeypatch.setattr(attention, name, lambda q, k, v, _real=real, _key=key, **kw: (
+            calls[_key].append((q.shape[1], k.shape[1], supported_shape(q, k, v)))
+            or _real(q, k, v, **kw)))
+    rng = np.random.default_rng(8)
+    fmod, tmod, params, stats, x_enc, x_dec = _model_pair(rng, 2, port_pallas=True, **LONG)
+    got = _torch_apply(tmod, x_enc, x_dec)
+    assert got.shape == (2, 5, 16)
+    np.testing.assert_allclose(got, _flax_apply(fmod, params, stats, x_enc, x_dec),
+                               rtol=RTOL, atol=ATOL)
+    # encoder 0: L 160 and 80; encoder 1: L 80; decoder: self 15, cross 15 x 160.
+    assert calls["bd"] == []
+    assert sorted(calls["mha"]) == [(15, 15, False), (15, 160, False), (80, 80, False),
+                                    (80, 80, False), (160, 160, False)]
 
 
 def test_eval_step_matches_eval_step_impl():

@@ -40,7 +40,7 @@ from channelestimationtransformer_torch.train.trainer import (
 )
 from channelestimationtransformer_torch.utils.convert import from_flax
 
-from test_torch_informer import SMALL, _load_module, _model_pair, _variables
+from test_torch_informer import LONG, SMALL, _load_module, _model_pair, _variables
 
 RTOL, ATOL = 2e-4, 2e-5
 
@@ -88,17 +88,15 @@ def _grad_recorder():
         lambda grads, state, params=None: (jax.tree.map(jnp.zeros_like, grads), grads))
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_train_step_matches_jax_update(use_pallas):
-    """The whole InformerStack at the small config in train mode, dropout 0:
+def _train_step_against_jax_update(cfg, *, jax_pallas, port_pallas, seed):
+    """One training step of the whole InformerStack at dropout 0, batch 3:
     output, loss, split, updated BatchNorm statistics and every gradient
-    against JAX ``_update`` (``train/trainer.py:119-137``) on the same batch.
-    With ``use_pallas`` the JAX side differentiates through the Pallas
-    kernels in interpret mode and the port through its kernels' wrapper."""
-    rng = np.random.default_rng(8)
+    against JAX ``_update`` (``train/trainer.py:119-137``) on the same
+    batch. Returns the names of the BatchNorm statistics compared."""
+    rng = np.random.default_rng(seed)
     fmod, tmod, params, stats, x_enc, x_dec = _model_pair(
-        rng, 3, jax_pallas=use_pallas, port_pallas=use_pallas, **SMALL)
-    target = rng.normal(size=(3, SMALL["pred_len"], 16)).astype(np.float32)
+        rng, 3, jax_pallas=jax_pallas, port_pallas=port_pallas, **cfg)
+    target = rng.normal(size=(3, cfg["pred_len"], 16)).astype(np.float32)
     state = JaxTrainState.create(apply_fn=fmod.apply, params=params, batch_stats=stats,
                                  tx=_grad_recorder())
     key = jax.random.key(0)
@@ -120,7 +118,6 @@ def test_train_step_matches_jax_update(use_pallas):
     want = from_flax(_np(new_state.opt_state), _np(new_state.batch_stats))
     got_state = tmod.state_dict()
     stat_keys = [k for k in want if "running_" in k]
-    assert len(stat_keys) == 2 * 2  # one distilling BatchNorm in each encoder
     for name in stat_keys:
         np.testing.assert_allclose(got_state[name].numpy(), want[name].numpy(),
                                    rtol=RTOL, atol=ATOL, err_msg=name)
@@ -129,6 +126,27 @@ def test_train_step_matches_jax_update(use_pallas):
     for name, p in tmod.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), rtol=RTOL, atol=ATOL,
                                    err_msg=name)
+    return stat_keys
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_train_step_matches_jax_update(use_pallas):
+    """The small config. With ``use_pallas`` the JAX side differentiates
+    through the Pallas kernels in interpret mode and the port through its
+    kernels' wrapper."""
+    stat_keys = _train_step_against_jax_update(SMALL, jax_pallas=use_pallas,
+                                               port_pallas=use_pallas, seed=8)
+    assert len(stat_keys) == 2 * 2  # one distilling BatchNorm in each encoder
+
+
+def test_long_wide_train_step_with_use_pallas_matches_jax_update():
+    """seq_len 160, E 128 (``test_torch_informer.LONG``): with use_pallas in
+    train mode every call falls to the port's full_attention, the JAX
+    package's own training route for shapes its bd kernel does not take
+    (``models/attention.py:332-345``); the JAX side runs XLA attention."""
+    stat_keys = _train_step_against_jax_update(LONG, jax_pallas=False, port_pallas=True,
+                                               seed=10)
+    assert len(stat_keys) == 2  # one distilling BatchNorm, in the first encoder
 
 
 def test_kernel_route_and_plain_route_share_dropout_masks():
