@@ -38,9 +38,10 @@ class InformerConfig:
     output_attention: bool = False
     pre_norm: bool = False
     dtype: str = "float32"  # computation dtype for activations
-    # Hand-written attention kernels (ops/cuda/bd_attention.py where it takes
+    # Hand-written kernels: attention (ops/cuda/bd_attention.py where it takes
     # the shape, else ops/cuda/mha_attention.py in eval mode; routing in
-    # models/attention.py); False = the plain torch path.
+    # models/attention.py) and, with lsq_fibbinary, the nearest-codeword snap
+    # (ops/cuda/quant.py); False = the plain torch path.
     use_pallas: bool = False
     fuse_qkv: bool = False
     lsq_nbits: int | None = None

@@ -1,6 +1,7 @@
 from .attention import AttentionLayer, causal_mask, full_attention
 from .embed import DataEmbedding, TokenEmbedding, circular_conv1d, sinusoid_position_encoding
 from .informer import Informer, InformerBase, InformerStack, build_informer
+from .informer_lsq import build_informer_lsq
 
 __all__ = [
     "AttentionLayer",
@@ -14,4 +15,5 @@ __all__ = [
     "InformerBase",
     "InformerStack",
     "build_informer",
+    "build_informer_lsq",
 ]

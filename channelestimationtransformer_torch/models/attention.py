@@ -35,6 +35,7 @@ from torch import nn
 
 from ..ops.cuda.bd_attention import bd_attention, draw_seed, dropout_keep_mask, supported_shape
 from ..ops.cuda.mha_attention import mha_attention
+from ..ops.quant.lsq import DenseLSQ
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -43,6 +44,17 @@ def causal_mask(l_q: int, l_k: int, device=None) -> torch.Tensor:
     """Boolean ``[l_q, l_k]`` mask, True where attention is DISALLOWED (strict
     upper triangle), matching the reference's ``TriangularCausalMask``."""
     return torch.ones(l_q, l_k, dtype=torch.bool, device=device).triu(1)
+
+
+def dense_layer(in_features: int, out_features: int, *, lsq_nbits: int | None = None,
+                lsq_fibbinary: bool = False, use_pallas: bool = False) -> nn.Linear:
+    """``nn.Linear``, or with ``lsq_nbits`` a :class:`DenseLSQ` whose
+    fibbinary snap takes the CUDA kernel when ``use_pallas`` (JAX
+    ``AttentionLayer._dense``, ``models/attention.py:233-241``)."""
+    if lsq_nbits is None:
+        return nn.Linear(in_features, out_features)
+    return DenseLSQ(in_features, out_features, nbits=lsq_nbits, fibbinary=lsq_fibbinary,
+                    use_pallas=use_pallas)
 
 
 def full_attention(q, k, v, *, mask_flag: bool, scale: Optional[float] = None,
@@ -71,12 +83,15 @@ def full_attention(q, k, v, *, mask_flag: bool, scale: Optional[float] = None,
 class AttentionLayer(nn.Module):
     """Q/K/V/output projections around the inner attention (reference
     ``AttentionLayer``, ``attn.py:190-221``). ``mix=True`` keeps the
-    reference's head/sequence transpose before the output projection."""
+    reference's head/sequence transpose before the output projection.
+    ``lsq_nbits`` LSQ-quantizes the four projections (``lsq_fibbinary``:
+    onto the fibbinary codebook)."""
 
     def __init__(self, d_model: int, n_heads: int, *, attn: str = "full",
                  mask_flag: bool = False, mix: bool = False,
                  output_attention: bool = False, use_pallas: bool = False,
-                 fuse_qkv: bool = False, lsq_nbits: int | None = None, dropout: float = 0.0):
+                 fuse_qkv: bool = False, lsq_nbits: int | None = None,
+                 lsq_fibbinary: bool = False, dropout: float = 0.0):
         super().__init__()
         if attn != "full":
             raise NotImplementedError(
@@ -84,9 +99,6 @@ class AttentionLayer(nn.Module):
                 "attention, parallelism)")
         if fuse_qkv:
             raise NotImplementedError("fuse_qkv is not ported yet (ROADMAP Queue 1)")
-        if lsq_nbits is not None:
-            raise NotImplementedError("LSQ attention is not ported yet (ROADMAP Queue 1: "
-                                      "LSQ and fibbinary)")
         self.n_heads = n_heads
         self.mask_flag = mask_flag
         self.mix = mix
@@ -94,10 +106,11 @@ class AttentionLayer(nn.Module):
         self.use_pallas = use_pallas
         self.dropout = dropout
         d = (d_model // n_heads) * n_heads
-        self.query = nn.Linear(d_model, d)
-        self.key = nn.Linear(d_model, d)
-        self.value = nn.Linear(d_model, d)
-        self.out = nn.Linear(d, d_model)
+        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas)
+        self.query = dense_layer(d_model, d, **lsq)
+        self.key = dense_layer(d_model, d, **lsq)
+        self.value = dense_layer(d_model, d, **lsq)
+        self.out = dense_layer(d, d_model, **lsq)
 
     def forward(self, queries, keys, values, generator: torch.Generator | None = None):
         b, l, _ = queries.shape

@@ -15,21 +15,23 @@ class DecoderLayer(nn.Module):
     """Causal self-attention (``mix``) -> cross-attention (``mix=False``) ->
     FFN, each with a residual (dropout on the two attention outputs, JAX
     ``decoder.py:58, 78``); post-norm after each (norm1..3), or ``pre_norm``
-    before each."""
+    before each. ``lsq_nbits`` / ``lsq_fibbinary`` reach every projection
+    and FFN layer (JAX ``decoder.py:34-35, 54-55, 74-75, 82-92``)."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str, *,
                  mix: bool = True, use_pallas: bool = False, pre_norm: bool = False,
-                 dropout: float = 0.0, **attn_kwargs):
+                 dropout: float = 0.0, lsq_nbits: int | None = None,
+                 lsq_fibbinary: bool = False, **attn_kwargs):
         super().__init__()
         self.pre_norm = pre_norm
         self.dropout = dropout
+        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas)
         self.self_attention = AttentionLayer(
-            d_model, n_heads, mask_flag=True, mix=mix, use_pallas=use_pallas,
-            dropout=dropout, **attn_kwargs)
+            d_model, n_heads, mask_flag=True, mix=mix, dropout=dropout, **lsq, **attn_kwargs)
         self.cross_attention = AttentionLayer(
-            d_model, n_heads, mask_flag=False, mix=False, use_pallas=use_pallas,
-            dropout=dropout, **attn_kwargs)
-        self.ffn = FeedForward(d_model, d_ff, activation, dropout)
+            d_model, n_heads, mask_flag=False, mix=False, dropout=dropout, **lsq,
+            **attn_kwargs)
+        self.ffn = FeedForward(d_model, d_ff, activation, dropout, **lsq)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import AttentionLayer
+from .attention import AttentionLayer, dense_layer
 from .dropout import dropout
 from .embed import circular_conv1d
 from .init import variance_scaling_
@@ -77,12 +77,17 @@ class ConvLayer(nn.Module):
 
 class FeedForward(nn.Module):
     """Position-wise FFN: the reference's two k=1 convs as dense layers, with
-    dropout after the activation and after ``conv2`` (JAX ``encoder.py:84-86``)."""
+    dropout after the activation and after ``conv2`` (JAX ``encoder.py:84-86``).
+    ``lsq_nbits`` LSQ-quantizes both (JAX ``encoder.py:70-78``; reference
+    ``models/InformerLSQ/encoder.py:38-39``)."""
 
-    def __init__(self, d_model: int, d_ff: int, activation: str, dropout: float = 0.0):
+    def __init__(self, d_model: int, d_ff: int, activation: str, dropout: float = 0.0, *,
+                 lsq_nbits: int | None = None, lsq_fibbinary: bool = False,
+                 use_pallas: bool = False):
         super().__init__()
-        self.conv1 = nn.Linear(d_model, d_ff)
-        self.conv2 = nn.Linear(d_ff, d_model)
+        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas)
+        self.conv1 = dense_layer(d_model, d_ff, **lsq)
+        self.conv2 = dense_layer(d_ff, d_model, **lsq)
         self.act = activation_fn(activation)
         self.dropout = dropout
 
@@ -98,14 +103,16 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str, *,
                  output_attention: bool = False, use_pallas: bool = False,
-                 pre_norm: bool = False, dropout: float = 0.0, **attn_kwargs):
+                 pre_norm: bool = False, dropout: float = 0.0, lsq_nbits: int | None = None,
+                 lsq_fibbinary: bool = False, **attn_kwargs):
         super().__init__()
         self.pre_norm = pre_norm
         self.dropout = dropout
+        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas)
         self.attention = AttentionLayer(
             d_model, n_heads, mask_flag=False, mix=False, output_attention=output_attention,
-            use_pallas=use_pallas, dropout=dropout, **attn_kwargs)
-        self.ffn = FeedForward(d_model, d_ff, activation, dropout)
+            dropout=dropout, **lsq, **attn_kwargs)
+        self.ffn = FeedForward(d_model, d_ff, activation, dropout, **lsq)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 

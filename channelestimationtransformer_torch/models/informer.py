@@ -16,6 +16,7 @@ from torch import nn
 
 from ..core.config import InformerConfig
 from ..core.runtime import resolve_device
+from ..ops.quant.lsq import DenseLSQ
 from .decoder import Decoder
 from .embed import DataEmbedding, TokenEmbedding
 from .encoder import ConvLayer, Encoder, EncoderStack
@@ -39,12 +40,12 @@ class InformerBase(nn.Module):
             n_heads=cfg.n_heads, d_ff=cfg.d_ff, activation=cfg.activation,
             attn=cfg.attn, distil=cfg.distil, output_attention=cfg.output_attention,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
-            lsq_nbits=cfg.lsq_nbits, dropout=cfg.dropout))
+            lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout))
         self.decoder = Decoder(
             cfg.d_layers, cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
             activation=cfg.activation, attn=cfg.attn, mix=cfg.mix,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
-            lsq_nbits=cfg.lsq_nbits, dropout=cfg.dropout)
+            lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout)
         self.projection = nn.Linear(cfg.d_model, cfg.c_out)
 
     def _encoder(self, kwargs) -> nn.Module:
@@ -85,10 +86,13 @@ class InformerStack(InformerBase):
 def init_weights(model: nn.Module, generator: torch.Generator | None = None) -> None:
     """Draw every weight from flax's default initialiser for that layer
     (dense and conv kernels lecun/kaiming truncated normal, biases zero,
-    norms identity)."""
+    norms identity). An LSQ layer draws its weight as a dense layer does,
+    then sets ``step_size`` from it, as flax's lazy init does."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
             dense_(m, generator)
+            if isinstance(m, DenseLSQ):
+                m.reset_step_size()
         elif isinstance(m, (TokenEmbedding, ConvLayer)):
             m.reset_parameters(generator)
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):

@@ -1,11 +1,10 @@
 // Device helpers shared by the attention kernels (bd_attention_fwd.cu,
 // bd_attention_bwd.cu): dtype conversion, row products over shared memory,
-// and the dropout generator.
+// and the dropout mask.
 //
-// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
-// 3", SC'11; the Random123 reference), the counter-based generator of the
-// port's attention-probability dropout. Its layout is shared with the plain
-// version, ops/cuda/bd_attention.py:dropout_keep_mask:
+// The attention-probability dropout draws from Philox4x32-10 (philox.cuh).
+// Its layout is shared with the plain version,
+// ops/cuda/bd_attention.py:dropout_keep_mask:
 //
 //   key     = (seed & 0xffffffff, seed >> 32)    seed: one int64 on the device
 //   counter = (col / 4, row, b * H + h, 0)       row: query, col: key position
@@ -15,6 +14,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "philox.cuh"
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -56,25 +57,6 @@ __device__ __forceinline__ void axpy_row(float p, const float* __restrict__ row,
     acc[4 * c + 2] = fmaf(p, x.z, acc[4 * c + 2]);
     acc[4 * c + 3] = fmaf(p, x.w, acc[4 * c + 3]);
   }
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
-    const unsigned lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ uint2 philox_key(const long long* seed) {
-  const unsigned long long s = static_cast<unsigned long long>(*seed);
-  return make_uint2(static_cast<unsigned>(s), static_cast<unsigned>(s >> 32));
 }
 
 // The keep bits of columns j0 .. j0 + 3 of `row` (bit t for column j0 + t);

@@ -5,7 +5,8 @@ converts device arrays with ``np.asarray``, so this module never sees a JAX
 type). The port's modules carry the flax names, so each flax leaf maps to
 the key of the same path, with these conversions:
 
-- Dense kernels ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
+- Dense kernels ``[in, out]`` -> ``Linear.weight`` ``[out, in]``; an LSQ
+  layer's scalar ``step_size`` goes along as it is;
 - conv kernels ``[K, C_in, C_out]`` -> ``weight`` ``[C_out, C_in, K]``;
 - norm ``scale`` -> ``weight``; BatchNorm ``mean``/``var`` (from
   ``batch_stats``) -> ``running_mean``/``running_var``.
@@ -74,6 +75,9 @@ class FlaxBridge:
     def dense(self, path):
         self._set(path, "weight", self.param(_join(path, "kernel")).T.contiguous())
         self._set(path, "bias", self.param(_join(path, "bias")))
+        step = _join(path, "step_size")
+        if step in self.params:  # an LSQ layer (ops/quant/lsq.py:DenseLSQ)
+            self._set(path, "step_size", self.param(step))
 
     def norm(self, path):
         self._set(path, "weight", self.param(_join(path, "scale")))

@@ -1,12 +1,13 @@
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card.
+"""Drive the PyTorch port's serving, quantized serving and training paths
+on one NVIDIA card.
 
     python3 chip_smoke.py            # the check, as run on the card
-    python3 chip_smoke.py --profile  # also torch.profiler breakdowns of eval and training
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs;
-2. build: the three CUDA kernel libraries, compiled in parallel with nvcc
+2. build: the five CUDA kernel libraries, compiled in parallel with nvcc
    from the sources here;
 3. kernel, eval: the bd-attention forward kernel (dropout 0) against its
    plain version at the six flagship shape classes in float32 and bfloat16,
@@ -16,23 +17,46 @@ Phases, each printing its own lines; any failure exits non-zero:
    version at the six shape classes of the xl model (B 64, H 8, E 128) and
    two shapes beyond the model (D != E; a long non-square causal shape), in
    float32 and bfloat16, timed likewise;
-5. kernel, training: at the flagship shapes in both dtypes, the forward
+5. quant fixed: the fixed-point kernel against its plain version bit for
+   bit at 128 x 128, 128 x 64, 2^20, 2^24 and 1,000,003 elements, formats
+   (wl, fl) (8, 4), (4, 0), (15, 11), (2, -2), symmetric and clamp on and
+   off, nearest and stochastic; stochastic rounding unbiased within 4
+   sigma; kernel, plain and ``torch.fake_quantize_per_tensor_affine``
+   (yardstick) times;
+6. codeword: the nearest-codeword kernel against its plain version bit for
+   bit for ten codebooks (LSQ-fibbinary of 4 to 11 bits, fibbinary(8, 4),
+   Fibonacci(8, 4)) on inputs with every codeword, every tie and +-0;
+   kernel, plain and ``torch.bucketize`` (yardstick) times at the LSQ
+   path's sizes and at 2^24 x 287 entries;
+7. kernel, training: at the flagship shapes in both dtypes, the forward
    kernel with dropout 0.05 and its row log-sum-exp against the plain
    version on the same seed, the kernel's dropout mask against ``dropout_keep_mask``
    (exact), and the backward kernel's dQ/dK/dV against
    ``bd_attention_bwd_reference``, each timed beside its bound and the SDPA
    yardstick;
-6. eval path: ``build_informer(InformerConfig(use_pallas=True))`` at full
+8. eval path: ``build_informer(InformerConfig(use_pallas=True))`` at full
    width and ``eval_chunk`` over 8 batches of 256 from a 65,536-sample
    dataset resident on the card, with the kernels' launch counts (all 104
    attention calls through the bd forward kernel), NMSE, a comparison with
    the plain attention path on one batch, the model's parameters and FLOPs
    per batch, and steady-state eval samples/s and TFLOP/s;
-7. xl eval path: the same at the xl width (d_model 1024, d_ff 4096, seq_len
+9. xl eval path: the same at the xl width (d_model 1024, d_ff 4096, seq_len
    256; ``experiments/scale_demo.py``'s "xl" row), 8 batches of 64 from a
    4,096 x 266 x 16 dataset: all 104 attention calls through the mha
    kernel, none through the bd kernels;
-8. training path: the flagship model in train mode (dropout 0.05). One step
+10. ptq eval path: the flagship's FP32 weights quantized at wl 8, fl 4
+   (nearest, then stochastic) by ``apply_weight_quant`` with
+   ``fixed_point_quantize``: 72 fixed-point launches a quantization, the
+   72 tensors equal to the plain path's bit for bit, ``eval_chunk`` of the
+   quantized copy with 104 bd launches; the time of a 24-point sweep
+   (``experiments/ptq_sweep.py``'s wl 4-15 x two roundings, quantize
+   only); eval samples/s of the quantized and the FP32 weights;
+11. lsq-fibbinary eval path: ``InformerConfig(use_pallas=True, lsq_nbits=8,
+   lsq_fibbinary=True)`` through ``eval_chunk`` as in 8: 576 codeword and
+   104 bd launches in 8 batches, one batch against the plain path (the
+   snap's plain version, plain attention), eval samples/s beside the FP32
+   flagship's in the same turns;
+12. training path: the flagship model in train mode (dropout 0.05). One step
    through the kernels and one through the plain attention path from the
    same weights, batch and generator seed (so the same dropout masks),
    compared loss, output and gradient by gradient; ``train_chunk`` with the
@@ -84,6 +108,18 @@ MHA_EXTRA_SHAPES = [
     ("E128 D64 100x333 causal", 100, 333, True, 0, 64, 8, 128, 64),
     ("E64 512x1024 causal", 512, 1024, True, 0, 16, 8, 64, 64),
 ]
+# The flagship's 72 quantized tensors (PTQ and LSQ): (label, elements, count).
+QUANT_TENSORS = [("128x128", 128 * 128, 52), ("128x64", 128 * 64, 20)]
+FIXED_SIZES = QUANT_TENSORS + [("2^20", 1 << 20, 0), ("2^24", 1 << 24, 0),
+                               ("1,000,003", 1_000_003, 0)]
+FIXED_FORMATS = [(8, 4), (4, 0), (15, 11), (2, -2)]  # (wl, fl); each spans +-8
+PTQ_WL, PTQ_FL = 8, 4
+# experiments/ptq_sweep.py:95-97 at its defaults: (wl, fl = wl - 4, rounding).
+SWEEP = [(wl, wl - 4, r) for r in ("nearest", "stochastic") for wl in range(4, 16)]
+LSQ_NBITS = 8
+CODEWORD_SIZES = QUANT_TENSORS + [("2^20", 1 << 20, 0)]
+# Checked and timed beside the LSQ path's rows: the largest codebook at 2^24.
+CODEWORD_BIG = ("lsq_fibbinary(11)", ("2^24", 1 << 24, 0))
 DROPOUT = 0.05  # InformerConfig().dropout
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}  # (rtol, atol), forward
 BWD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # longer sums in dK, dV
@@ -360,22 +396,31 @@ def _models_and_data(torch, cfg=None, samples=65536, slots=None):
     return cfg, model, plain, ds
 
 
-def _zero_counts(ops, mha):
-    ops.bd_attention_fwd.launches = ops.bd_attention_bwd.launches = 0
-    mha.mha_attention_fwd.launches = 0
+# Printed names of the kernel wrappers' launch counters (keys of _counts).
+COUNT_LABELS = dict(bd_fwd="bd", bd_bwd="bd backward", mha="mha", fixed="fixed",
+                    codeword="codeword")
 
 
-def _counts(ops, mha):
-    return dict(bd_fwd=ops.bd_attention_fwd.launches, bd_bwd=ops.bd_attention_bwd.launches,
-                mha=mha.mha_attention_fwd.launches)
+def _zero_counts(wrappers):
+    for fn in wrappers.values():
+        fn.launches = 0
 
 
-def _alternate(torch, run, rounds=12):
-    """Host-clock seconds of ``run(name, i)`` for both paths in turns
+def _counts(wrappers):
+    return {key: fn.launches for key, fn in wrappers.items()}
+
+
+def _launch_report(launches, expected):
+    return (", ".join(f"{COUNT_LABELS[k]} {launches[k]}" for k in launches) + " (expected "
+            + ", ".join(str(expected[k]) for k in launches) + ")")
+
+
+def _alternate(torch, run, rounds=12, names=("kernel", "plain")):
+    """Host-clock seconds of ``run(name, i)`` for every path in turns
     (kernel, plain, plain, kernel, ...), each ending in a synchronise."""
-    times = {"kernel": [], "plain": []}
+    times = {name: [] for name in names}
     for i in range(rounds):
-        for name in (("kernel", "plain") if i % 2 == 0 else ("plain", "kernel")):
+        for name in (names if i % 2 == 0 else names[::-1]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run(name, i)
@@ -408,11 +453,13 @@ def _profile(torch, run, label, card, out_name):
     return summary
 
 
-def phase_eval_path(torch, ops, mha, card, profile, name="eval path", cfg=None,
-                    samples=65536, slots=None, batch=256, route="bd_fwd"):
-    """``eval_chunk`` of 8 batches through the kernels: every attention call
-    on ``route`` (a key of :func:`_counts`) and none elsewhere, a finite
-    NMSE, one batch against the plain path, and samples/s of both paths."""
+def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
+                    samples=65536, slots=None, batch=256, expected=None, beside=None):
+    """``eval_chunk`` of 8 batches through the kernels: the launch counts
+    ``expected`` (by key of :func:`_counts`; by default every attention call
+    on the bd forward kernel) and none elsewhere, a finite NMSE, one batch
+    against the plain path, and samples/s of both paths and of the
+    ``beside`` models (name -> model), all in turns."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from channelestimationtransformer_torch.data.windows import make_batch
@@ -427,16 +474,15 @@ def phase_eval_path(torch, ops, mha, card, profile, name="eval path", cfg=None,
                           generator=torch.Generator(device="cuda").manual_seed(seed))
 
     torch.cuda.synchronize()
-    _zero_counts(ops, mha)
+    _zero_counts(wrappers)
     res = run(model, 1)
     torch.cuda.synchronize()
-    launches = _counts(ops, mha)
-    expected = {key: 13 * n_batches if key == route else 0 for key in launches}
+    launches = _counts(wrappers)
+    expected = {key: (expected or {"bd_fwd": 13 * n_batches}).get(key, 0) for key in launches}
     nmse, split = res["nmse"].item(), res["split"].cpu().tolist()
     print(f"{name}: eval_chunk {n_batches} x {batch}: nmse {nmse:.6f}, split "
-          f"{[round(s, 6) for s in split]}, launches bd {launches['bd_fwd']}, bd backward "
-          f"{launches['bd_bwd']}, mha {launches['mha']} (expected {expected['bd_fwd']}, "
-          f"{expected['bd_bwd']}, {expected['mha']})", flush=True)
+          f"{[round(s, 6) for s in split]}, launches {_launch_report(launches, expected)}",
+          flush=True)
     if launches != expected:
         fail(f"kernels launched {launches} times on the {name}, not {expected}")
     if not (math.isfinite(nmse) and len(split) == cfg.pred_len
@@ -462,7 +508,8 @@ def phase_eval_path(torch, ops, mha, card, profile, name="eval path", cfg=None,
           f"{batch} (FlopCounterMode, plain path)", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    times = _alternate(torch, lambda path, i: run(model if path == "kernel" else plain, 100 + i))
+    models = {"kernel": model, "plain": plain, **(beside or {})}
+    times = _alternate(torch, lambda path, i: run(models[path], 100 + i), names=tuple(models))
     samples_per_chunk = n_batches * batch
     summary = {}
     for path, ts in times.items():
@@ -483,7 +530,7 @@ def phase_eval_path(torch, ops, mha, card, profile, name="eval path", cfg=None,
                 parameters=n_params, batch_flops=batch_flops, **summary)
 
 
-def phase_train_path(torch, ops, mha, card, profile):
+def phase_train_path(torch, wrappers, card, profile):
     from channelestimationtransformer_torch.core.config import TrainConfig
     from channelestimationtransformer_torch.core.metrics import nmse
     from channelestimationtransformer_torch.data.windows import make_batch
@@ -535,20 +582,21 @@ def phase_train_path(torch, ops, mha, card, profile):
                            generator=torch.Generator(device="cuda").manual_seed(seed))
 
     torch.cuda.synchronize()
-    _zero_counts(ops, mha)
+    _zero_counts(wrappers)
     m = run("kernel", 5)
     torch.cuda.synchronize()
-    launches = _counts(ops, mha)
+    launches = _counts(wrappers)
     fwd, bwd = launches["bd_fwd"], launches["bd_bwd"]
     loss = m["loss_sum"].item() / TRAIN_STEPS
     split = (m["split_sum"] / TRAIN_STEPS).cpu().tolist()
     print(f"train path: train_chunk {TRAIN_STEPS} x {batch}: mean loss {loss:.6f}, split "
           f"{[round(s, 6) for s in split]}, forward launches {fwd}, backward launches {bwd} "
-          f"(expected {13 * TRAIN_STEPS} each), mha launches {launches['mha']} (expected 0)",
-          flush=True)
-    if fwd != 13 * TRAIN_STEPS or bwd != 13 * TRAIN_STEPS or launches["mha"] != 0:
+          f"(expected {13 * TRAIN_STEPS} each), mha launches {launches['mha']} (expected 0), "
+          f"quant launches {launches['fixed'] + launches['codeword']} (expected 0)", flush=True)
+    if launches != dict(bd_fwd=13 * TRAIN_STEPS, bd_bwd=13 * TRAIN_STEPS, mha=0, fixed=0,
+                        codeword=0):
         fail(f"kernels launched {launches} times on the training path, "
-             f"not {13 * TRAIN_STEPS} forward and backward, 0 mha")
+             f"not {13 * TRAIN_STEPS} forward and backward, 0 mha, 0 quant")
     if not (math.isfinite(loss) and all(math.isfinite(s) for s in split)):
         fail("non-finite loss on the training path")
 
@@ -573,12 +621,277 @@ def phase_train_path(torch, ops, mha, card, profile):
                 step_loss=(lk, lp), step_out_max_abs=out_err, step_grad_rel_err=grad_err,
                 step_stats_max_abs=stat_err, **summary)
 
+def _fixed_input(torch, n, gen):
+    """Normal values over twice the formats' range (+-8), with exact
+    midpoints of each format's grid written into a slice of their own and
+    +-0 at the start."""
+    x = torch.randn(n, generator=gen, device="cuda") * 4
+    k = n // 16
+    for j, (_, fl) in enumerate(FIXED_FORMATS):
+        part = x[k * (j + 1):k * (j + 2)]
+        part.copy_((torch.floor(part * 2.0 ** fl) + 0.5) / 2.0 ** fl)
+    x[:2] = torch.tensor([0.0, -0.0], device="cuda")[:n]
+    return x
 
-def _per_step(rows, key):
-    """Sum of ``key`` over the 13 float32 calls of one batch or step (rows
-    beyond the model count 0 times)."""
-    return sum(r[key] * r.get("calls_per_batch", r.get("calls_per_step"))
-               for r in rows if r["dtype"] == "float32")
+
+def phase_fixed_kernel(torch, quant, draw_seed):
+    """The fixed-point kernel against its plain version, bit for bit, at
+    every size x format x symmetric x clamp x rounding; stochastic rounding
+    unbiased; then kernel, plain, ``torch.fake_quantize_per_tensor_affine``
+    (nearest only, yardstick) times at (8, 4), clamp, per size."""
+    rows, checks = [], 0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, n, count in FIXED_SIZES:
+        x = _fixed_input(torch, n, gen)
+        for wl, fl in FIXED_FORMATS:
+            for symmetric in (False, True):
+                for clamp in (True, False):
+                    for stochastic in (False, True):
+                        kw = dict(clamp=clamp, symmetric=symmetric, stochastic=stochastic,
+                                  seed=draw_seed(gen, "cuda") if stochastic else None)
+                        got = quant.fused_fixed_point_quantize(x, wl, fl, **kw)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, quant.fixed_point_quantize_reference(
+                                x, wl, fl, **kw)):
+                            fail(f"fixed-point kernel differs from its plain version at {label}, "
+                                 f"wl {wl} fl {fl} symmetric {symmetric} clamp {clamp} "
+                                 f"stochastic {stochastic}")
+                        checks += 1
+        # Stochastic rounding is unbiased: each error lies in (-res, res) with
+        # variance <= res^2 / 4, so over m unclamped elements the mean error
+        # stays within 4 sigma = 2 res / sqrt(m).
+        res = 2.0 ** -PTQ_FL
+        q = quant.fused_fixed_point_quantize(x, PTQ_WL, PTQ_FL, stochastic=True,
+                                             seed=draw_seed(gen, "cuda"))
+        inside = x.abs() < 2.0 ** (PTQ_WL - PTQ_FL - 1) - 2 * res
+        m = int(inside.sum())
+        bias = (q.double() - x.double())[inside].mean().item()
+        bias_limit = 2 * res / math.sqrt(m)
+        qmin, qmax = -(2 ** (PTQ_WL - 1)), 2 ** (PTQ_WL - 1) - 1
+
+        def library():
+            return torch.fake_quantize_per_tensor_affine(x, 2.0 ** -PTQ_FL, 0, qmin, qmax)
+        library_equal = torch.equal(library(), quant.fused_fixed_point_quantize(x, PTQ_WL, PTQ_FL))
+        plain_reps = dict(reps=5, inner=3) if n >= 1 << 20 else {}
+        for stochastic in (False, True):
+            kw = dict(stochastic=stochastic, seed=draw_seed(gen, "cuda") if stochastic else None)
+
+            def kernel():
+                return quant.fused_fixed_point_quantize(x, PTQ_WL, PTQ_FL, **kw)
+            row = dict(size=label, elements=n, per_quantisation=count, wl=PTQ_WL, fl=PTQ_FL,
+                       rounding="stochastic" if stochastic else "nearest", max_abs_err=0.0,
+                       ms=time_ms(torch, kernel), eager_ms=eager_ms(torch, kernel),
+                       plain_ms=time_ms(torch, lambda: quant.fixed_point_quantize_reference(
+                           x, PTQ_WL, PTQ_FL, **kw), **plain_reps),
+                       library_ms=None if stochastic else time_ms(torch, library),
+                       library_equal=None if stochastic else library_equal,
+                       stochastic_bias=bias if stochastic else None,
+                       stochastic_bias_limit=bias_limit if stochastic else None,
+                       **_bound(8 * n, 4 * n, "float32"))
+            rows.append(row)
+            lib = (f"fake_quantize {row['library_ms'] * 1e3:.1f} us "
+                   f"({'equal' if library_equal else 'differs'})" if not stochastic
+                   else f"mean error {bias:.2e} (limit {bias_limit:.2e})")
+            print(f"quant fixed {label:10s} {row['rounding']:10s} wl {PTQ_WL} fl {PTQ_FL}: "
+                  f"kernel = plain bit for bit ({checks} settings so far) | kernel "
+                  f"{row['ms'] * 1e3:.1f} us (eager {row['eager_ms'] * 1e3:.1f}), plain "
+                  f"{row['plain_ms'] * 1e3:.1f} us, {lib}, bound {row['bound_ms'] * 1e3:.2f} us "
+                  f"({row['bound_by']})", flush=True)
+        if abs(bias) > bias_limit:
+            fail(f"stochastic rounding biased at {label}: mean error {bias} > {bias_limit}")
+    return rows
+
+
+def _codebooks(cbm):
+    books = [(f"lsq_fibbinary({n})", cbm.lsq_fibbinary_codebook(n)) for n in range(4, 12)]
+    return books + [("fibbinary(8, 4)", cbm.fibbinary_codebook(8, 4)),
+                    ("fibonacci(8, 4)", cbm.fibonacci_sequence_codebook(8, 4))]
+
+
+def _codeword_input(torch, np, n, cb, gen):
+    """Values over the codebook's range and 20% beyond on each side, with
+    every codeword, every midpoint of two neighbours (a tie) and +-0 first."""
+    s = np.unique(cb)
+    span = s[-1] - s[0]
+    x = (s[0] - 0.2 * span) + torch.rand(n, generator=gen, device="cuda") * (1.4 * span)
+    special = torch.tensor(np.concatenate([[0.0, -0.0], s, (s[1:] + s[:-1]) / 2]),
+                           dtype=torch.float32, device="cuda")
+    k = min(n, special.numel())
+    x[:k] = special[:k]
+    return x
+
+
+def phase_codeword_kernel(torch, quant, cbm):
+    """The nearest-codeword kernel against its plain version, bit for bit,
+    for every codebook at the LSQ path's sizes and 2^20 elements (and 2^24
+    for the largest codebook); kernel, plain and ``torch.bucketize`` on the
+    midpoints plus an index (yardstick) times for the LSQ path's 67-entry
+    codebook at its sizes and for 2^24 x 287."""
+    import numpy as np
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, cb_np in _codebooks(cbm):
+        cb = torch.tensor(cb_np, dtype=torch.float32, device="cuda")
+        big = [CODEWORD_BIG[1]] if name == CODEWORD_BIG[0] else []
+        for label, n, count in CODEWORD_SIZES + big:
+            x = _codeword_input(torch, np, n, cb_np, gen)
+            got = quant.fused_nearest_codeword(x, cb)
+            torch.cuda.synchronize()
+            if not torch.equal(got, quant.nearest_codeword_reference(x, cb)):
+                fail(f"nearest-codeword kernel differs from its plain version: {name} at {label}")
+            timed = (count and name == f"lsq_fibbinary({LSQ_NBITS})") or (label, n, count) in big
+            if not timed:
+                print(f"codeword {name:18s} ({cb.numel():3d} entries) {label:8s}: kernel = plain "
+                      f"bit for bit", flush=True)
+                continue
+            srt = torch.sort(cb).values
+            mids = (srt[1:] + srt[:-1]) / 2
+
+            def library():  # right=False: a tie goes to the lower codeword
+                return srt[torch.bucketize(x, mids, right=False)]
+
+            def kernel():
+                return quant.fused_nearest_codeword(x, cb)
+            row = dict(codebook=name, entries=cb.numel(), size=label, elements=n,
+                       per_forward=count, max_abs_err=0.0, ms=time_ms(torch, kernel),
+                       eager_ms=eager_ms(torch, kernel),
+                       plain_ms=time_ms(torch, lambda: quant.nearest_codeword_reference(x, cb),
+                                        **(dict(reps=3, inner=1) if count == 0 else {})),
+                       library_ms=time_ms(torch, library),
+                       library_equal=torch.equal(library(), got),
+                       **_bound(8 * n + 4 * cb.numel(), 2 * n * cb.numel(), "float32"))
+            rows.append(row)
+            print(f"codeword {name:18s} ({cb.numel():3d} entries) {label:8s}: kernel = plain bit "
+                  f"for bit | kernel {row['ms'] * 1e3:.1f} us (eager {row['eager_ms'] * 1e3:.1f}), "
+                  f"plain {row['plain_ms'] * 1e3:.1f} us, bucketize "
+                  f"{row['library_ms'] * 1e3:.1f} us "
+                  f"({'equal' if row['library_equal'] else 'differs'}), bound "
+                  f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})", flush=True)
+    return rows
+
+
+def phase_ptq_path(torch, wrappers, card):
+    """Post-training quantization at the flagship (``experiments/ptq_sweep.py:94-110``
+    in the package): the FP32 weights quantized by ``apply_weight_quant``
+    with ``fixed_point_quantize`` (72 kernel launches), loaded into a copy
+    of the model, ``eval_chunk`` through the bd kernel; nearest and
+    stochastic, each against the plain path bit for bit; the time of a
+    whole 24-point sweep (quantize only); eval samples/s."""
+    import copy
+
+    from channelestimationtransformer_torch.ops.cuda.bd_attention import draw_seed
+    from channelestimationtransformer_torch.ops.cuda.quant import fixed_point_quantize_reference
+    from channelestimationtransformer_torch.ops.quant import (
+        apply_weight_quant,
+        build_weight_quant_settings,
+        fixed_point_quantize,
+    )
+    from channelestimationtransformer_torch.train.trainer import eval_chunk
+
+    cfg, model, _, ds = _models_and_data(torch)
+    sd = model.state_dict()
+    n_batches, batch = 8, 256
+
+    def settings(wl, fl, rounding, plain=False):
+        stochastic = rounding == "stochastic"
+
+        def kernel_fn(w, percentage, generator):
+            return fixed_point_quantize(w, wl, fl, rounding=rounding, generator=generator)
+
+        def plain_fn(w, percentage, generator):
+            return fixed_point_quantize_reference(
+                w, wl, fl, stochastic=stochastic,
+                seed=draw_seed(generator, w.device) if stochastic else None)
+        return build_weight_quant_settings(sd, plain_fn if plain else kernel_fn)
+
+    def quantise(s, seed=0):
+        return apply_weight_quant(sd, s, generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    def run(m, seed):
+        return eval_chunk(m, ds, num_batches=n_batches, batch_size=batch, label_len=cfg.label_len,
+                          generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    fp32_sum = sum(v.double().abs().sum().item() for v in sd.values() if v.is_floating_point())
+    fp32_nmse = run(model, 1)["nmse"].item()
+    qmodel = copy.deepcopy(model)
+    out = {"fp32_nmse": fp32_nmse}
+    for rounding in ("nearest", "stochastic"):
+        s = settings(PTQ_WL, PTQ_FL, rounding)
+        elements = sum(sd[k].numel() for k in s.settings)
+        torch.cuda.synchronize()
+        _zero_counts(wrappers)
+        q = quantise(s)
+        qmodel.load_state_dict(q)
+        res = run(qmodel, 1)
+        torch.cuda.synchronize()
+        launches = _counts(wrappers)
+        expected = {k: 0 for k in launches} | dict(fixed=72, bd_fwd=13 * n_batches)
+        want = quantise(settings(PTQ_WL, PTQ_FL, rounding, plain=True))
+        equal = all(torch.equal(q[k], want[k]) for k in sd)
+        nmse = res["nmse"].item()
+        print(f"ptq eval path, {rounding} wl {PTQ_WL} fl {PTQ_FL}: {len(s)} tensors, "
+              f"{elements:,} elements, launches {_launch_report(launches, expected)}; quantized "
+              f"tensors {'equal to' if equal else 'DIFFER from'} the plain path's bit for bit; "
+              f"eval_chunk {n_batches} x {batch}: nmse {nmse:.6f} (fp32 {fp32_nmse:.6f})",
+              flush=True)
+        if launches != expected or len(s) != 72:
+            fail(f"kernels launched {launches} times on the ptq eval path, not {expected}")
+        if not equal:
+            fail(f"ptq {rounding}: quantized tensors differ from the plain path's")
+        if not math.isfinite(nmse):
+            fail("non-finite NMSE on the ptq eval path")
+        out[rounding] = dict(launches=launches, nmse=nmse, tensors=len(s), elements=elements)
+    if sum(v.double().abs().sum().item() for v in sd.values() if v.is_floating_point()) != fp32_sum:
+        fail("the ptq path changed the FP32 weights")
+
+    sweep = [settings(wl, fl, rounding) for wl, fl, rounding in SWEEP]
+    sweep_times = []
+    for _ in range(5):  # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, s in enumerate(sweep):
+            quantise(s, i)
+        torch.cuda.synchronize()
+        sweep_times.append((time.perf_counter() - t0) * 1e3)
+    sweep_ms = statistics.median(sweep_times[1:])
+    print(f"ptq sweep: {len(SWEEP)} points (wl 4-15, fl = wl - 4, nearest and stochastic), "
+          f"{72 * len(SWEEP):,} tensors: {sweep_ms:.3f} ms per sweep, quantize only (median of "
+          f"{len(sweep_times) - 1}) on {card}", flush=True)
+
+    models = {"ptq": qmodel, "fp32": model}
+    times = _alternate(torch, lambda name, i: run(models[name], 100 + i), names=tuple(models))
+    for name, ts in times.items():
+        med = statistics.median(ts[2:])
+        out[f"{name}_samples_per_s"] = n_batches * batch / med
+        print(f"ptq eval {name:4s} weights: {n_batches * batch / med:.1f} samples/s (median of "
+              f"{len(ts) - 2} chunks of {n_batches * batch}, {med * 1e3:.3f} ms) on {card}",
+              flush=True)
+    return dict(out, sweep_ms=sweep_ms, sweep_ms_all=sweep_times)
+
+
+def _per_path(rows, key, weight):
+    """Sum of ``key`` weighted by each row's count on the path (``weight``)."""
+    return sum(r[key] * r[weight] for r in rows if r[weight])
+
+
+def _kernel_entry(name, replaces, launches, rows, weight, per):
+    tpu = "channelestimationtransformer_tpu/ops/pallas/"
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"channelestimationtransformer_torch/ops/cuda/csrc/{name}.cu",
+        "replaces": ", ".join(tpu + r for r in replaces),
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r[weight]),
+        "ms": _per_path(rows, "ms", weight),
+        "plain_ms": _per_path(rows, "plain_ms", weight),
+        "bound_ms": _per_path(rows, "bound_ms", weight),
+        "bound_by": ("bytes" if _per_path(rows, "bytes_ms", weight)
+                     >= _per_path(rows, "ops_ms", weight) else "operations"),
+        "library_ms": _per_path(rows, "library_ms", weight),
+        "per": per,
+    }
 
 
 def main(argv):
@@ -590,6 +903,8 @@ def main(argv):
     from channelestimationtransformer_torch.ops.cuda import _build
     from channelestimationtransformer_torch.ops.cuda import bd_attention as ops
     from channelestimationtransformer_torch.ops.cuda import mha_attention as mha
+    from channelestimationtransformer_torch.ops.cuda import quant
+    from channelestimationtransformer_torch.ops.quant import codebooks
     from channelestimationtransformer_torch.core.config import InformerConfig
 
     OUT.mkdir(exist_ok=True)
@@ -603,7 +918,7 @@ def main(argv):
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    libs = (ops.FWD_LIB, ops.BWD_LIB, mha.LIB)
+    libs = (ops.FWD_LIB, ops.BWD_LIB, mha.LIB, quant.FIXED_LIB, quant.CODEWORD_LIB)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         builds = list(pool.map(_build.build, libs))
     build_s = time.perf_counter() - t0
@@ -621,53 +936,64 @@ def main(argv):
         torch.cuda.synchronize()
 
     profile = "--profile" in argv
+    wrappers = dict(bd_fwd=ops.bd_attention_fwd, bd_bwd=ops.bd_attention_bwd,
+                    mha=mha.mha_attention_fwd, fixed=quant.fused_fixed_point_quantize,
+                    codeword=quant.fused_nearest_codeword)
     eval_rows = phase_kernel(torch, F, ops.bd_attention, ops.bd_attention_reference,
                              [s + (B, H, E, E) for s in SHAPES])
     mha_rows = phase_kernel(torch, F, mha.mha_attention, mha.mha_attention_reference,
                             [s + (XL_B, XL_H, XL_E, XL_E) for s in XL_SHAPES]
                             + MHA_EXTRA_SHAPES, prefix="mha kernel", seed=2)
+    fixed_rows = phase_fixed_kernel(torch, quant, ops.draw_seed)
+    codeword_rows = phase_codeword_kernel(torch, quant, codebooks)
     fwd_rows, bwd_rows = phase_kernel_train(torch, F, ops)
-    eval_path = phase_eval_path(torch, ops, mha, card, profile)
+    eval_path = phase_eval_path(torch, wrappers, card, profile)
     xl_cfg = InformerConfig(d_model=1024, d_ff=4096, seq_len=256, use_pallas=True)
-    xl_eval_path = phase_eval_path(torch, ops, mha, card, profile, name="xl eval path",
+    xl_eval_path = phase_eval_path(torch, wrappers, card, profile, name="xl eval path",
                                    cfg=xl_cfg, samples=4096, slots=xl_cfg.seq_len + 10,
-                                   batch=64, route="mha")
-    train_path = phase_train_path(torch, ops, mha, card, profile)
+                                   batch=64, expected={"mha": 13 * 8})
+    ptq_path = phase_ptq_path(torch, wrappers, card)
+    from channelestimationtransformer_torch.models.informer import build_informer
 
-    per = "one training step: the 13 float32 calls at their flagship shapes (dropout 0.05)"
-    tpu = "channelestimationtransformer_tpu/ops/pallas/"
-    kernels = []
-    for name, rows, launches, replaces, per in (
-            ("bd_attention_fwd", fwd_rows, train_path["launches_fwd"],
-             f"{tpu}bd_attention.py:121", per),
-            ("bd_attention_bwd", bwd_rows, train_path["launches_bwd"],
-             f"{tpu}bd_attention.py:153", per),
-            ("mha_attention_fwd", mha_rows, xl_eval_path["launches"]["mha"],
-             f"{tpu}attention.py:70, {tpu}attention.py:31",
-             "one xl eval batch: the 13 float32 calls at their xl shapes (B 64, H 8, E 128)")):
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"channelestimationtransformer_torch/ops/cuda/csrc/{name}.cu",
-            "replaces": replaces,
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
-            "ms": _per_step(rows, "ms"),
-            "plain_ms": _per_step(rows, "plain_ms"),
-            "bound_ms": _per_step(rows, "bound_ms"),
-            "bound_by": ("bytes" if _per_step(rows, "bytes_ms") >= _per_step(rows, "ops_ms")
-                         else "operations"),
-            "library_ms": _per_step(rows, "library_ms"),
-            "per": per,
-        })
+    lsq_cfg = InformerConfig(attn="full", use_pallas=True, lsq_nbits=LSQ_NBITS,
+                             lsq_fibbinary=True)
+    lsq_path = phase_eval_path(
+        torch, wrappers, card, profile, name="lsq-fibbinary eval path", cfg=lsq_cfg,
+        expected={"bd_fwd": 13 * 8, "codeword": 72 * 8},
+        beside={"fp32-kernel": build_informer(InformerConfig(use_pallas=True), device="cuda",
+                                              seed=0)})
+    train_path = phase_train_path(torch, wrappers, card, profile)
+
+    f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
+    kernels = [
+        _kernel_entry("bd_attention_fwd", ["bd_attention.py:121"], train_path["launches_fwd"],
+                      f32(fwd_rows), "calls_per_step", "one training step: the 13 float32 calls "
+                      "at their flagship shapes (dropout 0.05)"),
+        _kernel_entry("bd_attention_bwd", ["bd_attention.py:153"], train_path["launches_bwd"],
+                      f32(bwd_rows), "calls_per_step", "one training step: the 13 float32 calls "
+                      "at their flagship shapes (dropout 0.05)"),
+        _kernel_entry("mha_attention_fwd", ["attention.py:70", "attention.py:31"],
+                      xl_eval_path["launches"]["mha"], f32(mha_rows), "calls_per_batch",
+                      "one xl eval batch: the 13 float32 calls at their xl shapes "
+                      "(B 64, H 8, E 128)"),
+        _kernel_entry("fixed_point_quantize", ["quant.py:38"],
+                      ptq_path["nearest"]["launches"]["fixed"],
+                      [r for r in fixed_rows if r["rounding"] == "nearest"], "per_quantisation",
+                      f"one PTQ quantization: the 72 tensors at wl {PTQ_WL}, fl {PTQ_FL}, nearest"),
+        _kernel_entry("nearest_codeword", ["quant.py:107"], lsq_path["launches"]["codeword"],
+                      [r for r in codeword_rows if r["codebook"] == f"lsq_fibbinary({LSQ_NBITS})"],
+                      "per_forward", f"one LSQ-fibbinary forward: the 72 snaps with the "
+                      f"{len(codebooks.lsq_fibbinary_codebook(LSQ_NBITS))}-entry codebook"),
+    ]
     kernels[0].update(eval_launches=eval_path["launches"]["bd_fwd"],
-                      eval_ms=_per_step(eval_rows, "ms"),
-                      eval_bound_ms=_per_step(eval_rows, "bound_ms"),
-                      eval_library_ms=_per_step(eval_rows, "library_ms"))
+                      eval_ms=_per_path(f32(eval_rows), "ms", "calls_per_batch"),
+                      eval_bound_ms=_per_path(f32(eval_rows), "bound_ms", "calls_per_batch"),
+                      eval_library_ms=_per_path(f32(eval_rows), "library_ms", "calls_per_batch"))
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, kernel_rows=eval_rows, mha_kernel_rows=mha_rows,
-        train_fwd_rows=fwd_rows, train_bwd_rows=bwd_rows, eval_path=eval_path,
-        xl_eval_path=xl_eval_path, train_path=train_path, kernels=kernels), indent=1))
+        fixed_rows=fixed_rows, codeword_rows=codeword_rows, train_fwd_rows=fwd_rows,
+        train_bwd_rows=bwd_rows, eval_path=eval_path, xl_eval_path=xl_eval_path,
+        ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path, kernels=kernels), indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

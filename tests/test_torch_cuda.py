@@ -1,6 +1,6 @@
-"""The CUDA attention kernels (bd-attention forward, with and without
-dropout, and backward; the mha-attention forward) against their plain
-versions, on the card.
+"""The CUDA kernels (bd-attention forward, with and without dropout, and
+backward; the mha-attention forward; fixed-point quantization and the
+nearest-codeword snap) against their plain versions, on the card.
 
 Marked ``cuda``; each test skips when no card is present. This file imports
 only torch and numpy, so it also runs where JAX is not installed:
@@ -13,7 +13,9 @@ float32 rtol 2e-4 / atol 2e-5 (longer sums: dK and dV run over up to 512
 query rows); bfloat16 is checked in its own dtype against the plain version
 on the same bf16 inputs, rtol/atol 1e-2 (one bf16 rounding of the result,
 2^-8 relative). The dropout mask is compared exactly: both run the same
-Philox.
+Philox. The quantization kernels are compared bit for bit: each rounding
+step is one float32 operation in both, and stochastic rounding draws the
+same Philox bits.
 """
 
 import numpy as np
@@ -249,3 +251,161 @@ def test_mha_kernel_raises_instead_of_falling_back(cuda):
         mha_attention(q.requires_grad_(), k, v)
     with torch.no_grad():
         assert np.isfinite(mha_attention(q, k, v).cpu().numpy()).all()
+
+
+# --- quantization kernels ------------------------------------------------------
+
+from channelestimationtransformer_torch.ops.cuda.quant import (  # noqa: E402
+    fixed_point_quantize_reference,
+    fused_fixed_point_quantize,
+    fused_nearest_codeword,
+    nearest_codeword_reference,
+)
+from channelestimationtransformer_torch.ops.quant.codebooks import (  # noqa: E402
+    fibbinary_codebook,
+    fibonacci_sequence_codebook,
+    lsq_fibbinary_codebook,
+)
+
+# Element counts: the PTQ path's 128 x 128 and 128 x 64, a tail that is no
+# multiple of 4, a single element, and 2^20.
+QUANT_SIZES = [128 * 128, 128 * 64, 1_000_003, 1, 1 << 20]
+# (wl, fl, symmetric, clamp)
+QUANT_FORMATS = [(8, 4, False, True), (4, 0, True, True), (15, 11, False, False),
+                 (2, -2, True, True), (5, 7, False, True)]
+
+
+def _quant_input(n, scale, device, seed=0):
+    """Normal values times ``scale`` with exact midpoints of the 2^-4 grid
+    and +-0 written in."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, generator=g, device=device) * scale
+    x[: n // 8] = (torch.floor(x[: n // 8] * 16) + 0.5) / 16
+    x[:2] = torch.tensor([0.0, -0.0], device=device)[: min(n, 2)]
+    return x
+
+
+@pytest.mark.parametrize("n", QUANT_SIZES)
+@pytest.mark.parametrize("wl,fl,symmetric,clamp", QUANT_FORMATS)
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_fixed_point_kernel_matches_plain_version(cuda, n, wl, fl, symmetric, clamp,
+                                                  stochastic):
+    x = _quant_input(n, 2.0 ** (wl - fl - 1), cuda)
+    seed = _seed(cuda, 4242 + n) if stochastic else None
+    kw = dict(clamp=clamp, symmetric=symmetric, stochastic=stochastic, seed=seed)
+    before = fused_fixed_point_quantize.launches
+    got = fused_fixed_point_quantize(x, wl, fl, **kw)
+    torch.cuda.synchronize()
+    assert fused_fixed_point_quantize.launches == before + 1
+    want = fixed_point_quantize_reference(x, wl, fl, **kw)
+    assert torch.equal(got, want)
+    # Unaligned (scalar) accesses: the same tensor from its second element.
+    if n > 1:
+        assert torch.equal(fused_fixed_point_quantize(x[1:], wl, fl, **kw),
+                           fixed_point_quantize_reference(x[1:], wl, fl, **kw))
+
+
+def _codebook_cases():
+    g = np.random.default_rng(3)
+    return [lsq_fibbinary_codebook(n) for n in (4, 8, 11)] + [
+        fibbinary_codebook(8, 4), fibonacci_sequence_codebook(8, 4),
+        g.permutation(lsq_fibbinary_codebook(7))]
+
+
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("n", [128 * 128, 128 * 64, 1_000_003, 3])
+def test_codeword_kernel_matches_plain_version(cuda, case, n):
+    cb_np = _codebook_cases()[case]
+    cb = torch.tensor(cb_np, dtype=torch.float32, device=cuda)
+    s = np.unique(cb_np)
+    x = _quant_input(n, float(s[-1] - s[0]) * 0.6, cuda, seed=case)
+    mids = torch.tensor((s[1:] + s[:-1]) / 2, dtype=torch.float32, device=cuda)
+    k = min(n, mids.numel())
+    x[-k:] = mids[:k]  # exact ties
+    before = fused_nearest_codeword.launches
+    got = fused_nearest_codeword(x, cb)
+    torch.cuda.synchronize()
+    assert fused_nearest_codeword.launches == before + 1
+    assert torch.equal(got, nearest_codeword_reference(x, cb))
+    if n > 1:
+        assert torch.equal(fused_nearest_codeword(x[1:], cb), nearest_codeword_reference(x[1:], cb))
+
+
+def test_quant_kernels_raise_instead_of_falling_back(cuda):
+    x = torch.randn(64, device=cuda)
+    cb = torch.tensor(lsq_fibbinary_codebook(5), dtype=torch.float32, device=cuda)
+    for bad in (x.double(), x.bfloat16()):
+        with pytest.raises(TypeError):
+            fused_fixed_point_quantize(bad, 8, 4)
+        with pytest.raises(TypeError):
+            fused_nearest_codeword(bad, cb)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_fixed_point_quantize(x.view(8, 8).t(), 8, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_nearest_codeword(x.view(8, 8).t(), cb)
+    with pytest.raises(ValueError, match="seed"):
+        fused_fixed_point_quantize(x, 8, 4, stochastic=True)
+    with pytest.raises(ValueError, match="seed"):
+        fused_fixed_point_quantize(x, 8, 4, stochastic=True, seed=_seed("cpu"))
+    with pytest.raises(TypeError):
+        fused_nearest_codeword(x, cb.double())
+    with pytest.raises(ValueError, match="codebook"):
+        fused_nearest_codeword(x, cb.cpu())
+    assert torch.isfinite(fused_nearest_codeword(x, cb)).all()
+
+
+def test_lsq_fibbinary_model_through_the_kernel_matches_the_plain_path(cuda):
+    """A small LSQ-fibbinary model on the card: one forward launches the
+    codeword kernel once per quantized layer and agrees with the same
+    weights through the plain versions (use_pallas=False)."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.models import build_informer_lsq
+
+    cfg = InformerConfig(d_model=32, n_heads=4, e_layers=(2, 1), d_layers=1, use_pallas=True)
+    model = build_informer_lsq(cfg, nbits=8, fibbinary=True, device=cuda, seed=3)
+    plain = build_informer_lsq(InformerConfig(d_model=32, n_heads=4, e_layers=(2, 1),
+                                              d_layers=1), nbits=8, fibbinary=True,
+                               device=cuda, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x_enc = torch.randn(8, 90, 16, generator=g, device=cuda)
+    x_dec = torch.randn(8, 15, 16, generator=g, device=cuda)
+    before = fused_nearest_codeword.launches
+    with torch.no_grad():
+        got = model(x_enc, x_dec)
+        torch.cuda.synchronize()
+        assert fused_nearest_codeword.launches == before + 28
+        want = plain(x_enc, x_dec)
+    assert fused_nearest_codeword.launches == before + 28  # the plain path launches none
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_ptq_weight_transform_through_the_kernel(cuda):
+    """apply_weight_quant on the card: one fixed-point launch per quantized
+    tensor (72 at the flagship), the tensors equal to the plain version's
+    and the FP32 weights left as they were."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.ops.cuda.bd_attention import draw_seed
+    from channelestimationtransformer_torch.ops.quant import (
+        apply_weight_quant,
+        build_weight_quant_settings,
+        fixed_point_quantize,
+    )
+
+    sd = build_informer(InformerConfig(), device=cuda).state_dict()
+    fp32 = {k: v.clone() for k, v in sd.items()}
+    for rounding in ("nearest", "stochastic"):
+        kernel = build_weight_quant_settings(sd, lambda w, p, g: fixed_point_quantize(
+            w, 8, 4, rounding=rounding, generator=g))
+        plain = build_weight_quant_settings(sd, lambda w, p, g: fixed_point_quantize_reference(
+            w, 8, 4, stochastic=rounding == "stochastic",
+            seed=draw_seed(g, w.device) if rounding == "stochastic" else None))
+        before = fused_fixed_point_quantize.launches
+        got = apply_weight_quant(sd, kernel,
+                                 generator=torch.Generator(device=cuda).manual_seed(1))
+        torch.cuda.synchronize()
+        assert fused_fixed_point_quantize.launches == before + 72
+        want = apply_weight_quant(sd, plain,
+                                  generator=torch.Generator(device=cuda).manual_seed(1))
+        assert all(torch.equal(got[k], want[k]) for k in sd)
+    assert all(torch.equal(sd[k], v) for k, v in fp32.items())

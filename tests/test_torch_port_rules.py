@@ -62,8 +62,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_options_raise():
-    for kwargs in (dict(attn="prob"), dict(fuse_qkv=True), dict(lsq_nbits=4),
-                   dict(dtype="bfloat16")):
+    for kwargs in (dict(attn="prob"), dict(fuse_qkv=True), dict(dtype="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_informer(InformerConfig(**kwargs), device="cpu")
 
