@@ -10,220 +10,321 @@
 //
 // q [B, Lq, H, E], k [B, Lk, H, E], v [B, Lk, H, D] and out [B, Lq, H, D] are
 // read and written in place through their strides, with no transposes; f32
-// or bf16 in, f32 math, output in the input dtype. With `causal` the mask is
-// top-left aligned: key j is kept for query i iff j <= i (the TPU kernels'
-// mask and full_attention's triu(1)), also when Lq != Lk.
+// or bf16 in, f32 accumulation, output in the input dtype. With `causal` the
+// mask is top-left aligned: key j is kept for query i iff j <= i (the TPU
+// kernels' mask and full_attention's triu(1)), also when Lq != Lk.
 //
-// Design. One block of 256 threads per (b, h, tile of BQ = 16, 32 or 64
-// query rows; the smallest that holds Lq, so the short decoder shapes waste
-// few rows and still give B*H blocks). The block stages its Q tile in shared
-// memory once as f32, then walks the keys in tiles of 64 (K and V rows as
-// f32, zero-padded to W = 64 or 128 columns) with a running row max and sum
-// (online softmax): the [Lq, Lk] scores never reach device memory, and any Lk
-// fits. A causal block stops at the last key its rows can see. The threads
-// form 16 row groups of 16 lanes. For the scores a thread holds RM = BQ/16
-// rows x 4 keys (keys tc + 16*jj: consecutive lanes read consecutive padded
-// K rows, free of bank conflicts); row maxima and sums are reduced over the
-// 16 lanes by shuffles. The probabilities go through shared memory (over the
-// K tile, which is no longer read) to the P*V product, where the thread
-// holds RM rows x W/16 output columns. Every inner step is an outer product
-// of float4 loads from shared memory: 8 to 11 FMAs per 16-byte load at 64-row
-// tiles, ~3 at 16-row tiles.
+// Bound on an H100 SXM (3.35 TB/s; f32 products at 165 TFLOP/s, the
+// split-TF32 rate of the tensor cores, 495 / 3): at the xl model's encoder
+// shape (B 64, H 8, E = D = 128, Lq = Lk = 256, f32) the call reads Q, K, V
+// and writes O once, 268 MB, 80 us; it does 4*B*H*Lq*Lk*E = 17.2 GFLOP,
+// 104 us. So operations bound the long calls; the xl model's shorter calls
+// (L 128 and below, the 15-row decoder calls) are bound by bytes.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores)
-// at the xl model's encoder shape (B 64, H 8, E = D = 128, Lq = Lk = 256,
-// f32): it reads Q, K, V and writes O once, 4 B * B*H*E*4*L = 268 MB, 80 us;
-// it does 4*B*H*Lq*Lk*E = 17.2 GFLOP, 256 us on the f32 CUDA cores. So the
-// call is bound by operations, and the design spends its shared memory and
-// registers on keeping the FMA pipes fed (two blocks of 101 KB per SM,
-// <= 128 registers a thread) and reads each K/V tile from L2 once per query
-// tile. Measured on an H100 SXM at 700 W (chip_smoke.py): 669 us at that
-// shape, 2.6x its bound (38% of the f32 peak; by count, the shared-memory
-// wavefronts take ~70% of the FMA issue time); the 16-row decoder tiles run
-// ~5x their byte bound. In bf16 the same work
-// is 17 us on the tensor cores, which this CUDA-core kernel does not use:
-// mma.sync / wgmma tiles (and a split-TF32 product for f32 inputs) are later
-// work.
+// Design (FlashAttention-2 on mma.sync). A warp owns 16 query rows, the m16
+// of the MMA. Scores S = Q K^T, the online softmax (row max and sum over the
+// quad of 4 lanes that share a row of the C fragment) and O += P V all stay
+// in registers; the [Lq, Lk] scores never reach memory and any Lk fits. Q
+// rows and K and V tiles of BK keys go global -> shared by cp.async, K/V in
+// two stages, so the next tile's copy overlaps this tile's MMAs; rows past
+// the last key are zero-filled by the copy. WG warps that share a (b, h)
+// share its K/V tiles: WG = 4 (64 query rows a block) for Lq > 32, 2 for
+// Lq <= 32, and 1 for Lq <= 16, where a block of 4 warps serves 4 (b, h) and
+// the xl decoder's 512 (b, h) take 128 blocks, not 512 that each stage a
+// 64-key tile for 15 rows. A causal tile stops at its last visible key and
+// a warp skips the tiles its rows cannot see. f32 inputs take the
+// split-TF32 product (mma_tf32.cuh) for Q K^T and P V; its k order (2t,
+// 2t + 1) makes a C fragment of S the A fragment of P in place. bf16 inputs
+// take bf16 MMAs, P rounded to bf16 for P V as FlashAttention does, V's B
+// fragments by ldmatrix.trans. Where E or D is not a multiple of 16 bytes,
+// the tiles are loaded by plain loads instead of cp.async. The products run
+// over the padded width W (64 or 128), whose columns past E and D are zero
+// in shared memory.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 375.9 us
+// at the L 256 shape above, 3.6x its bound (the CUDA-core kernel this
+// replaces: 669.4 us); 839.5 us for the xl model's 13 calls a batch, where
+// SDPA in f32 takes 1,141.9. attention_ablation.py puts 164 us of the L 256
+// call in the loop without MMAs (the K/V tiles from L2) and the rest in the
+// split-TF32 products: each warp re-splits the K and V tiles it shares, and
+// 8 warps an SM do not hide the MMA and ALU latencies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "bd_attention_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 row groups x 16 lanes
-constexpr int kBK = 64;        // keys per tile
-constexpr int kBKP = kBK + 4;  // padded row of the probability tile
-constexpr int kMaxW = 128;     // head width limit, E and D
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxW = 128;  // head width limit, E and D
+constexpr int kStages = 2;  // K/V pipeline stages (3 measured slower: fewer blocks an SM)
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float max16(float x) {
+// Row pitches (elements) of the shared tiles. Q and K rows W + 8: the 8-byte
+// (f32) or 4-byte (bf16) fragment loads of 8 rows x 4 lanes hit distinct
+// banks. V rows W + 4 for f32 (4-byte loads of rows 2t and 2t + 1) and
+// W + 8 for bf16 (ldmatrix rows 16 bytes apart modulo 128).
+template <typename T, int W>
+struct Pitch {
+  static constexpr int q = W + 8, k = W + 8, v = sizeof(T) == 4 ? W + 4 : W + 8;
+};
+
+template <int WG>
+__device__ __forceinline__ void group_sync(int gi) {
+  if constexpr (WG == kWarps) {
+    __syncthreads();
+  } else if constexpr (WG == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(gi + 1), "n"(WG * 32) : "memory");
+  }
+}
+
+// s[n] = Q K^T for the warp's 16 rows and keys 8n .. 8n + 7 of the tile,
+// over all W columns (those past E are zero). No branch around an MMA: a
+// loop bound that the compiler cannot prove warp-uniform costs a
+// convergence barrier (BSSY/BSYNC) per MMA group.
+template <int NT, int QP, int KP, int W>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const float* sq, const float* sk,
+                                       int g, int t) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
+  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int ks = 0; ks < W / 8; ++ks) {
+    const float2 x0 = *reinterpret_cast<const float2*>(sq + g * QP + 8 * ks + 2 * t);
+    const float2 x1 = *reinterpret_cast<const float2*>(sq + (g + 8) * QP + 8 * ks + 2 * t);
+    uint32_t ah[4], al[4];
+    split_tf32({x0.x, x1.x, x0.y, x1.y}, ah, al);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 y = *reinterpret_cast<const float2*>(sk + (8 * n + g) * KP + 8 * ks + 2 * t);
+      uint32_t bh[2], bl[2];
+      split_tf32({y.x, y.y}, bh, bl);
+      mma_split_tf32(s[n], ah, al, bh, bl);
+    }
+  }
 }
 
-__device__ __forceinline__ float lane(const float4& x, int t) {
-  return t == 0 ? x.x : t == 1 ? x.y : t == 2 ? x.z : x.w;
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// W: padded head width (64 or 128); RM: query rows per thread (BQ = 16 * RM).
-template <typename T, int W, int RM>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int NT, int QP, int KP, int W>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const __nv_bfloat16* sq,
+                                       const __nv_bfloat16* sk, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < W / 16; ++ks) {
+    const __nv_bfloat16* a = sq + g * QP + 16 * ks + 2 * t;
+    const uint32_t af[4] = {ld32(a), ld32(a + 8 * QP), ld32(a + 8), ld32(a + 8 * QP + 8)};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const __nv_bfloat16* b = sk + (8 * n + g) * KP + 16 * ks + 2 * t;
+      const uint32_t bf[2] = {ld32(b), ld32(b + 8)};
+      mma_bf16(s[n], af, bf);
+    }
+  }
+}
+
+// acc[n] += P V for output columns 8n .. 8n + 7 (past D: zeros, not
+// stored); p is the tile's probabilities in C-fragment order.
+template <int NT, int NO, int VP>
+__device__ __forceinline__ void pv(float (&acc)[NO][4], const float (&p)[NT][4], const float* sv,
+                                   int g, int t, int) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32({p[j][0], p[j][2], p[j][1], p[j][3]}, ah, al);  // k column t <-> key 2t
+    const float* v0 = sv + (8 * j + 2 * t) * VP + g;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      uint32_t bh[2], bl[2];
+      split_tf32({v0[8 * n], v0[VP + 8 * n]}, bh, bl);
+      mma_split_tf32(acc[n], ah, al, bh, bl);
+    }
+  }
+}
+
+template <int NT, int NO, int VP>
+__device__ __forceinline__ void pv(float (&acc)[NO][4], const float (&p)[NT][4],
+                                   const __nv_bfloat16* sv, int, int, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const __nv_bfloat16* row = sv + (16 * kk + (lane & 15)) * VP + 8 * (lane >> 4);
+#pragma unroll
+    for (int n = 0; n < NO; n += 2) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, row + 8 * n);
+      mma_bf16(acc[n], a, {r[0], r[1]});
+      mma_bf16(acc[n + 1], a, {r[2], r[3]});
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Shared elements of one group: its Q rows and the stages of K and V tiles.
+template <typename T, int W, int WG, int BK>
+__host__ __device__ constexpr int group_elems() {
+  using P = Pitch<T, W>;
+  return 16 * WG * P::q + kStages * BK * (P::k + P::v);
+}
+
+// W: padded head width (64 or 128); WG: warps sharing a (b, h); BK: keys a
+// tile; VEC: tiles by 16-byte cp.async.
+template <typename T, int W, int WG, int BK, bool VEC>
+__global__ void __launch_bounds__(kThreads)
 mha_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ o, int H, int Lq, int Lk,
-                         int E, int D, float scale_log2, int causal) {
-  constexpr int BQ = 16 * RM;
-  constexpr int WP = W + 4;    // padded row: float4-aligned, conflict-free
-  constexpr int NCH = W / 64;  // float4 output chunks per thread and row
+                         const T* __restrict__ v, T* __restrict__ o, int BH, int H, int Lq,
+                         int Lk, int E, int D, float scale_log2, int causal) {
+  using P = Pitch<T, W>;
+  constexpr int BQ = 16 * WG;
+  constexpr int G = kWarps / WG;  // groups a block
+  constexpr int NT = BK / 8;      // key n-tiles of a score tile
+  constexpr int NO = W / 8;       // output n-tiles
+  constexpr int GE = group_elems<T, W, WG, BK>();
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // [BQ][WP]
-  float* sk = sq + BQ * WP;                     // [kBK][WP]
-  float* sv = sk + kBK * WP;                    // [kBK][WP]
-  float* sp = sk;  // [BQ][kBKP] probabilities, over K once the scores are done
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = warp / WG, wi = warp - gi * WG;
+  const int gtid = threadIdx.x - gi * WG * 32;
+  const int g = lane >> 2, t = lane & 3;
+  T* sq = reinterpret_cast<T*>(smem4) + gi * GE;  // [BQ][P::q]
+  T* sk = sq + BQ * P::q;                           // [kStages][BK][P::k]
+  T* sv = sk + kStages * BK * P::k;                      // [kStages][BK][P::v]
 
   const int n_qt = (Lq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x - bh * n_qt) * BQ;
+  const int item = blockIdx.x * G + gi;
+  if (item >= BH * n_qt) return;  // a spare group (G > 1): its barrier is its own
+  const int bh = item / n_qt, q0 = (item - bh * n_qt) * BQ;
   const int b = bh / H, h = bh - b * H;
   const size_t krow = (size_t)H * E, vrow = (size_t)H * D;  // position strides
-  const T* qb = q + (size_t)b * Lq * krow + (size_t)h * E;
+  const T* qb = q + ((size_t)b * Lq + q0) * krow + (size_t)h * E;
   const T* kb = k + (size_t)b * Lk * krow + (size_t)h * E;
   const T* vb = v + (size_t)b * Lk * vrow + (size_t)h * D;
   T* ob = o + (size_t)b * Lq * vrow + (size_t)h * D;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
 
-  for (int t = threadIdx.x; t < BQ * W; t += kThreads) {
-    const int r = t / W, e = t - r * W;
-    sq[r * WP + e] = q0 + r < Lq && e < E ? to_f32(qb[(size_t)(q0 + r) * krow + e]) : 0.f;
-  }
-
-  float m[RM], l[RM], acc[RM][NCH][4];
-#pragma unroll
-  for (int ii = 0; ii < RM; ++ii) {
-    m[ii] = -INFINITY;
-    l[ii] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) acc[ii][c][x] = 0.f;
+  // The copies write columns < E (K, Q) and < D (V) and zero-fill rows past
+  // the last key or query; the pad columns up to W are zeroed here once.
+  if (E < W || D < W) {
+    for (int x = gtid; x < (BQ + kStages * BK) * W; x += WG * 32) {
+      const int r = x / W, c = x - r * W;
+      if (r < BQ) {
+        if (c >= E) sq[r * P::q + c] = from_f32<T>(0.f);
+      } else {
+        if (c >= E) sk[(r - BQ) * P::k + c] = from_f32<T>(0.f);
+        if (c >= D) sv[(r - BQ) * P::v + c] = from_f32<T>(0.f);
+      }
+    }
+    group_sync<WG>(gi);
   }
 
   const int n_keys = causal ? min(Lk, q0 + BQ) : Lk;
-  for (int j0 = 0; j0 < n_keys; j0 += kBK) {
-    __syncthreads();  // Q is staged; the last tile's P and V are read
-    for (int t = threadIdx.x; t < kBK * W; t += kThreads) {
-      const int j = t / W, e = t - j * W;
-      const bool row = j0 + j < Lk;
-      sk[j * WP + e] = row && e < E ? to_f32(kb[(size_t)(j0 + j) * krow + e]) : 0.f;
-      sv[j * WP + e] = row && e < D ? to_f32(vb[(size_t)(j0 + j) * vrow + e]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RM][4];
+  const int n_tiles = (n_keys + BK - 1) / BK;
+  auto load_tile = [&](int tile) {
+    const int st = tile % kStages, j0 = tile * BK;
+    load_rows<VEC>(sk + st * BK * P::k, P::k, kb + j0 * krow, krow, BK, n_keys - j0, E, gtid,
+                   WG * 32);
+    load_rows<VEC>(sv + st * BK * P::v, P::v, vb + j0 * vrow, vrow, BK, n_keys - j0, D, gtid,
+                   WG * 32);
+  };
+  load_rows<VEC>(sq, P::q, qb, krow, BQ, Lq - q0, E, gtid, WG * 32);
 #pragma unroll
-    for (int ii = 0; ii < RM; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[ii][jj] = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < W; e += 4) {
-      float4 kv[4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        kv[jj] = *reinterpret_cast<const float4*>(sk + (tc + 16 * jj) * WP + e);
-#pragma unroll
-      for (int ii = 0; ii < RM; ++ii) {
-        const float4 qv = *reinterpret_cast<const float4*>(sq + (tr * RM + ii) * WP + e);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          s[ii][jj] = fmaf(qv.x, kv[jj].x, s[ii][jj]);
-          s[ii][jj] = fmaf(qv.y, kv[jj].y, s[ii][jj]);
-          s[ii][jj] = fmaf(qv.z, kv[jj].z, s[ii][jj]);
-          s[ii][jj] = fmaf(qv.w, kv[jj].w, s[ii][jj]);
-        }
-      }
-    }
-
-    // Online softmax in log2 units: mask, new row max, rescale what was summed.
-#pragma unroll
-    for (int ii = 0; ii < RM; ++ii) {
-      const int i = q0 + tr * RM + ii;
-      float mt = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = j0 + tc + 16 * jj;
-        s[ii][jj] = j < Lk && (!causal || j <= i) ? s[ii][jj] * scale_log2 : -INFINITY;
-        mt = fmaxf(mt, s[ii][jj]);
-      }
-      const float mn = fmaxf(m[ii], max16(mt));
-      const float base = mn == -INFINITY ? 0.f : mn;  // no key seen yet: no inf - inf
-      const float alpha = exp2f(m[ii] - base);
-      m[ii] = mn;
-      float ps = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        s[ii][jj] = exp2f(s[ii][jj] - base);
-        ps += s[ii][jj];
-      }
-      l[ii] = l[ii] * alpha + ps;  // this thread's keys only; summed over lanes at the end
-#pragma unroll
-      for (int c = 0; c < NCH; ++c)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) acc[ii][c][x] *= alpha;
-    }
-    __syncthreads();  // every thread is done reading K: P goes over it
-#pragma unroll
-    for (int ii = 0; ii < RM; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sp[(tr * RM + ii) * kBKP + tc + 16 * jj] = s[ii][jj];
-    __syncthreads();
-
-    // acc += P V over this tile's keys (probabilities past n_keys are 0).
-    const int kend = min(kBK, n_keys - j0);
-    for (int j = 0; j < kend; j += 4) {
-      float4 pv[RM];
-#pragma unroll
-      for (int ii = 0; ii < RM; ++ii)
-        pv[ii] = *reinterpret_cast<const float4*>(sp + (tr * RM + ii) * kBKP + j);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(sv + (j + t) * WP + 64 * c + 4 * tc);
-#pragma unroll
-          for (int ii = 0; ii < RM; ++ii) {
-            const float p = lane(pv[ii], t);
-            acc[ii][c][0] = fmaf(p, vv.x, acc[ii][c][0]);
-            acc[ii][c][1] = fmaf(p, vv.y, acc[ii][c][1]);
-            acc[ii][c][2] = fmaf(p, vv.z, acc[ii][c][2]);
-            acc[ii][c][3] = fmaf(p, vv.w, acc[ii][c][3]);
-          }
-        }
-      }
-    }
+  for (int tile = 0; tile < kStages - 1; ++tile) {
+    if (tile < n_tiles) load_tile(tile);
+    cp_async_commit();  // empty groups keep the wait count below uniform
   }
 
+  const int r0 = q0 + 16 * wi;  // the warp's first query row
+  const int i0 = r0 + g, i1 = i0 + 8;
+  // Keys below these are visible to rows i0 and i1.
+  const int lim0 = causal ? min(Lk, i0 + 1) : Lk, lim1 = causal ? min(Lk, i1 + 1) : Lk;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[NO][4];
 #pragma unroll
-  for (int ii = 0; ii < RM; ++ii) {
-    const float inv = 1.f / sum16(l[ii]);
-    const int i = q0 + tr * RM + ii;
-    if (i >= Lq) continue;
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int j0 = tile * BK;
+    if (tile + kStages - 1 < n_tiles) load_tile(tile + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    group_sync<WG>(gi);  // this tile has landed for every thread
+
+    if (r0 < Lq && !(causal && j0 > r0 + 15)) {
+      const T* kt = sk + (tile % kStages) * BK * P::k;
+      const T* vt = sv + (tile % kStages) * BK * P::v;
+      float s[NT][4];
+      scores<NT, P::q, P::k, W>(s, sq + 16 * wi * P::q, kt, g, t);
+
+      // Online softmax in log2 units over rows i0 (c 0, 1) and i1 (c 2, 3).
+      float mt0 = -INFINITY, mt1 = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const int d = 64 * c + 4 * tc + x;
-        if (d < D) ob[(size_t)i * vrow + d] = from_f32<T>(acc[ii][c][x] * inv);
+        for (int c = 0; c < 4; ++c) {
+          const int j = j0 + 8 * n + 2 * t + (c & 1);
+          s[n][c] = j < (c < 2 ? lim0 : lim1) ? s[n][c] * scale_log2 : -INFINITY;
+          if (c < 2) mt0 = fmaxf(mt0, s[n][c]);
+          else mt1 = fmaxf(mt1, s[n][c]);
+        }
+      const float mn0 = fmaxf(m0, quad_max(mt0)), mn1 = fmaxf(m1, quad_max(mt1));
+      const float base0 = mn0 == -INFINITY ? 0.f : mn0;  // no key seen yet: no inf - inf
+      const float base1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float alpha0 = exp2f(m0 - base0), alpha1 = exp2f(m1 - base1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        s[n][0] = exp2f(s[n][0] - base0);
+        s[n][1] = exp2f(s[n][1] - base0);
+        s[n][2] = exp2f(s[n][2] - base1);
+        s[n][3] = exp2f(s[n][3] - base1);
+        ps0 += s[n][0] + s[n][1];
+        ps1 += s[n][2] + s[n][3];
       }
+      l0 = l0 * alpha0 + ps0;  // this lane's keys; summed over the quad at the end
+      l1 = l1 * alpha1 + ps1;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= alpha0;
+        acc[n][1] *= alpha0;
+        acc[n][2] *= alpha1;
+        acc[n][3] *= alpha1;
+      }
+      pv<NT, NO, P::v>(acc, s, vt, g, t, lane);
+    }
+    group_sync<WG>(gi);  // every warp is done with this stage before it is refilled
+  }
+
+  if (r0 >= Lq) return;
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = c < 2 ? i0 : i1, d = 8 * n + 2 * t + (c & 1);
+      if (i < Lq && d < D) ob[(size_t)i * vrow + d] = from_f32<T>(acc[n][c] * (c < 2 ? inv0 : inv1));
+    }
   }
 }
 
@@ -235,34 +336,40 @@ struct Args {
   int causal;
 };
 
-template <typename T, int W, int RM>
+template <typename T, int W, int WG, int BK, bool VEC>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int BQ = 16 * RM;
-  const size_t smem = sizeof(float) * (size_t)(BQ + 2 * kBK) * (W + 4);
+  constexpr int G = kWarps / WG;
+  const size_t smem = sizeof(T) * (size_t)G * group_elems<T, W, WG, BK>();
+  auto kernel = mha_attention_fwd_kernel<T, W, WG, BK, VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(mha_attention_fwd_kernel<T, W, RM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const long long blocks = (long long)((a.Lq + BQ - 1) / BQ) * a.B * a.H;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  mha_attention_fwd_kernel<T, W, RM><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  const long long items = (long long)((a.Lq + 16 * WG - 1) / (16 * WG)) * a.B * a.H;
+  const long long blocks = (items + G - 1) / G;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), a.H, a.Lq, a.Lk, a.E, a.D, a.scale_log2, a.causal);
+      static_cast<T*>(a.o), a.B * a.H, a.H, a.Lq, a.Lk, a.E, a.D, a.scale_log2, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int W>
+template <typename T, int W, bool VEC>
 cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
-  if (a.Lq <= 16) return launch<T, W, 1>(a, stream);
-  if (a.Lq <= 32) return launch<T, W, 2>(a, stream);
-  return launch<T, W, 4>(a, stream);
+  if (a.Lq <= 16) return launch<T, W, 1, 16, VEC>(a, stream);
+  if (a.Lq <= 32) return launch<T, W, 2, 16, VEC>(a, stream);
+  return launch<T, W, 4, 32, VEC>(a, stream);
 }
 
 template <typename T>
-cudaError_t launch_width(const Args& a, cudaStream_t stream) {
-  return max(a.E, a.D) <= 64 ? launch_rows<T, 64>(a, stream) : launch_rows<T, 128>(a, stream);
+cudaError_t launch_dtype(const Args& a, cudaStream_t stream) {
+  constexpr int C = 16 / sizeof(T);
+  const bool vec = a.E % C == 0 && a.D % C == 0 && aligned16(a.q) && aligned16(a.k) &&
+                   aligned16(a.v);
+  if (max(a.E, a.D) <= 64)
+    return vec ? launch_rows<T, 64, true>(a, stream) : launch_rows<T, 64, false>(a, stream);
+  return vec ? launch_rows<T, 128, true>(a, stream) : launch_rows<T, 128, false>(a, stream);
 }
 
 }  // namespace
@@ -278,8 +385,8 @@ extern "C" int mha_attention_fwd(const void* q, const void* k, const void* v, vo
   const Args a{q, k, v, o, B, H, Lq, Lk, E, D, scale * kLog2e, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_width<float>(a, s);
-    case 1: return (int)launch_width<__nv_bfloat16>(a, s);
+    case 0: return (int)launch_dtype<float>(a, s);
+    case 1: return (int)launch_dtype<__nv_bfloat16>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,160 @@
+// Tensor-core building blocks shared by the attention kernels
+// (mha_attention_fwd.cu, bd_attention_bwd.cu): split-TF32 and bf16
+// mma.sync products, ldmatrix, and tile copies into shared memory by
+// cp.async.
+//
+// Split TF32. A TF32 operand keeps 10 mantissa bits, so one TF32 pass of
+// an f32 product misses the kernels' f32 tolerance (rtol 1e-4 / atol 1e-5;
+// tests/test_torch_split_tf32.py shows it at L 256, E 128). Writing
+// x = hi + lo with hi = tf32(x) and lo = x - hi truncated to TF32 keeps ~21 bits, and
+//     a * b ~= a_hi * b_hi + a_hi * b_lo + a_lo * b_hi
+// (the dropped a_lo * b_lo is ~2^-22 relative) lands as close to the exact
+// product as an f32 FMA chain. Three TF32 MMAs per product: on an H100 SXM
+// the f32-accurate rate is 495 / 3 = 165 TFLOP/s, against 67 on the CUDA
+// cores. bf16 values are exact in TF32 and bf16 products exact in f32, so
+// bf16 inputs take one bf16 MMA (m16n8k16) with f32 accumulators.
+//
+// Fragment layouts of mma.sync (PTX ISA), lane = 4 * g + t:
+//   m16n8k8 tf32   A 16x8 (row): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//                  B 8x8 (col):  b0 (k t, n g), b1 (k t+4, n g)
+//   m16n8k16 bf16  A 16x16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
+//                  B 16x8:  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
+//   C 16x8 (both): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+// The k index of a product is a sum index, so a kernel may map it to its
+// data in any order, as long as A and B agree: the TF32 kernels read the
+// k columns (t, t+4) of a step from the adjacent elements (2t, 2t+1), which
+// turns Q and K fragment reads into 8-byte loads and lets a C fragment of
+// scores serve as the A fragment of P with no shuffle.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bd_attention_common.cuh"
+
+// x rounded to TF32: nearest, ties away from zero, as cvt.rna.tf32.f32 for
+// every finite x (half a TF32 ulp added to the magnitude, the 13 low bits
+// cleared; a carry moves into the exponent). On sm_90 cvt.rna.tf32.f32
+// compiles to four instructions with an inf/NaN guard; this is two, and
+// the split below is the inner loops' main ALU cost.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi = to_tf32(x); x - hi is exact in f32 and below half a
+// TF32 ulp of x, and lo is it truncated to TF32 (error <= 2^-21 |x|, the
+// size of the dropped lo * lo term). The tensor core reads only the 19 high
+// bits of a TF32 operand, so lo goes in as the f32 bits of x - hi and the
+// MMA truncates it: three instructions.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&x)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// c += a * b, one TF32 pass, m16n8k8.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b at f32 accuracy from split fragments: the two small products
+// go into the accumulator before the large one.
+__device__ __forceinline__ void mma_split_tf32(float (&c)[4], const uint32_t (&a_hi)[4],
+                                               const uint32_t (&a_lo)[4],
+                                               const uint32_t (&b_hi)[2],
+                                               const uint32_t (&b_lo)[2]) {
+  mma_tf32(c, a_lo, b_hi);
+  mma_tf32(c, a_hi, b_lo);
+  mma_tf32(c, a_hi, b_hi);
+}
+
+// c += a * b, bf16 inputs, f32 accumulators, m16n8k16.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats as a bf16 pair: `lo` in the low half (the lower k or n index).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8x8 b16 matrices from shared memory, transposed: lanes 8i..8i+7 give
+// the row addresses of matrix i, r[i] holds matrix i in B-fragment order.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// 16 bytes global -> shared without the register file; `valid` false
+// writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :
+               : "r"(s), "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// `rows` rows of `cols` elements, source row r at src + r * stride, into
+// shared rows of `pitch` elements; rows >= valid become zero; columns past
+// `cols` are not written. VEC: 16-byte cp.async (S == D; cols, stride and
+// src in 16-byte units), one division a call when the 16-byte chunks of a
+// row divide the thread count; else plain loads, converted to D.
+template <bool VEC, typename D, typename S>
+__device__ __forceinline__ void load_rows(D* dst, int pitch, const S* src, size_t stride, int rows,
+                                          int valid, int cols, int tid, int nthreads) {
+  if constexpr (VEC) {
+    static_assert(sizeof(D) == sizeof(S), "cp.async copies bytes");
+    constexpr int C = 16 / sizeof(S);
+    const int chunks = cols / C;
+    if (nthreads % chunks == 0) {
+      const int c = (tid % chunks) * C, step = nthreads / chunks;
+      for (int r = tid / chunks; r < rows; r += step) {
+        const bool ok = r < valid;
+        cp_async16(dst + r * pitch + c, src + (ok ? r * stride + c : 0), ok);
+      }
+      return;
+    }
+    for (int x = tid; x < rows * chunks; x += nthreads) {
+      const int r = x / chunks, c = (x - r * chunks) * C;
+      const bool ok = r < valid;
+      cp_async16(dst + r * pitch + c, src + (ok ? r * stride + c : 0), ok);
+    }
+  } else {
+    for (int x = tid; x < rows * cols; x += nthreads) {
+      const int r = x / cols, c = x - r * cols;
+      dst[r * pitch + c] = from_f32<D>(r < valid ? to_f32(src[r * stride + c]) : 0.f);
+    }
+  }
+}

@@ -8,7 +8,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs;
 2. build: the five CUDA kernel libraries, compiled in parallel with nvcc
-   from the sources here;
+   from the sources here; per library its kernels' registers, spill bytes
+   and static shared memory from ``-Xptxas -v`` (the full logs go beside
+   ``chip_smoke.json``, as ``ptxas_<name>.txt``) and its count of
+   tensor-core MMA instructions (HMMA) in the SASS;
 3. kernel, eval: the bd-attention forward kernel (dropout 0) against its
    plain version at the six flagship shape classes in float32 and bfloat16,
    with kernel, plain and ``F.scaled_dot_product_attention`` (yardstick
@@ -75,6 +78,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +86,13 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 tensor cores
+# Attention products (the bound of every attention row, forward and
+# backward). The tensor cores are the card's fastest f32-accurate route: a
+# TF32 pass keeps 10 mantissa bits, so an f32 product takes three passes on
+# split operands (hi*hi + hi*lo + lo*hi, csrc/mma_tf32.cuh), 495 / 3
+# TFLOP/s. The quant kernels' work is comparisons and stays at the f32
+# CUDA-core rate.
+ATTN_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # (label, l_q, l_k, causal, calls per eval batch or training step) at B 256, H 8, E 16
 SHAPES = [
     ("enc L=90", 90, 90, False, 1),
@@ -186,13 +197,39 @@ def eager_ms(torch, fn, reps=21, inner=20):
     return _median_ms(torch, run, reps, inner)
 
 
+def _ptxas_summary(log):
+    """Kernels, registers, spill bytes and static shared memory over every
+    kernel of one ``nvcc -Xptxas -v`` log (dynamic shared memory is set at
+    launch and not in the log)."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    smem = [int(x) for x in re.findall(r"(\d+) bytes smem", log)]
+    return dict(kernels=len(re.findall(r"Compiling entry function", log)),
+                registers_min=min(regs, default=0), registers_max=max(regs, default=0),
+                spill_stores=sum(int(a) for a, _ in spills),
+                spill_loads=sum(int(b) for _, b in spills), smem_max=max(smem, default=0))
+
+
+def _hmma_count(lib):
+    """Tensor-core MMA instructions (HMMA) in a library's SASS, by cuobjdump
+    beside nvcc; None where the toolkit has no cuobjdump."""
+    from channelestimationtransformer_torch.ops.cuda import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "--dump-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    return len(re.findall(r"\bHMMA\.", sass))
+
+
 def _pairs(l_q, l_k, causal):
     return sum(min(i + 1, l_k) for i in range(l_q)) if causal else l_q * l_k
 
 
-def _bound(nbytes, flops, dtype):
+def _bound(nbytes, flops, dtype, peak=PEAK_FLOPS):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    ops_ms = flops / peak[dtype] * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -200,22 +237,23 @@ def _bound(nbytes, flops, dtype):
 def fwd_bound(l_q, l_k, causal, dtype, *, b, h, e, d=None, with_lse=False):
     """Least time for one forward: Q, K, V read once and O (and lse) written
     once over HBM, or the matmul FLOPs of the unmasked (row, key) pairs
-    (2*(E + D) each) over the dtype's peak rate, whichever is larger. The
-    dropout mask's integer work is not counted."""
+    (2*(E + D) each) over the dtype's tensor-core rate (f32: split-TF32),
+    whichever is larger. The dropout mask's integer work is not counted."""
     d = e if d is None else d
     size = 4 if dtype == "float32" else 2
     nbytes = (size * b * h * (e + d) * (l_q + l_k)
               + (4 * b * h * l_q if with_lse else 0))
-    return _bound(nbytes, 2 * b * h * (e + d) * _pairs(l_q, l_k, causal), dtype)
+    return _bound(nbytes, 2 * b * h * (e + d) * _pairs(l_q, l_k, causal), dtype,
+                  ATTN_PEAK_FLOPS)
 
 
 def bwd_bound(l_q, l_k, causal, dtype):
     """Least time for one backward: Q, K, V, O, dO and lse read once, dQ,
-    dK, dV written once; or ~10*E FLOPs per unmasked pair (QK^T and dO V^T
-    recomputed, dQ, dK, dV), whichever is larger."""
+    dK, dV written once; or 10*E FLOPs per unmasked pair (QK^T and dO V^T
+    once each, dQ, dK, dV) at the tensor-core rate, whichever is larger."""
     size = 4 if dtype == "float32" else 2
     nbytes = size * B * H * E * (4 * l_q + 4 * l_k) + 4 * B * H * l_q
-    return _bound(nbytes, 10 * B * H * E * _pairs(l_q, l_k, causal), dtype)
+    return _bound(nbytes, 10 * B * H * E * _pairs(l_q, l_k, causal), dtype, ATTN_PEAK_FLOPS)
 
 
 def _compare(torch, got, want, tol):
@@ -922,11 +960,15 @@ def main(argv):
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         builds = list(pool.map(_build.build, libs))
     build_s = time.perf_counter() - t0
-    for lib, log in builds:
-        print(f"build: {lib.name} ({build_s:.2f} s for all {len(libs)})", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+    build_info = {}
+    for name, (lib, log) in zip(libs, builds):
+        (OUT / f"ptxas_{name}.txt").write_text(log)
+        info = build_info[name] = dict(**_ptxas_summary(log), hmma=_hmma_count(lib))
+        print(f"build: {lib.name} ({build_s:.2f} s for all {len(libs)}): "
+              f"{info['kernels']} kernels, registers {info['registers_min']}-"
+              f"{info['registers_max']}, spill stores {info['spill_stores']} bytes, spill "
+              f"loads {info['spill_loads']} bytes, static shared memory up to "
+              f"{info['smem_max']} bytes (ptxas -v); SASS: {info['hmma']} HMMA", flush=True)
 
     # Bring the card's clocks up before the first timed row.
     x = torch.randn(4096, 4096, device="cuda")
@@ -990,8 +1032,8 @@ def main(argv):
                       eval_bound_ms=_per_path(f32(eval_rows), "bound_ms", "calls_per_batch"),
                       eval_library_ms=_per_path(f32(eval_rows), "library_ms", "calls_per_batch"))
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, kernel_rows=eval_rows, mha_kernel_rows=mha_rows,
-        fixed_rows=fixed_rows, codeword_rows=codeword_rows, train_fwd_rows=fwd_rows,
+        card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
+        mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, codeword_rows=codeword_rows, train_fwd_rows=fwd_rows,
         train_bwd_rows=bwd_rows, eval_path=eval_path, xl_eval_path=xl_eval_path,
         ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path, kernels=kernels), indent=1))
     print(card, flush=True)

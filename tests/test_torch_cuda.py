@@ -172,6 +172,41 @@ def test_backward_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, causal, 
         _assert_close(g, w, dtype, tol=(2e-4, 2e-5))
 
 
+# The tensor-core backward's edges: E 8, 32 and 64 at L 128 (one query slab,
+# eight key warps), a single row and key, L 17 (two row tiles, the second
+# with one row), and l_q < l_k with E 20 (pad columns).
+BWD_EDGE_SHAPES = [
+    (2, 128, 128, 2, 8, False),
+    (2, 128, 128, 2, 32, True),
+    (2, 128, 128, 2, 64, False),
+    (3, 1, 1, 2, 16, False),
+    (3, 17, 17, 2, 16, True),
+    (2, 17, 100, 3, 20, False),
+]
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,causal", BWD_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dropout", [0.0, 0.05])
+def test_backward_kernel_tiling_edges(cuda, b, l_q, l_k, h, e, causal, dtype, dropout):
+    test_backward_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, causal, dtype, dropout)
+
+
+def test_backward_kernel_is_deterministic(cuda):
+    """Each gradient element is summed by one warp in a fixed order (no
+    atomics): two calls on the same inputs give the same bits."""
+    q, k, v = _qkv(64, 90, 90, 8, 16, torch.float32, cuda, seed=8)
+    seed = _seed(cuda)
+    kw = dict(causal=False, scale=0.25, dropout=0.05)
+    o, lse = _reference_forward(q, k, v, seed=seed, with_lse=True, **kw)
+    o = o.contiguous()
+    do = torch.randn(o.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda)
+    first = bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
+    second = bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_autograd_through_the_kernels_matches_plain_autograd(cuda):
     q, k, v = (t.requires_grad_() for t in _qkv(64, 45, 45, 8, 16, torch.float32, cuda,
                                                 seed=5))
@@ -234,6 +269,27 @@ def test_mha_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, d, causal, dt
     assert got.shape == (b, l_q, h, d)
     _assert_close(got, mha_attention_reference(q.float(), k.float(), v.float(), causal=causal),
                   dtype)
+
+
+# The tensor-core kernel's tiling edges: l_q not a multiple of 16 (17, 65),
+# l_k not a multiple of the key tile (33, 65), E = 8 and 20 (20: plain loads,
+# not 16-byte cp.async, in bf16), D != E, a causal shape with l_q > l_k, and
+# the short shapes (one warp per (b, h)) at B*H not a multiple of 4.
+MHA_EDGE_SHAPES = [
+    (2, 17, 33, 3, 8, 8, False),
+    (2, 65, 65, 2, 20, 20, True),
+    (1, 65, 33, 3, 128, 64, True),
+    (2, 17, 17, 2, 20, 8, True),
+    (3, 15, 15, 3, 128, 128, True),
+    (5, 15, 65, 1, 64, 64, False),
+    (1, 30, 65, 3, 128, 128, False),
+]
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,d,causal", MHA_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mha_kernel_tiling_edges(cuda, b, l_q, l_k, h, e, d, causal, dtype):
+    test_mha_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, d, causal, dtype)
 
 
 def test_mha_kernel_raises_instead_of_falling_back(cuda):

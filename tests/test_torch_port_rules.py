@@ -22,7 +22,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "channelestimationtransformer_tpu
 
 def _port_files():
     files = sorted((ROOT / "channelestimationtransformer_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "attention_ablation.py"]
 
 
 def _imported_roots(path):
