@@ -12,11 +12,27 @@
 // The TPU kernel keeps the codebook in SMEM and pads the tensor to
 // 512 x 1024 blocks; nothing is padded here. Each block stages the codebook
 // in shared memory once (N * 4 bytes); every thread of a warp then reads the
-// same entry, a broadcast. One thread takes a group of four consecutive
-// elements (float4 load and store where both pointers are 16-byte aligned,
-// scalar for a ragged last group), so each codebook entry read from shared
-// memory serves four elements, in a grid-stride loop over any element
-// count.
+// same entry, a broadcast. One thread takes one element, in a grid-stride
+// loop over any element count: at the LSQ path's 16,384 elements that is
+// 64 blocks of 256 threads. Four elements a thread with float4 accesses
+// (16 blocks, the earlier design) measured slower there on an H100
+// (PERF.md): a launch waits on the chain of comparisons per thread, not on
+// the reads.
+//
+// LSQ mode. On the LSQ-fibbinary path (ops/quant/lsq.py:lsq_quantize) the
+// snap sits inside the chain of a DenseLSQ forward, each step a separate
+// eager op. This mode does the whole chain in the same launch, from the
+// weight w and the step size (one f32 on the device, read by every thread,
+// so nothing syncs to the host), with g, Qn and Qp as arguments:
+//
+//     s  = (step - step * g) + step * g      grad_scale's value
+//     x  = clamp(w / s, Qn, Qp)              NaN stays NaN
+//     wq = ((snap(x) - x) + x) * s           codebook_pass's value, times s
+//
+// one IEEE operation a step (__fmul_rn, __fsub_rn, __fadd_rn, __fdiv_rn: no
+// fused multiply-add), as torch computes each op of the chain on its own
+// (g enters as a Python float, which torch rounds to f32 before the
+// product), so the result equals the eager chain bit for bit.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): 8 bytes an element,
 // 2 f32 operations (a subtraction and a comparison) an (element, codeword)
@@ -26,77 +42,77 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;
 
-template <bool VEC>
+struct LsqArgs {
+  const float* step;  // null: the plain snap
+  float g, qn, qp;
+};
+
+template <bool LSQ>
 __global__ void __launch_bounds__(kThreads)
 nearest_codeword_kernel(const float* __restrict__ x, const float* __restrict__ cb,
-                        float* __restrict__ y, long long n, int ncb) {
+                        float* __restrict__ y, long long n, int ncb, LsqArgs lsq) {
   extern __shared__ float cbs[];
   for (int t = threadIdx.x; t < ncb; t += blockDim.x) cbs[t] = cb[t];
+  float s = 0.f;
+  if constexpr (LSQ) {
+    const float step = *lsq.step, p = __fmul_rn(step, lsq.g);
+    s = __fadd_rn(__fsub_rn(step, p), p);
+  }
   __syncthreads();
 
-  const long long groups = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
-       g += stride) {
-    const long long i0 = 4 * g;
-    const bool full = i0 + 4 <= n;
-    float v[4];
-    if (VEC && full) {
-      const float4 t = reinterpret_cast<const float4*>(x)[g];
-      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-    } else {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) v[t] = i0 + t < n ? x[i0 + t] : 0.f;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    float v = x[i];
+    if constexpr (LSQ) {
+      const float q = __fdiv_rn(v, s);
+      v = isnan(q) ? q : fminf(fmaxf(q, lsq.qn), lsq.qp);
     }
-    float best[4], best_d[4];
-    const float c0 = cbs[0];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      best[t] = c0;
-      best_d[t] = fabsf(__fsub_rn(v[t], c0));
-    }
+    float best = cbs[0], best_d = fabsf(__fsub_rn(v, best));
     for (int j = 1; j < ncb; ++j) {
-      const float c = cbs[j];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float d = fabsf(__fsub_rn(v[t], c));
-        if (d < best_d[t]) {
-          best_d[t] = d;
-          best[t] = c;
-        }
+      const float c = cbs[j], d = fabsf(__fsub_rn(v, c));
+      if (d < best_d) {
+        best_d = d;
+        best = c;
       }
     }
-    if (VEC && full) {
-      reinterpret_cast<float4*>(y)[g] = make_float4(best[0], best[1], best[2], best[3]);
-    } else {
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (i0 + t < n) y[i0 + t] = best[t];
-    }
+    if constexpr (LSQ) best = __fmul_rn(__fadd_rn(__fsub_rn(best, v), v), s);
+    y[i] = best;
   }
+}
+
+template <bool LSQ>
+int launch(const float* x, const float* cb, float* y, long long n, int ncb, LsqArgs lsq,
+           void* stream) {
+  if (n <= 0 || ncb <= 0 || ncb > 12288) return (int)cudaErrorInvalidValue;
+  const long long need = (n + kThreads - 1) / kThreads;
+  const int blocks = need < kMaxBlocks ? (int)need : kMaxBlocks;
+  const size_t smem = sizeof(float) * (size_t)ncb;
+  nearest_codeword_kernel<LSQ>
+      <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, cb, y, n, ncb, lsq);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success); launches on `stream` and does not
-// synchronise. n must be positive; 0 < ncb <= 12,288 (48 KB of shared memory).
+// Both return a cudaError_t (0 on success); launch on `stream` and do not
+// synchronise. n must be positive; 0 < ncb <= 12,288 (48 KB of shared
+// memory).
 extern "C" int nearest_codeword(const float* x, const float* cb, float* y, long long n,
                                 int ncb, void* stream) {
-  if (n <= 0 || ncb <= 0 || ncb > 12288) return (int)cudaErrorInvalidValue;
-  const long long need = ((n + 3) / 4 + kThreads - 1) / kThreads;
-  const int blocks = need < kMaxBlocks ? (int)need : kMaxBlocks;
-  const size_t smem = sizeof(float) * (size_t)ncb;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0)
-    nearest_codeword_kernel<true><<<blocks, kThreads, smem, s>>>(x, cb, y, n, ncb);
-  else
-    nearest_codeword_kernel<false><<<blocks, kThreads, smem, s>>>(x, cb, y, n, ncb);
-  return (int)cudaGetLastError();
+  return launch<false>(x, cb, y, n, ncb, LsqArgs{nullptr, 0.f, 0.f, 0.f}, stream);
+}
+
+// The LSQ mode: y = the chain above on the weight w, `step` one f32 on the
+// device.
+extern "C" int nearest_codeword_lsq(const float* w, const float* step, const float* cb,
+                                    float* y, long long n, int ncb, float g, float qn, float qp,
+                                    void* stream) {
+  if (step == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<true>(w, cb, y, n, ncb, LsqArgs{step, g, qn, qp}, stream);
 }

@@ -10,7 +10,10 @@ Replaces the TPU kernels ``ops/pallas/quant.py:_fixed_kernel`` and
   stochastically (``floor(x * 2^fl + u)``, ``u`` from 24 random bits),
   divide by ``2^fl``, clamp to the format's range;
 - nearest codeword: a linear scan of the codebook with strict ``<``, ties to
-  the lowest index.
+  the lowest index; and, in the same kernel, the LSQ mode
+  (:func:`fused_lsq_codeword`): the whole ``lsq_quantize`` chain of a
+  fibbinary ``DenseLSQ`` layer (step size, clamp, snap, straight-through
+  arithmetic) in one launch.
 
 The TPU kernels' padding to 512 x 1024 blocks exists for the TPU's VMEM and
 is not carried over; the ``.cu`` files give the bounds on an H100.
@@ -26,7 +29,7 @@ and statistical for stochastic.
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise, never falling back. The kernels take float32 only. Each launch adds
 one to ``fused_fixed_point_quantize.launches`` or
-``fused_nearest_codeword.launches``.
+``fused_nearest_codeword.launches`` (both modes of the codeword kernel).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from .bd_attention import _MASK32, philox4x32_10
 
 FIXED_LIB = "fixed_point_quantize"
 CODEWORD_LIB = "nearest_codeword"
+LSQ_FN = "nearest_codeword_lsq"  # the LSQ mode's entry in CODEWORD_LIB
 MAX_CODEBOOK = 12288  # entries: the codeword kernel stages the codebook in 48 KB of shared memory
 _PLAIN_CHUNK = 1 << 24  # distances the plain codeword version holds at once (64 MB of f32)
 
@@ -102,18 +106,30 @@ def nearest_codeword_reference(x, codebook: torch.Tensor) -> torch.Tensor:
     return out.view(x.shape)
 
 
+def lsq_codeword_reference(w, step, codebook, g: float, qn: float, qp: float) -> torch.Tensor:
+    """The plain version of the LSQ mode: the eager chain of
+    ``ops/quant/lsq.py:lsq_quantize`` for a codebook, as values. ``step``
+    is the step size (a 1-element tensor), ``g`` the gradient scale."""
+    p = step * g
+    s = (step - p) + p
+    x = torch.clamp(w / s, qn, qp)
+    return ((nearest_codeword_reference(x, codebook) - x) + x) * s
+
+
 _ARGTYPES = {
     FIXED_LIB: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                 ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     CODEWORD_LIB: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_void_p],
+    LSQ_FN: [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 3
+    + [ctypes.c_void_p],
 }
 
 
-def _lib(name):
-    fn = getattr(_build.load(name), name)
+def _lib(name, fn_name=None):
+    fn = getattr(_build.load(name), fn_name or name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _ARGTYPES[fn_name or name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -164,6 +180,15 @@ def fused_fixed_point_quantize(x: torch.Tensor, wl: int, fl: int, *, clamp: bool
 fused_fixed_point_quantize.launches = 0
 
 
+def _check_codebook(codebook, x, what):
+    if codebook.dtype != torch.float32:
+        raise TypeError(f"{what} kernel takes a float32 codebook, not {codebook.dtype}")
+    if codebook.device != x.device or not 0 < codebook.numel() <= MAX_CODEBOOK:
+        raise ValueError(f"the codebook must lie on x's device and hold 1 to {MAX_CODEBOOK} "
+                         f"entries; got {codebook.numel()} on {codebook.device}")
+    return codebook.reshape(-1).contiguous()
+
+
 def fused_nearest_codeword(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Each element of ``x`` snapped to its nearest entry of ``codebook``
     (any order, ties to the lowest index). CPU tensors take
@@ -173,13 +198,7 @@ def fused_nearest_codeword(x: torch.Tensor, codebook: torch.Tensor) -> torch.Ten
     if x.device.type == "cpu":
         return nearest_codeword_reference(x, codebook)
     stream = _check_input(x, "fused_nearest_codeword")
-    if codebook.dtype != torch.float32:
-        raise TypeError(f"fused_nearest_codeword kernel takes a float32 codebook, not "
-                        f"{codebook.dtype}")
-    if codebook.device != x.device or not 0 < codebook.numel() <= MAX_CODEBOOK:
-        raise ValueError(f"the codebook must lie on x's device and hold 1 to {MAX_CODEBOOK} "
-                         f"entries; got {codebook.numel()} on {codebook.device}")
-    cb = codebook.reshape(-1).contiguous()
+    cb = _check_codebook(codebook, x, "fused_nearest_codeword")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -193,3 +212,31 @@ def fused_nearest_codeword(x: torch.Tensor, codebook: torch.Tensor) -> torch.Ten
 
 
 fused_nearest_codeword.launches = 0
+
+
+def fused_lsq_codeword(w: torch.Tensor, step: torch.Tensor, codebook: torch.Tensor, g: float,
+                       qn: float, qp: float) -> torch.Tensor:
+    """The LSQ mode of the codeword kernel: ``((snap(x) - x) + x) * s`` with
+    ``s = (step - step*g) + step*g`` and ``x = clamp(w / s, qn, qp)``, equal
+    to :func:`lsq_codeword_reference` bit for bit. ``step`` is a 1-element
+    float32 tensor on w's device, read there (no sync). CPU tensors take
+    :func:`lsq_codeword_reference`; CUDA tensors launch the kernel once, and
+    the launch adds one to ``fused_nearest_codeword.launches``. Values only:
+    ``ops/quant/lsq.py`` gives it its gradient."""
+    if w.device.type == "cpu":
+        return lsq_codeword_reference(w, step, codebook, g, qn, qp)
+    stream = _check_input(w, "fused_lsq_codeword")
+    cb = _check_codebook(codebook, w, "fused_lsq_codeword")
+    if step.device != w.device or step.dtype != torch.float32 or step.numel() != 1:
+        raise ValueError("the step size must be a 1-element float32 tensor on w's device")
+    out = torch.empty_like(w)
+    if w.numel() == 0:
+        return out
+    with torch.cuda.device(w.device):
+        err = _lib(CODEWORD_LIB, LSQ_FN)(w.data_ptr(), step.data_ptr(), cb.data_ptr(),
+                                         out.data_ptr(), w.numel(), cb.numel(), g, qn, qp,
+                                         stream)
+    if err != 0:
+        raise RuntimeError(f"nearest_codeword_lsq launch failed: cudaError {err}")
+    fused_nearest_codeword.launches += 1
+    return out

@@ -11,8 +11,11 @@ Semantics kept exactly, value for value:
   which need not equal ``x`` in float32;
 - quantized weight ``w_q = round(clamp(w/s, Qn, Qp)) * s`` (``LSQ.py:65-74``);
 - the fibbinary variant snaps ``clamp(w/s, Qn, Qp)`` to the signed fibbinary
-  codebook with ``bit_length <= nbits-1`` (``LSQFibbinary/LSQ.py:23-54``),
-  through the nearest-codeword CUDA kernel on the card.
+  codebook with ``bit_length <= nbits-1`` (``LSQFibbinary/LSQ.py:23-54``).
+  On the card with ``use_pallas``, the whole chain of that case runs as one
+  launch of the nearest-codeword kernel's LSQ mode (``_LsqCodeword``), whose
+  values equal the eager chain's bit for bit and whose gradient is the eager
+  chain's; on the CPU, or without ``use_pallas``, the eager chain runs.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..cuda.quant import nearest_codeword_reference
+from ..cuda.quant import fused_lsq_codeword, nearest_codeword_reference
 from .codebooks import lsq_fibbinary_codebook, nearest_codeword
 
 
@@ -49,17 +52,59 @@ def codebook_pass(x, codebook, *, use_pallas: bool = True):
     return (snap(xd, codebook) - xd) + x
 
 
-def lsq_quantize(w, step_size, nbits: int, codebook=None, *, use_pallas: bool = True):
-    """The LSQ fake quantization of a weight tensor; with ``codebook``, the
-    fibbinary snap in place of the rounding."""
+def _lsq_bounds(w, nbits: int):
+    """(Qn, Qp, g): the code range and the gradient scale ``1/sqrt(numel * Qp)``."""
     qn = -(2 ** (nbits - 1))
     qp = 2 ** (nbits - 1) - 1
-    g = 1.0 / math.sqrt(w.numel() * qp)
+    return qn, qp, 1.0 / math.sqrt(w.numel() * qp)
+
+
+def _lsq_chain(w, step_size, nbits: int, codebook=None, *, use_pallas: bool = True):
+    """The eager chain (reference ``LSQ.py:65-74``): ~10 ops, each its own launch on the card."""
+    qn, qp, g = _lsq_bounds(w, nbits)
     s = grad_scale(step_size, g)
     scaled = torch.clamp(w / s, qn, qp)
     if codebook is None:
         return round_pass(scaled) * s
     return codebook_pass(scaled, codebook, use_pallas=use_pallas) * s
+
+
+class _LsqCodeword(torch.autograd.Function):
+    """The codebook case of :func:`lsq_quantize` in one kernel launch
+    (``fused_lsq_codeword``). The backward rebuilds the eager chain on the
+    saved weight and step size and differentiates it, so the gradients are
+    the eager chain's; its snap takes the kernel, as the eager chain would
+    (equal to the plain snap bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, w, step_size, codebook, nbits):
+        ctx.save_for_backward(w, step_size, codebook)
+        ctx.nbits = nbits
+        qn, qp, g = _lsq_bounds(w, nbits)
+        return fused_lsq_codeword(w.detach(), step_size.detach(), codebook, g, qn, qp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        w, step_size, codebook = ctx.saved_tensors
+        with torch.enable_grad():
+            w_, s_ = w.detach().requires_grad_(), step_size.detach().requires_grad_()
+            out = _lsq_chain(w_, s_, ctx.nbits, codebook)
+        gw, gs = torch.autograd.grad(out, (w_, s_), grad)
+        return gw, gs, None, None
+
+
+def lsq_quantize(w, step_size, nbits: int, codebook=None, *, use_pallas: bool = True):
+    """The LSQ fake quantization of a weight tensor; with ``codebook``, the
+    fibbinary snap in place of the rounding. The codebook case on a CUDA
+    tensor with ``use_pallas`` is one kernel launch (through ``_LsqCodeword``
+    when a gradient is needed, as ``bd_attention`` does)."""
+    if codebook is not None and use_pallas and w.device.type == "cuda":
+        codebook = torch.as_tensor(codebook, dtype=torch.float32, device=w.device)
+        if torch.is_grad_enabled() and (w.requires_grad or step_size.requires_grad):
+            return _LsqCodeword.apply(w, step_size, codebook, nbits)
+        qn, qp, g = _lsq_bounds(w, nbits)
+        return fused_lsq_codeword(w, step_size, codebook, g, qn, qp)
+    return _lsq_chain(w, step_size, nbits, codebook, use_pallas=use_pallas)
 
 
 def lsq_step_size_init(weight: torch.Tensor, nbits: int) -> torch.Tensor:

@@ -11,7 +11,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    from the sources here; per library its kernels' registers, spill bytes
    and static shared memory from ``-Xptxas -v`` (the full logs go beside
    ``chip_smoke.json``, as ``ptxas_<name>.txt``) and its count of
-   tensor-core MMA instructions (HMMA) in the SASS;
+   tensor-core MMA instructions (HMMA) in the SASS; the three attention
+   libraries must show HMMA > 0 and no spills;
 3. kernel, eval: the bd-attention forward kernel (dropout 0) against its
    plain version at the six flagship shape classes in float32 and bfloat16,
    with kernel, plain and ``F.scaled_dot_product_attention`` (yardstick
@@ -30,13 +31,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    bit for ten codebooks (LSQ-fibbinary of 4 to 11 bits, fibbinary(8, 4),
    Fibonacci(8, 4)) on inputs with every codeword, every tie and +-0;
    kernel, plain and ``torch.bucketize`` (yardstick) times at the LSQ
-   path's sizes and at 2^24 x 287 entries;
+   path's sizes and at 2^24 x 287 entries; then its LSQ mode (the whole
+   ``lsq_quantize`` chain in one launch) against the eager chain bit for
+   bit at the flagship's three layer shapes, nbits 4 to 11, two step sizes,
+   with values past Qn / Qp, ties, +-0 and NaN, timed beside the plain snap
+   mode and the eager chain;
 7. kernel, training: at the flagship shapes in both dtypes, the forward
    kernel with dropout 0.05 and its row log-sum-exp against the plain
    version on the same seed, the kernel's dropout mask against ``dropout_keep_mask``
    (exact), and the backward kernel's dQ/dK/dV against
-   ``bd_attention_bwd_reference``, each timed beside its bound and the SDPA
-   yardstick;
+   ``bd_attention_bwd_reference`` on the kernel forward's output and lse,
+   and against the plain backward on the plain forward's, each timed beside
+   its bound and the SDPA yardstick;
 8. eval path: ``build_informer(InformerConfig(use_pallas=True))`` at full
    width and ``eval_chunk`` over 8 batches of 256 from a 65,536-sample
    dataset resident on the card, with the kernels' launch counts (all 104
@@ -58,7 +64,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    lsq_fibbinary=True)`` through ``eval_chunk`` as in 8: 576 codeword and
    104 bd launches in 8 batches, one batch against the plain path (the
    snap's plain version, plain attention), eval samples/s beside the FP32
-   flagship's in the same turns;
+   flagship's in the same turns (each snap is the codeword kernel's LSQ
+   mode: one launch a layer);
 12. training path: the flagship model in train mode (dropout 0.05). One step
    through the kernels and one through the plain attention path from the
    same weights, batch and generator seed (so the same dropout masks),
@@ -66,7 +73,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernels' launch counts and a finite loss; steady-state training
    samples/s of both paths.
 
-The last three lines are the card's name and power limit, the kernels' JSON
+With ``--profile`` each path's line also gives its device kernel launches
+per chunk. The last three lines are the card's name and power limit, the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -86,6 +94,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 tensor cores
+TENSOR_CORE_LIBS = ("bd_attention_fwd", "bd_attention_bwd", "mha_attention_fwd")
 # Attention products (the bound of every attention row, forward and
 # backward). The tensor cores are the card's fastest f32-accurate route: a
 # TF32 pass keeps 10 mantissa bits, so an f32 product takes three passes on
@@ -131,6 +140,10 @@ LSQ_NBITS = 8
 CODEWORD_SIZES = QUANT_TENSORS + [("2^20", 1 << 20, 0)]
 # Checked and timed beside the LSQ path's rows: the largest codebook at 2^24.
 CODEWORD_BIG = ("lsq_fibbinary(11)", ("2^24", 1 << 24, 0))
+# The flagship's 72 LSQ layer weights by shape ([out, in]): attention
+# projections, FFN in and FFN out.
+LSQ_SHAPES = [("128x128", (128, 128), 52), ("64x128", (64, 128), 10), ("128x64", (128, 64), 10)]
+LSQ_STEP = 2.0 ** -5  # a power of two: grad_scale's value is the step itself, ties stay exact
 DROPOUT = 0.05  # InformerConfig().dropout
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}  # (rtol, atol), forward
 BWD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # longer sums in dK, dV
@@ -341,10 +354,10 @@ def phase_kernel_train(torch, F, ops):
             # Forward with dropout and lse, against the plain version on the same seed.
             o, lse = ops.bd_attention_fwd(q, k, v, seed, with_lse=True, **kw)
             torch.cuda.synchronize()
-            want, want_lse = ops._reference_forward(q.float(), k.float(), v.float(), seed=seed,
-                                                    with_lse=True, **kw)
-            abs_err, rel_err, ok = _compare(torch, o, want.to(dtype), TOL[dtype_name])
-            lse_err, _, lse_ok = _compare(torch, lse, want_lse, (1e-5, 1e-5))
+            # The plain forward in the inputs' dtype (f32 math, output rounded to it).
+            plain_o, plain_lse = ops._reference_forward(q, k, v, seed=seed, with_lse=True, **kw)
+            abs_err, rel_err, ok = _compare(torch, o, plain_o, TOL[dtype_name])
+            lse_err, _, lse_ok = _compare(torch, lse, plain_lse, (1e-5, 1e-5))
             mask_ok = torch.equal(
                 kernel_keep_mask(torch, ops, q, k, causal, seed),
                 ops.dropout_keep_mask(seed, B, H, l_q, l_k, 1.0 - DROPOUT)
@@ -380,7 +393,13 @@ def phase_kernel_train(torch, F, ops):
                                                   do.float(), lse, seed, **kw)
             errs = [_compare(torch, g, w.to(dtype), BWD_TOL[dtype_name])
                     for g, w in zip(got, want)]
-            ok = all(e[2] for e in errs)
+            # The plain pair: the plain backward on the plain forward's output and lse.
+            pair = ops.bd_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                                  plain_o.float(), do.float(), plain_lse, seed,
+                                                  **kw)
+            pair_errs = [_compare(torch, g, w.to(dtype), BWD_TOL[dtype_name])
+                         for g, w in zip(got, pair)]
+            ok = all(e[2] for e in errs + pair_errs)
 
             def bwd():
                 return ops.bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
@@ -397,6 +416,7 @@ def phase_kernel_train(torch, F, ops):
             row = dict(shape=label, dtype=dtype_name, l_q=l_q, l_k=l_k, causal=causal,
                        calls_per_step=calls, dropout=DROPOUT,
                        max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+                       pair_max_abs_err=max(e[0] for e in pair_errs),
                        rtol=BWD_TOL[dtype_name][0], atol=BWD_TOL[dtype_name][1],
                        ms=time_ms(torch, bwd), eager_ms=eager_ms(torch, bwd),
                        plain_ms=time_ms(torch, lambda: ops.bd_attention_bwd_reference(
@@ -404,7 +424,8 @@ def phase_kernel_train(torch, F, ops):
                        library_ms=lib_ms, **bwd_bound(l_q, l_k, causal, dtype_name))
             bwd_rows.append(row)
             print(f"train bwd {label:22s} {dtype_name:8s} dQ/dK/dV max_abs "
-                  f"{' '.join(f'{e[0]:.2e}' for e in errs)} (rtol {row['rtol']}, atol "
+                  f"{' '.join(f'{e[0]:.2e}' for e in errs)}, vs the plain pair "
+                  f"{' '.join(f'{e[0]:.2e}' for e in pair_errs)} (rtol {row['rtol']}, atol "
                   f"{row['atol']}) {'ok' if ok else 'MISMATCH'} | kernel {row['ms'] * 1e3:.1f} us "
                   f"(eager {row['eager_ms'] * 1e3:.1f}), plain {row['plain_ms'] * 1e3:.1f} us, "
                   f"sdpa bwd {lib_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f} us "
@@ -480,12 +501,15 @@ def _profile(torch, run, label, card, out_name):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         events = prof.key_averages()
-        busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(getattr(e, "self_device_time_total", 0) for e in device)
+        kernels = sum(e.count for e in device)
         line = (f"profile {name} path: one {label}, wall {wall_us:.0f} us under the "
-                f"profiler, device kernels {busy_us:.0f} us, busy share {busy_us / wall_us:.3f}")
+                f"profiler, device kernels {busy_us:.0f} us in {kernels} launches, busy share "
+                f"{busy_us / wall_us:.3f}")
         print(line, flush=True)
-        summary[f"profile_{name}"] = dict(wall_us=wall_us, device_busy_us=busy_us)
+        summary[f"profile_{name}"] = dict(wall_us=wall_us, device_busy_us=busy_us,
+                                          device_kernels=kernels)
         report += [line, events.table(sort_by="self_cuda_time_total", row_limit=30)]
     (OUT / out_name).write_text("\n".join(report) + "\n")
     return summary
@@ -809,6 +833,78 @@ def phase_codeword_kernel(torch, quant, cbm):
     return rows
 
 
+def _lsq_weight(torch, np, shape, cb, gen):
+    """Normal weights at LSQ_STEP, sigma 0.6 times the codebook ``cb``'s
+    largest entry (some past Qn and Qp after the division), with every
+    codeword, every tie between two neighbours, +-0, NaN and +-1e3 first."""
+    w = (torch.randn(shape, generator=gen, device="cuda") * cb[-1] * LSQ_STEP * 0.6).reshape(-1)
+    special = np.concatenate([cb, (cb[1:] + cb[:-1]) / 2]) * LSQ_STEP
+    special = np.concatenate([special, [0.0, -0.0, np.nan, 1e3, -1e3]])
+    w[:special.size] = torch.tensor(special, dtype=torch.float32, device="cuda")
+    return w.view(shape)
+
+
+def phase_lsq_codeword(torch, quant, lsq, cbm):
+    """The codeword kernel's LSQ mode against the eager chain's values (its
+    plain version), compared as bits (NaN included), at the flagship's layer
+    shapes, nbits 4 to 11 and two step sizes (LSQ_STEP, whose ties are
+    exact, and 1.37 times it); then at nbits LSQ_NBITS the LSQ mode, the
+    plain snap mode on the clamped values and the eager chain
+    (``lsq._lsq_chain``: ~10 launches, the snap by the kernel) timed per
+    shape. No single PyTorch call computes the chain: no library time."""
+    import numpy as np
+
+    rows, checks = [], 0
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    for nbits in range(4, 12):
+        cb_np = np.asarray(cbm.lsq_fibbinary_codebook(nbits))
+        cb = torch.tensor(cb_np, dtype=torch.float32, device="cuda")
+        for label, shape, count in LSQ_SHAPES:
+            w = _lsq_weight(torch, np, shape, cb_np, gen)
+            qn, qp, g = lsq._lsq_bounds(w, nbits)
+            for step_value in (LSQ_STEP, LSQ_STEP * 1.37):
+                step = torch.tensor(step_value, device="cuda")
+                got = quant.fused_lsq_codeword(w, step, cb, g, qn, qp)
+                torch.cuda.synchronize()
+                if not torch.equal(bits(got), bits(quant.lsq_codeword_reference(
+                        w, step, cb, g, qn, qp))):
+                    fail(f"LSQ mode differs from the eager chain: nbits {nbits} at {label}, "
+                         f"step {step_value}")
+                checks += 1
+            if nbits != LSQ_NBITS:
+                continue
+            snap_in = torch.clamp(w / step, qn, qp)
+
+            def kernel():
+                return quant.fused_lsq_codeword(w, step, cb, g, qn, qp)
+            n = w.numel()
+            row = dict(codebook=f"lsq_fibbinary({nbits})", entries=cb.numel(), size=label,
+                       elements=n, per_forward=count, max_abs_err=0.0,
+                       ms=time_ms(torch, kernel), eager_ms=eager_ms(torch, kernel),
+                       plain_ms=time_ms(torch, lambda: quant.lsq_codeword_reference(
+                           w, step, cb, g, qn, qp)),
+                       snap_ms=time_ms(torch, lambda: quant.fused_nearest_codeword(snap_in, cb)),
+                       chain_ms=time_ms(torch, lambda: lsq._lsq_chain(w, step, nbits, cb)),
+                       chain_eager_ms=eager_ms(torch, lambda: lsq._lsq_chain(w, step, nbits, cb)),
+                       library_ms=None,
+                       **_bound(8 * n + 4 * cb.numel() + 4, 2 * n * cb.numel() + 7 * n,
+                                "float32"))
+            rows.append(row)
+            print(f"codeword lsq mode nbits {nbits} {label:8s}: kernel = eager chain bit for bit "
+                  f"({checks} settings so far) | kernel {row['ms'] * 1e3:.1f} us (eager "
+                  f"{row['eager_ms'] * 1e3:.1f}), snap mode {row['snap_ms'] * 1e3:.1f} us, eager "
+                  f"chain {row['chain_ms'] * 1e3:.1f} us (eager {row['chain_eager_ms'] * 1e3:.1f}), "
+                  f"plain {row['plain_ms'] * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.2f} us "
+                  f"({row['bound_by']})", flush=True)
+    print(f"codeword lsq mode: {checks} settings (nbits 4-11 x {len(LSQ_SHAPES)} shapes x 2 "
+          f"steps) equal to the eager chain bit for bit", flush=True)
+    return rows
+
+
 def phase_ptq_path(torch, wrappers, card):
     """Post-training quantization at the flagship (``experiments/ptq_sweep.py:94-110``
     in the package): the FP32 weights quantized by ``apply_weight_quant``
@@ -927,7 +1023,8 @@ def _kernel_entry(name, replaces, launches, rows, weight, per):
         "bound_ms": _per_path(rows, "bound_ms", weight),
         "bound_by": ("bytes" if _per_path(rows, "bytes_ms", weight)
                      >= _per_path(rows, "ops_ms", weight) else "operations"),
-        "library_ms": _per_path(rows, "library_ms", weight),
+        "library_ms": (None if any(r["library_ms"] is None for r in rows if r[weight])
+                       else _per_path(rows, "library_ms", weight)),
         "per": per,
     }
 
@@ -942,7 +1039,7 @@ def main(argv):
     from channelestimationtransformer_torch.ops.cuda import bd_attention as ops
     from channelestimationtransformer_torch.ops.cuda import mha_attention as mha
     from channelestimationtransformer_torch.ops.cuda import quant
-    from channelestimationtransformer_torch.ops.quant import codebooks
+    from channelestimationtransformer_torch.ops.quant import codebooks, lsq
     from channelestimationtransformer_torch.core.config import InformerConfig
 
     OUT.mkdir(exist_ok=True)
@@ -969,6 +1066,10 @@ def main(argv):
               f"{info['registers_max']}, spill stores {info['spill_stores']} bytes, spill "
               f"loads {info['spill_loads']} bytes, static shared memory up to "
               f"{info['smem_max']} bytes (ptxas -v); SASS: {info['hmma']} HMMA", flush=True)
+        if name in TENSOR_CORE_LIBS and (info["hmma"] == 0 or info["spill_stores"]
+                                         or info["spill_loads"]):
+            fail(f"{name}: a tensor-core library with {info['hmma']} HMMA and "
+                 f"{info['spill_stores'] + info['spill_loads']} bytes spilled")
 
     # Bring the card's clocks up before the first timed row.
     x = torch.randn(4096, 4096, device="cuda")
@@ -988,6 +1089,7 @@ def main(argv):
                             + MHA_EXTRA_SHAPES, prefix="mha kernel", seed=2)
     fixed_rows = phase_fixed_kernel(torch, quant, ops.draw_seed)
     codeword_rows = phase_codeword_kernel(torch, quant, codebooks)
+    lsq_rows = phase_lsq_codeword(torch, quant, lsq, codebooks)
     fwd_rows, bwd_rows = phase_kernel_train(torch, F, ops)
     eval_path = phase_eval_path(torch, wrappers, card, profile)
     xl_cfg = InformerConfig(d_model=1024, d_ff=4096, seq_len=256, use_pallas=True)
@@ -1023,17 +1125,21 @@ def main(argv):
                       [r for r in fixed_rows if r["rounding"] == "nearest"], "per_quantisation",
                       f"one PTQ quantization: the 72 tensors at wl {PTQ_WL}, fl {PTQ_FL}, nearest"),
         _kernel_entry("nearest_codeword", ["quant.py:107"], lsq_path["launches"]["codeword"],
-                      [r for r in codeword_rows if r["codebook"] == f"lsq_fibbinary({LSQ_NBITS})"],
-                      "per_forward", f"one LSQ-fibbinary forward: the 72 snaps with the "
-                      f"{len(codebooks.lsq_fibbinary_codebook(LSQ_NBITS))}-entry codebook"),
+                      lsq_rows, "per_forward", f"one LSQ-fibbinary forward: the 72 layers' "
+                      f"LSQ mode (the lsq_quantize chain and the snap to the "
+                      f"{len(codebooks.lsq_fibbinary_codebook(LSQ_NBITS))}-entry codebook, one "
+                      f"launch each)"),
     ]
+    kernels[4].update(snap_mode_ms=_per_path(lsq_rows, "snap_ms", "per_forward"),
+                      eager_chain_ms=_per_path(lsq_rows, "chain_ms", "per_forward"))
     kernels[0].update(eval_launches=eval_path["launches"]["bd_fwd"],
                       eval_ms=_per_path(f32(eval_rows), "ms", "calls_per_batch"),
                       eval_bound_ms=_per_path(f32(eval_rows), "bound_ms", "calls_per_batch"),
                       eval_library_ms=_per_path(f32(eval_rows), "library_ms", "calls_per_batch"))
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
-        mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, codeword_rows=codeword_rows, train_fwd_rows=fwd_rows,
+        mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, codeword_rows=codeword_rows,
+        lsq_codeword_rows=lsq_rows, train_fwd_rows=fwd_rows,
         train_bwd_rows=bwd_rows, eval_path=eval_path, xl_eval_path=xl_eval_path,
         ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path, kernels=kernels), indent=1))
     print(card, flush=True)

@@ -1,6 +1,7 @@
 """The CUDA kernels (bd-attention forward, with and without dropout, and
 backward; the mha-attention forward; fixed-point quantization and the
-nearest-codeword snap) against their plain versions, on the card.
+nearest-codeword snap, plain and in its LSQ mode) against their plain
+versions, on the card.
 
 Marked ``cuda``; each test skips when no card is present. This file imports
 only torch and numpy, so it also runs where JAX is not installed:
@@ -129,7 +130,9 @@ def test_kernel_with_dropout_matches_plain_version(cuda, b, l_q, l_k, h, e, caus
 
 @pytest.mark.parametrize("b,l_q,l_k,h,e,causal", [(256, 90, 90, 8, 16, False),
                                                   (256, 15, 15, 8, 16, True),
-                                                  (2, 512, 100, 2, 24, False)])
+                                                  (2, 512, 100, 2, 24, False),
+                                                  (2, 129, 127, 3, 32, True),
+                                                  (3, 17, 16, 5, 8, False)])
 def test_kernel_dropout_mask_is_the_plain_mask(cuda, b, l_q, l_k, h, e, causal):
     """The kernel's mask read back through one-hot values: with V's row j
     the unit vector of column j - e*g, output column c of pass g is
@@ -147,6 +150,56 @@ def test_kernel_dropout_mask_is_the_plain_mask(cuda, b, l_q, l_k, h, e, causal):
     if causal:
         want &= ~torch.ones(l_q, l_k, dtype=torch.bool, device=cuda).triu(1)
     assert torch.equal(kept, want)
+
+
+# The tensor-core forward's edges: l_q 1, 17 (a second row tile with one
+# row), 128, 129 (a second slab) and 512 (four slabs); l_k 1, 16, 17, 127 and
+# 128 (each key width NK); E 8, 16, 20 (plain loads), 32 and 64; H 3 and 5
+# (a block's last head group short of its heads).
+FWD_EDGE_SHAPES = [
+    (3, 1, 1, 2, 8, False),
+    (2, 17, 16, 3, 16, True),
+    (2, 128, 17, 2, 20, False),
+    (2, 129, 127, 3, 32, True),
+    (1, 512, 128, 2, 64, True),
+    (2, 17, 128, 5, 16, False),
+    (2, 512, 1, 2, 64, False),
+]
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,causal", FWD_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dropout", [0.0, 0.05])
+def test_forward_kernel_tiling_edges(cuda, b, l_q, l_k, h, e, causal, dtype, dropout):
+    """Output and lse against the plain version; two calls give the same bits."""
+    q, k, v = _qkv(b, l_q, l_k, h, e, dtype, cuda, seed=11)
+    seed = _seed(cuda) if dropout else None
+    kw = dict(causal=causal, scale=e ** -0.5, dropout=dropout)
+    got, lse = bd_attention_fwd(q, k, v, seed, with_lse=True, **kw)
+    again, lse_again = bd_attention_fwd(q, k, v, seed, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
+    want, want_lse = _reference_forward(q.float(), k.float(), v.float(), seed=seed,
+                                        with_lse=True, **kw)
+    _assert_close(got, want, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_fed_by_the_forward_kernel_matches_the_plain_pair(cuda):
+    """The backward kernel on the forward kernel's output and lse against
+    the plain backward on the plain forward's, at the flagship's L 90 with
+    dropout: the tensor-core lse keeps the backward within its tolerance."""
+    q, k, v = _qkv(64, 90, 90, 8, 16, torch.float32, cuda, seed=12)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(13),
+                     device=cuda)
+    seed = _seed(cuda)
+    kw = dict(causal=False, scale=0.25, dropout=0.05)
+    o, lse = bd_attention_fwd(q, k, v, seed, with_lse=True, **kw)
+    got = bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
+    o_ref, lse_ref = _reference_forward(q, k, v, seed=seed, with_lse=True, **kw)
+    want = bd_attention_bwd_reference(q, k, v, o_ref, do, lse_ref, seed, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("b,l_q,l_k,h,e,causal", SHAPES)
@@ -314,7 +367,9 @@ def test_mha_kernel_raises_instead_of_falling_back(cuda):
 from channelestimationtransformer_torch.ops.cuda.quant import (  # noqa: E402
     fixed_point_quantize_reference,
     fused_fixed_point_quantize,
+    fused_lsq_codeword,
     fused_nearest_codeword,
+    lsq_codeword_reference,
     nearest_codeword_reference,
 )
 from channelestimationtransformer_torch.ops.quant.codebooks import (  # noqa: E402
@@ -408,6 +463,88 @@ def test_quant_kernels_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="codebook"):
         fused_nearest_codeword(x, cb.cpu())
     assert torch.isfinite(fused_nearest_codeword(x, cb)).all()
+
+
+def _lsq_weights(shape, nbits, step, device, seed):
+    """Normal weights over 1.2x the code range, some past Qn and Qp after
+    the division, with every codeword, every tie between two neighbours,
+    +-0, NaN and +-1e3 (exact multiples of ``step``, a power of two for
+    which grad_scale's value is the step itself)."""
+    qp = 2 ** (nbits - 1) - 1
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = (torch.randn(shape, generator=g, device=device) * qp * step * 0.6).reshape(-1)
+    cb = np.asarray(lsq_fibbinary_codebook(nbits))
+    special = np.concatenate([cb, (cb[1:] + cb[:-1]) / 2]) * step
+    special = np.concatenate([special, [0.0, -0.0, np.nan, 1e3, -1e3]])
+    k = min(w.numel(), special.size)
+    w[:k] = torch.tensor(special[:k], dtype=torch.float32, device=device)
+    return w.view(shape)
+
+
+@pytest.mark.parametrize("nbits", [4, 8, 11])
+@pytest.mark.parametrize("shape", [(128, 128), (64, 128), (128, 64), (3, 5)])
+def test_lsq_mode_matches_the_eager_chain_bit_for_bit(cuda, nbits, shape):
+    """The codeword kernel's LSQ mode against its plain version (the eager
+    chain, snap included, on the card), compared as bits; lsq_quantize
+    routes to it with use_pallas and gives the eager chain's gradients, its
+    backward snapping through the kernel too."""
+    from channelestimationtransformer_torch.ops.quant import lsq as tlsq
+
+    step_value = 2.0 ** -5
+    w = _lsq_weights(shape, nbits, step_value, cuda, seed=nbits)
+    step = torch.tensor(step_value, device=cuda)
+    cb = torch.tensor(lsq_fibbinary_codebook(nbits), dtype=torch.float32, device=cuda)
+    qn, qp, g = tlsq._lsq_bounds(w, nbits)
+    before = fused_nearest_codeword.launches
+    got = fused_lsq_codeword(w, step, cb, g, qn, qp)
+    torch.cuda.synchronize()
+    assert fused_nearest_codeword.launches == before + 1
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731  NaN compares by its bits
+    assert torch.equal(bits(got), bits(lsq_codeword_reference(w, step, cb, g, qn, qp)))
+    # Another step size, off the power of two; and an unaligned weight.
+    odd = step * 1.37
+    assert torch.equal(bits(fused_lsq_codeword(w, odd, cb, g, qn, qp)),
+                       bits(lsq_codeword_reference(w, odd, cb, g, qn, qp)))
+    if w.numel() > 1:
+        tail = w.reshape(-1)[1:]
+        assert torch.equal(bits(fused_lsq_codeword(tail, odd, cb, g, qn, qp)),
+                           bits(lsq_codeword_reference(tail, odd, cb, g, qn, qp)))
+
+    r = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    finite = torch.nan_to_num(w, nan=0.5)
+    results = []
+    for use_pallas in (True, False):
+        wt, st = finite.clone().requires_grad_(), odd.clone().requires_grad_()
+        before = fused_nearest_codeword.launches
+        out = tlsq.lsq_quantize(wt, st, nbits, cb, use_pallas=use_pallas)
+        torch.cuda.synchronize()
+        assert fused_nearest_codeword.launches == before + (1 if use_pallas else 0)
+        (out * r).sum().backward()
+        # The backward's snap takes the kernel as well: no plain version on card tensors.
+        assert fused_nearest_codeword.launches == before + (2 if use_pallas else 0)
+        results.append((out.detach(), wt.grad, st.grad))
+    for a, b in zip(*results):
+        assert torch.equal(bits(a), bits(b))
+
+
+def test_lsq_mode_raises_instead_of_falling_back(cuda):
+    w = torch.randn(16, 8, device=cuda)
+    step = torch.tensor(0.05, device=cuda)
+    cb = torch.tensor(lsq_fibbinary_codebook(5), dtype=torch.float32, device=cuda)
+    args = (0.01, -16.0, 15.0)
+    with pytest.raises(TypeError):
+        fused_lsq_codeword(w.double(), step, cb, *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_lsq_codeword(w.t(), step, cb, *args)
+    with pytest.raises(ValueError, match="step"):
+        fused_lsq_codeword(w, step.cpu(), cb, *args)
+    with pytest.raises(ValueError, match="step"):
+        fused_lsq_codeword(w, step.double(), cb, *args)
+    with pytest.raises(ValueError, match="codebook"):
+        fused_lsq_codeword(w, step, cb.cpu(), *args)
+    with pytest.raises(TypeError):
+        fused_lsq_codeword(w, step, cb.double(), *args)
+    assert torch.isfinite(fused_lsq_codeword(w, step, cb, *args)).all()
 
 
 def test_lsq_fibbinary_model_through_the_kernel_matches_the_plain_path(cuda):

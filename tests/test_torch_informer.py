@@ -185,6 +185,54 @@ def test_flagship_width_forward_matches_flax():
                                rtol=RTOL, atol=ATOL)
 
 
+# Configs no other test pins, each a change to SMALL: the attention maps
+# returned, no distilling, e_layers as an int (a single encoder), heads that do
+# not divide d_model evenly into a power of two, no head/sequence mix in the
+# decoder, a three-encoder stack, and an odd input length (distil halvings of
+# 25, 13, 7).
+SEVEN_CONFIGS = {
+    "output_attention": dict(output_attention=True),
+    "no_distil": dict(distil=False),
+    "e_layers_int": dict(e_layers=2),
+    "d_model_30_heads_4": dict(d_model=30, n_heads=4),
+    "no_mix": dict(mix=False),
+    "stack_3_2_1": dict(e_layers=(3, 2, 1)),
+    "seq_len_25": dict(seq_len=25),
+}
+
+
+def _flatten_maps(maps):
+    if isinstance(maps, (list, tuple)):
+        return [a for m in maps for a in _flatten_maps(m)]
+    if isinstance(maps, torch.Tensor):
+        maps = maps.numpy()
+    return [] if maps is None else [np.asarray(maps)]
+
+
+@pytest.mark.parametrize("name", list(SEVEN_CONFIGS))
+def test_informer_configs_match_flax(name):
+    """InformerStack (an Informer for an int e_layers) at SMALL with one
+    change, against flax on the CPU; with output_attention the prediction
+    and every attention map. atol 1e-5: all agreed within 2.7e-6."""
+    rng = np.random.default_rng(9)
+    cfg = dict(SMALL, **SEVEN_CONFIGS[name])
+    fmod, tmod, params, stats, x_enc, x_dec = _model_pair(rng, 2, port_pallas=True, **cfg)
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x_enc), torch.from_numpy(x_dec))
+    want = jax.jit(fmod.apply)({"params": params, "batch_stats": stats}, jnp.asarray(x_enc),
+                               jnp.asarray(x_dec))
+    if cfg.get("output_attention"):
+        (got, got_maps), (want, want_maps) = got, want
+        got_maps = _flatten_maps(got_maps)
+        want_maps = _flatten_maps(want_maps)
+        assert len(got_maps) == len(want_maps) == 4
+        for g, w in zip(got_maps, want_maps):
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=1e-5)
+    assert got.shape == (2, SMALL["pred_len"], 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=1e-5)
+
+
 def test_long_wide_eval_forward_goes_through_mha_attention(monkeypatch):
     """InformerStack at seq_len 160, E 128 in eval mode with use_pallas
     against flax (whose attention takes XLA's full_attention on the CPU,

@@ -239,3 +239,74 @@ def test_flagship_lsq_fibbinary_forward_snaps_72_tensors(monkeypatch):
     assert out.shape == (1, 5, 16) and torch.isfinite(out).all()
     assert len(calls) == 72 and {n for _, n in calls} == {67}
     assert sorted(calls).count(((128, 128), 67)) == 52
+
+
+def _special_weights(shape, nbits, seed):
+    """A weight for the LSQ codebook case with step 2^-5 (for which
+    grad_scale's value is the step itself): normal values, some past Qn and
+    Qp after the division, every codeword and every tie between two
+    neighbours exactly, +-0, NaN and +-1e3."""
+    qp = 2 ** (nbits - 1) - 1
+    step = np.float32(2.0 ** -5)
+    cb = lsq_fibbinary_codebook(nbits)
+    rng = np.random.default_rng(seed)
+    flat = (rng.normal(size=shape) * qp * float(step) * 0.6).astype(np.float32).reshape(-1)
+    special = np.concatenate([cb, (cb[1:] + cb[:-1]) / 2]) * float(step)
+    special = np.concatenate([special, [0.0, -0.0, np.nan, 1e3, -1e3]]).astype(np.float32)
+    flat[:special.size] = special
+    return torch.from_numpy(flat.reshape(shape)), torch.tensor(step)
+
+
+def _bits(t):
+    return t.detach().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("nbits", [4, 8, 11])
+@pytest.mark.parametrize("shape", [(128, 128), (64, 128)])
+def test_lsq_codebook_routing_on_cpu_is_the_eager_chain(nbits, shape):
+    """On the CPU, lsq_quantize with use_pallas keeps the eager chain; the
+    LSQ mode's plain version (the kernel wrapper's CPU path) equals it bit
+    for bit, NaN and +-0 included; and without the NaN both equal JAX."""
+    from channelestimationtransformer_torch.ops.cuda.quant import (
+        fused_lsq_codeword,
+        lsq_codeword_reference,
+    )
+
+    w, step = _special_weights(shape, nbits, seed=nbits)
+    cb = torch.tensor(lsq_fibbinary_codebook(nbits), dtype=torch.float32)
+    qn, qp, g = tlsq._lsq_bounds(w, nbits)
+    assert tlsq.grad_scale(step, g).item() == step.item()
+    chain = tlsq._lsq_chain(w, step, nbits, cb)
+    got = tlsq.lsq_quantize(w, step, nbits, cb, use_pallas=True)
+    assert torch.equal(_bits(got), _bits(chain))
+    assert torch.equal(_bits(lsq_codeword_reference(w, step, cb, g, qn, qp)), _bits(chain))
+    assert torch.equal(_bits(fused_lsq_codeword(w, step, cb, g, qn, qp)), _bits(chain))
+    assert torch.isnan(chain).sum() == 1
+    assert ((w / step < qn) & (w > -1e3)).any() and ((w / step > qp) & (w < 1e3)).any()
+
+    finite = torch.nan_to_num(w, nan=0.25)
+    want = jlsq.lsq_quantize(jnp.asarray(finite.numpy()), jnp.asarray(step.numpy()), nbits,
+                             jcb.lsq_fibbinary_codebook(nbits))
+    np.testing.assert_array_equal(
+        tlsq.lsq_quantize(finite, step, nbits, cb).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("nbits", [4, 8])
+def test_lsq_codeword_function_backward_is_the_eager_chains(nbits):
+    """The autograd.Function of the fused path, run on the CPU (its forward
+    takes the plain version there): values and both gradients equal the
+    eager chain's exactly."""
+    w, step = _special_weights((64, 128), nbits, seed=20 + nbits)
+    w = torch.nan_to_num(w, nan=0.5)
+    cb = torch.tensor(lsq_fibbinary_codebook(nbits), dtype=torch.float32)
+    r = torch.from_numpy(np.random.default_rng(2).normal(size=w.shape).astype(np.float32))
+    results = []
+    for fused in (True, False):
+        wt, st = w.clone().requires_grad_(), step.clone().requires_grad_()
+        out = (tlsq._LsqCodeword.apply(wt, st, cb, nbits) if fused
+               else tlsq._lsq_chain(wt, st, nbits, cb))
+        (out * r).sum().backward()
+        results.append((out.detach(), wt.grad, st.grad))
+    for got, want in zip(*results):
+        assert torch.equal(_bits(got), _bits(want))
+    assert results[0][2].item() != 0.0

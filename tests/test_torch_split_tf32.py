@@ -18,7 +18,12 @@ on the plain versions' inputs:
   keep mask injected, within the backward tolerance (2e-4 / 2e-5) of
   ``bd_attention_bwd_reference``;
 - one TF32 pass per product misses 1e-4 / 1e-5 at L 256 / E 128: the
-  reason for the split.
+  reason for the split;
+- the bd forward (``csrc/bd_attention_fwd.cu``) in its order (S once over
+  all keys, an exact one-pass softmax, P·V on the dropped P, the sum and
+  1/keep_prob applied last, lse = max + log(sum)) at the flagship's L 90,
+  its causal 15 and L 128 / E 64, with and without dropout, within the f32
+  forward tolerance of ``_reference_forward`` (output and lse).
 
 TF32 products are exact in f32 (11 x 11 significant bits), so a float32
 matmul of TF32 values reproduces the MMA up to the order of the sums.
@@ -174,3 +179,46 @@ def test_split_tf32_backward_within_the_backward_tolerance(l_q, l_k, causal, dro
                                       dropout=dropout)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=BWD_TOL[0], atol=BWD_TOL[1])
+
+
+def bd_forward(q, k, v, causal, scale, keep, dropout):
+    """The bd forward kernel's order of work: S = Q K^T once (split-TF32),
+    row max and sum over every key, P_drop = keep * P, O = P_drop V
+    (split-TF32) times (1/keep_prob) / sum; lse = max + log(sum)."""
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    s = mm_split(qh, kh.transpose(-1, -2)) * scale
+    mask = _mask(q.shape[1], k.shape[1], causal)
+    if mask is not None:
+        s = s.masked_fill(mask, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    total = p.sum(-1, keepdim=True)
+    inv = 1.0
+    if dropout > 0.0:
+        p = torch.where(keep, p, 0.0)
+        inv = 1.0 / (1.0 - dropout)
+    out = mm_split(p, vh) * (inv / total)
+    return out.permute(0, 2, 1, 3), (m + torch.log(total))[..., 0]
+
+
+# (b, h, l_q, l_k, E, causal): the flagship's longest call and its causal
+# decoder call (B cut to 4), and the widest case the kernel takes.
+BD_FWD_SHAPES = [
+    (4, 8, 90, 90, 16, False),
+    (4, 8, 15, 15, 16, True),
+    (2, 2, 128, 128, 64, False),
+]
+
+
+@pytest.mark.parametrize("b,h,l_q,l_k,e,causal", BD_FWD_SHAPES)
+@pytest.mark.parametrize("dropout", [0.0, 0.05])
+def test_split_tf32_bd_forward_within_the_f32_tolerance(b, h, l_q, l_k, e, causal, dropout):
+    q, k, v = _qkv(b, l_q, l_k, h, e, seed=5 * l_q + e)
+    scale = e ** -0.5
+    seed = torch.tensor([0x0BD0_F0D5], dtype=torch.int64) if dropout else None
+    keep = dropout_keep_mask(seed, b, h, l_q, l_k, 1.0 - dropout) if dropout else None
+    got, got_lse = bd_forward(q, k, v, causal, scale, keep, dropout)
+    want, want_lse = _reference_forward(q, k, v, causal=causal, scale=scale, dropout=dropout,
+                                        seed=seed, with_lse=True)
+    torch.testing.assert_close(got, want, rtol=FWD_TOL[0], atol=FWD_TOL[1])
+    torch.testing.assert_close(got_lse, want_lse, rtol=FWD_TOL[0], atol=FWD_TOL[1])
