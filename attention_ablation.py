@@ -1,6 +1,6 @@
 """Where the tensor-core attention kernels spend their time, on one NVIDIA card.
 
-    python3 attention_ablation.py [--baseline NAME=CSRC_DIR ...]
+    python3 attention_ablation.py [--baseline NAME=CSRC_DIR ...] [--only KERNEL ...]
 
 Builds each of ``csrc/mha_attention_fwd.cu``, ``csrc/bd_attention_fwd.cu``
 and ``csrc/bd_attention_bwd.cu`` as it is and with one part cut out, and
@@ -20,15 +20,39 @@ cut part costs where it does not overlap the rest:
   (spills where the scores need more), for occupancy against spills;
 - bwd ``no_row_mma``: no S, dP and dQ products in the row phase;
 - bwd ``no_key_phase``: no dK and dV products;
-- bwd ``no_dropout_bits``: no Philox calls (every key dropped).
+- bwd ``no_dropout_bits``: no Philox calls (every key dropped);
+- fixed ``ballot_search``: not a cut: each warp finds its block's tensor by
+  a ballot over four lane-indexed loads of the table instead of the binary
+  search;
+- fixed ``key_first``: not a cut: the seed is read before the search;
+- fixed ``small_table``: a table of 2 entries (a 32-byte parameter block
+  beside 3.7 KB; refuses the 72-tensor launch);
+- fixed ``t_zero``: counter word 2 is 0 for every tensor;
+- fixed ``vec_only``: the float4 path only;
+- fixed ``no_philox``: no Philox calls (u = 0);
+- fixed ``grid_y``: not a cut: a two-dimensional grid, the tensor's index
+  in ``blockIdx.y`` (no search; the widest tensor's blocks for every one).
 
 It also times ``csrc/nearest_codeword.cu``, snap and LSQ modes, at the
 flagship's two layer sizes (16,384 and 8,192 elements, the 67-entry
-codebook).
+codebook), and ``csrc/fixed_point_quantize.cu`` (the ``fixed`` mode) at the
+flagship's 72 PTQ tensors (wl 8, fl 4, nearest and stochastic): one
+grouped launch against 72 launches of a group of one, and against 72
+launches of a baseline's single-tensor entry (``fixed_point_quantize``, PR
+6's C interface), the grouped launch over 72 views of one buffer (memory
+layout), and one 2^20-element tensor each way, each as device time
+and as host time per quantization through ctypes alone; then,
+for this checkout, host time through the Python wrappers (grouped, and 72
+single-tensor calls) and of the two ways to allocate the outputs (one flat
+buffer cut into views, 72 ``empty_like``). The device times say what the
+grouping bought on the card, the host times what it bought in the wrapper.
+
+``--only KERNEL`` (repeatable) builds and times only those kernels.
 
 ``--baseline NAME=CSRC_DIR`` (repeatable) also builds every kernel from the
 ``.cu`` and ``.cuh`` files of another checkout's ``csrc`` directory (its C
-interfaces must be this one's) and times it as the variant NAME, for
+interfaces must be this one's, or PR 6's single-tensor fixed-point entry)
+and times it as the variant NAME, for
 comparing two versions of the code in one call; a mode the baseline lacks
 is skipped.
 
@@ -49,6 +73,10 @@ FWD = "bd_attention_fwd"
 BWD = "bd_attention_bwd"
 CODEWORD = "nearest_codeword"
 LSQ = "nearest_codeword_lsq"  # the LSQ mode's entry in the codeword library
+FIXED = "fixed_point_quantize"
+GROUPED = "fixed_point_quantize_grouped"  # this checkout's entry in the fixed-point library
+SINGLE = "fixed_point_quantize"  # the single-tensor entry of earlier checkouts (PR 6)
+FLAGSHIP_TENSORS = [(128, 128)] * 52 + [(128, 64)] * 20  # the 72 PTQ weights
 # (kernel, variant) -> (statement in the source, its replacement)
 CUTS = {
     (MHA, "no_mma"): [("scores<NT, P::q, P::k, W>(s, sq + 16 * wi * P::q, kt, g, t);", ""),
@@ -63,6 +91,48 @@ CUTS = {
     (BWD, "no_row_mma"): [("if (kc < nk) {", "if (false) {")],
     (BWD, "no_key_phase"): [("if (kr0 < LKP) {\n      // Steps", "if (false) {\n      // Steps")],
     (BWD, "no_dropout_bits"): [("if (DROPOUT) {  // the slab's keep bits", "if (false) {  //")],
+    (FIXED, "ballot_search"): [(
+        """  int e = 0;
+  for (int hi = count - 1; e < hi;) {
+    const int mid = (e + hi + 1) / 2;
+    if (group.block_start[mid] <= b)
+      e = mid;
+    else
+      hi = mid - 1;
+  }""", """  int e = -1;
+#pragma unroll
+  for (int k = 0; k < kMaxGroup; k += 32) {
+    const int i = k + (threadIdx.x & 31);
+    e += __popc(__ballot_sync(0xffffffffu, i < count && group.block_start[i] <= b));
+  }""")],
+    (FIXED, "key_first"): [
+        ("  const uint2 key = STOCHASTIC ? philox_key(seed) : make_uint2(0u, 0u);\n", ""),
+        ("  const int b = blockIdx.x;\n",
+         "  const int b = blockIdx.x;\n"
+         "  const uint2 key = STOCHASTIC ? philox_key(seed) : make_uint2(0u, 0u);\n")],
+    (FIXED, "small_table"): [("constexpr int kMaxGroup = 128;", "constexpr int kMaxGroup = 2;")],
+    (FIXED, "t_zero"): [("static_cast<unsigned>(g >> 32), t, 0u), key);",
+                         "static_cast<unsigned>(g >> 32), 0u, 0u), key);")],
+    (FIXED, "vec_only"): [("  if (group.vec[e])\n", "  if (true)\n")],
+    (FIXED, "no_philox"): [("    if (STOCHASTIC) {\n      const uint4 w",
+                            "    if (false) {\n      const uint4 w")],
+    (FIXED, "grid_y"): [
+        ("""  const int b = blockIdx.x;
+  int e = 0;
+  for (int hi = count - 1; e < hi;) {
+    const int mid = (e + hi + 1) / 2;
+    if (group.block_start[mid] <= b)
+      e = mid;
+    else
+      hi = mid - 1;
+  }""", """  const int e = blockIdx.y;
+  const int b = group.block_start[e] + blockIdx.x;
+  if (b >= group.block_start[e + 1]) return;"""),
+        ("  int blocks = 0;\n", "  int blocks = 0, widest = 0;\n"),
+        ("    blocks += need < kMaxBlocks ? (int)need : kMaxBlocks;\n",
+         "    blocks += need < kMaxBlocks ? (int)need : kMaxBlocks;\n"
+         "    widest = need > widest ? (need < kMaxBlocks ? (int)need : kMaxBlocks) : widest;\n"),
+        ("<<<blocks, kThreads", "<<<dim3(widest, count), kThreads")],
 }
 
 
@@ -74,6 +144,8 @@ ARGTYPES = {
     BWD: [_P] * 10 + [_I] * 5 + [_F, _I, ctypes.c_uint32, _F, _I, _P],
     CODEWORD: [_P] * 3 + [ctypes.c_longlong, _I, _P],
     LSQ: [_P] * 4 + [ctypes.c_longlong, _I, _F, _F, _F, _P],
+    GROUPED: [_P, _I, _I, _F, _F, _F, _I, _P, _P],
+    SINGLE: [_P, _P, ctypes.c_longlong, _F, _F, _F, _I, _P, _P],
 }
 
 
@@ -163,6 +235,82 @@ def codeword_call(torch, fn, n, lsq):
                       -128.0, 127.0, _stream(torch))
 
 
+def _ptq_tensors(torch, shapes=FLAGSHIP_TENSORS):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    xs = [torch.randn(shape, generator=g, device="cuda") * 4 for shape in shapes]
+    return xs, [torch.empty_like(x) for x in xs]
+
+
+def fixed_call(torch, fn, case):
+    """One quantization at wl 8, fl 4, clamp, nearest or stochastic, of the
+    72 tensors (or of one 2^20-element tensor, ``big``): ``grouped`` (one
+    launch), ``per_tensor`` (a group of one a tensor) or ``single`` (a call
+    of the single-tensor entry a tensor)."""
+    how, stochastic, big = case
+    xs, ys = _ptq_tensors(torch, [(1 << 20,)] if big else FLAGSHIP_TENSORS)
+    if how == "views":  # the 72 tensors back to back in one buffer
+        flat_x, flat_y = torch.cat([x.reshape(-1) for x in xs]), torch.empty(
+            sum(x.numel() for x in xs), device="cuda")
+        xs = list(flat_x.split([x.numel() for x in xs]))
+        ys = list(flat_y.split([x.numel() for x in xs]))
+    seed = torch.tensor([12345], dtype=torch.int64, device="cuda")
+    scalars = (16.0, -8.0, 8.0 - 2.0 ** -4, 1, seed.data_ptr() if stochastic else None)
+    tables = [(ctypes.c_longlong * 3)(x.data_ptr(), y.data_ptr(), x.numel())
+              for x, y in zip(xs, ys)]
+    table = (ctypes.c_longlong * (3 * len(xs)))(*[v for t in tables for v in t])
+
+    def run():
+        if how == "single":
+            errs = [fn(x.data_ptr(), y.data_ptr(), x.numel(), *scalars, _stream(torch))
+                    for x, y in zip(xs, ys)]
+        elif how == "per_tensor":
+            errs = [fn(t, 1, 0, *scalars, _stream(torch)) for t in tables]
+        else:
+            errs = [fn(table, len(xs), 0, *scalars, _stream(torch))]
+        return max(map(abs, errs))
+    run.inputs = (xs, ys, seed)  # the launches read them
+    return run
+
+
+def host_us(torch, fn, inner=20, reps=5):
+    """Host-clock time of one eager call, median of ``reps`` rounds of
+    ``inner`` calls that end in a synchronise."""
+    import time
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / inner * 1e6)
+    return sorted(times)[reps // 2]
+
+
+def fixed_wrapper_host_times(torch):
+    """This checkout's Python wrappers and the two output allocations, host
+    time per quantization of the 72 tensors."""
+    from channelestimationtransformer_torch.ops.cuda import quant
+
+    xs, _ = _ptq_tensors(torch)
+    sizes = [x.numel() for x in xs]
+
+    def flat():
+        parts = torch.empty(sum(sizes), device="cuda").split(sizes)
+        return [p.view(x.shape) for p, x in zip(parts, xs)]
+    cells = {
+        "grouped wrapper": lambda: quant.fused_fixed_point_quantize_grouped(xs, 8, 4),
+        "72 single-tensor wrapper calls": lambda: [quant.fused_fixed_point_quantize(x, 8, 4)
+                                                   for x in xs],
+        "outputs as one flat buffer": flat,
+        "outputs by 72 empty_like": lambda: [torch.empty_like(x) for x in xs],
+    }
+    return ", ".join(f"{name} {host_us(torch, fn):.1f}" for name, fn in cells.items())
+
+
 def bwd_call(torch, fn, l):
     b, h, e = 256, 8, 16
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -183,7 +331,11 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", action="append", default=[], metavar="NAME=CSRC_DIR",
                         help="also build and time every kernel from this source directory")
+    kernels = (MHA, FWD, BWD, CODEWORD, FIXED)
+    parser.add_argument("--only", action="append", choices=kernels,
+                        help="build and time only this kernel (repeatable)")
     args = parser.parse_args(argv)
+    kernels = tuple(args.only or kernels)
     baselines = dict(b.split("=", 1) for b in args.baseline)
     if not torch.cuda.is_available():
         raise SystemExit("attention_ablation.py runs on a CUDA card")
@@ -193,8 +345,8 @@ def main(argv=None):
                           check=True, capture_output=True, text=True).stdout.strip()
     out_dir = _build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
-    kernels = (MHA, FWD, BWD, CODEWORD)
-    builds = ([(k, "full", None) for k in kernels] + [(k, v, None) for k, v in CUTS]
+    builds = ([(k, "full", None) for k in kernels]
+              + [(k, v, None) for k, v in CUTS if k in kernels]
               + [(k, name, pathlib.Path(d).resolve()) for name, d in baselines.items()
                  for k in kernels])
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
@@ -210,20 +362,45 @@ def main(argv=None):
     for entry, mode in ((CODEWORD, "snap mode"), (LSQ, "lsq mode")):
         sections.append((CODEWORD, entry, [(f"n {n} {mode}", n) for n in (128 * 128, 128 * 64)],
                          lambda torch, fn, n, lsq=entry == LSQ: codeword_call(torch, fn, n, lsq)))
+    for r in ("nearest", "stochastic"):
+        st = r == "stochastic"
+        sections.append((FIXED, GROUPED, [
+            (f"72 tensors, one grouped launch, {r}", ("grouped", st, False)),
+            (f"72 views of one buffer, one grouped launch, {r}", ("views", st, False)),
+            (f"72 tensors, 72 groups of one, {r}", ("per_tensor", st, False)),
+            (f"one 2^20 tensor, a group of one, {r}", ("grouped", st, True))], fixed_call))
+        sections.append((FIXED, SINGLE, [
+            (f"72 tensors, 72 single-tensor launches, {r}", ("single", st, False)),
+            (f"one 2^20 tensor, single-tensor entry, {r}", ("single", st, True))], fixed_call))
     for kernel, entry, shapes, make in sections:
+        if kernel not in kernels:
+            continue
         for label, shape in shapes:
             cells = []
             for (name, variant), lib in libs.items():
+                # A mode the library lacks is skipped: this checkout's fixed-point
+                # library exports no SINGLE entry, and PR 6's no GROUPED one.
                 fn = getattr(ctypes.CDLL(str(lib)), entry, None) if name == kernel else None
                 if fn is None:
                     continue
                 fn.argtypes = ARGTYPES[entry]
                 fn.restype = ctypes.c_int
                 call = make(torch, fn, shape)
-                if call() != 0:
+                err = call()
+                if err != 0 and (kernel, variant) in CUTS:  # a cut may refuse the shape
+                    cells.append(f"{variant} refused (cudaError {err})")
+                    continue
+                if err != 0:
                     raise RuntimeError(f"{entry} {variant} launch failed")
-                cells.append(f"{variant} {time_us(torch, call):.1f}")
-            print(f"{kernel} {label} (us): " + ", ".join(cells), flush=True)
+                cell = f"{variant} {time_us(torch, call):.1f}"
+                if kernel == FIXED:
+                    cell += f" (host {host_us(torch, call):.1f})"
+                cells.append(cell)
+            if cells:
+                print(f"{kernel} {label} (us): " + ", ".join(cells), flush=True)
+    if FIXED in kernels:
+        print(f"{FIXED} host us a quantization of 72 tensors: {fixed_wrapper_host_times(torch)}",
+              flush=True)
 
 
 if __name__ == "__main__":

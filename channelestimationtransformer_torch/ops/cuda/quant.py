@@ -26,6 +26,12 @@ kernel from the TPU's generator, its ``functional.fixed_point_quantize``
 from ``jax.random.uniform``): parity with it is exact for nearest rounding
 and statistical for stochastic.
 
+The fixed-point kernel quantizes a group of tensors that share one format
+in one launch (:func:`fused_fixed_point_quantize_grouped`, up to
+``MAX_GROUP`` tensors a launch); :func:`fused_fixed_point_quantize` is a
+group of one. One seed serves a group: tensor ``t`` of the group draws
+Philox stream ``t`` (:func:`stochastic_uniform`'s ``stream``).
+
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise, never falling back. The kernels take float32 only. Each launch adds
 one to ``fused_fixed_point_quantize.launches`` or
@@ -34,6 +40,7 @@ one to ``fused_fixed_point_quantize.launches`` or
 
 from __future__ import annotations
 
+import array
 import ctypes
 
 import torch
@@ -42,8 +49,10 @@ from . import _build
 from .bd_attention import _MASK32, philox4x32_10
 
 FIXED_LIB = "fixed_point_quantize"
+FIXED_FN = "fixed_point_quantize_grouped"  # the fixed-point library's one entry
 CODEWORD_LIB = "nearest_codeword"
 LSQ_FN = "nearest_codeword_lsq"  # the LSQ mode's entry in CODEWORD_LIB
+MAX_GROUP = 128  # tensors a fixed-point launch: csrc/fixed_point_quantize.cu:kMaxGroup
 MAX_CODEBOOK = 12288  # entries: the codeword kernel stages the codebook in 48 KB of shared memory
 _PLAIN_CHUNK = 1 << 24  # distances the plain codeword version holds at once (64 MB of f32)
 
@@ -59,24 +68,26 @@ def _fixed_bounds(wl: int, fl: int, symmetric: bool):
     return t_min, t_max
 
 
-def stochastic_uniform(seed: torch.Tensor, n: int) -> torch.Tensor:
-    """The kernel's ``u`` for elements ``0 .. n-1``: float32 in [0, 1) on
-    ``seed``'s device (layout in ``csrc/fixed_point_quantize.cu``)."""
+def stochastic_uniform(seed: torch.Tensor, n: int, stream: int = 0) -> torch.Tensor:
+    """The kernel's ``u`` for elements ``0 .. n-1`` of the tensor with index
+    ``stream`` in its group: float32 in [0, 1) on ``seed``'s device (layout
+    in ``csrc/fixed_point_quantize.cu``)."""
     s = seed.reshape(()).to(torch.int64)
     g = torch.arange((n + 3) // 4, device=s.device)
     zero = torch.zeros_like(g)
-    words = philox4x32_10(g & _MASK32, g >> 32, zero, zero, s & _MASK32, (s >> 32) & _MASK32)
+    words = philox4x32_10(g & _MASK32, g >> 32, torch.full_like(g, stream), zero, s & _MASK32,
+                          (s >> 32) & _MASK32)
     bits = torch.stack(words, dim=-1).reshape(-1)[:n] >> 8
     return bits.to(torch.float32) * 2.0**-24
 
 
-def _round_to_grid(x, fl: int, stochastic: bool, seed):
+def _round_to_grid(x, fl: int, stochastic: bool, seed, stream: int = 0):
     """``round(a, r, sigma)`` (reference ``sim_helper.cpp:15-21``; JAX
     ``functional.py:_round_to_grid``): scale by ``2^fl``, round, scale back."""
     scale = 2.0**fl
     scaled = x * scale
     if stochastic:
-        q = torch.floor(scaled + stochastic_uniform(seed, x.numel()).view(x.shape))
+        q = torch.floor(scaled + stochastic_uniform(seed, x.numel(), stream).view(x.shape))
     else:
         q = torch.round(scaled)  # half to even, as jnp.round
     return q / scale
@@ -84,13 +95,25 @@ def _round_to_grid(x, fl: int, stochastic: bool, seed):
 
 def fixed_point_quantize_reference(x, wl: int, fl: int, *, clamp: bool = True,
                                    symmetric: bool = False, stochastic: bool = False,
-                                   seed: torch.Tensor | None = None) -> torch.Tensor:
+                                   seed: torch.Tensor | None = None,
+                                   stream: int = 0) -> torch.Tensor:
     """The plain version, in x's dtype (JAX ``functional.fixed_point_quantize``
-    for nearest rounding; stochastic rounding draws the kernel's ``u``)."""
-    q = _round_to_grid(x, fl, stochastic, seed)
+    for nearest rounding; stochastic rounding draws the kernel's ``u`` of
+    Philox stream ``stream``)."""
+    q = _round_to_grid(x, fl, stochastic, seed, stream)
     if clamp:
         q = q.clamp(*_fixed_bounds(wl, fl, symmetric))
     return q
+
+
+def fixed_point_quantize_grouped_reference(tensors, wl: int, fl: int, *, clamp: bool = True,
+                                           symmetric: bool = False, stochastic: bool = False,
+                                           seed: torch.Tensor | None = None) -> list:
+    """The plain version of a grouped launch: tensor ``t`` of ``tensors``
+    through :func:`fixed_point_quantize_reference` on stream ``t``."""
+    return [fixed_point_quantize_reference(x, wl, fl, clamp=clamp, symmetric=symmetric,
+                                           stochastic=stochastic, seed=seed, stream=t)
+            for t, x in enumerate(tensors)]
 
 
 def nearest_codeword_reference(x, codebook: torch.Tensor) -> torch.Tensor:
@@ -117,8 +140,8 @@ def lsq_codeword_reference(w, step, codebook, g: float, qn: float, qp: float) ->
 
 
 _ARGTYPES = {
-    FIXED_LIB: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
-                ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    FIXED_FN: [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     CODEWORD_LIB: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_void_p],
     LSQ_FN: [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 3
@@ -134,47 +157,87 @@ def _lib(name, fn_name=None):
     return fn
 
 
-def _check_input(x, what):
+def _check_tensor(x, what):
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda tensors, not {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"{what} kernel takes float32, not {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what} kernel takes a contiguous tensor")
+
+
+def _check_input(x, what):
+    _check_tensor(x, what)
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def fused_fixed_point_quantize_grouped(tensors, wl: int, fl: int, *, clamp: bool = True,
+                                       symmetric: bool = False, stochastic: bool = False,
+                                       seed: torch.Tensor | None = None) -> list:
+    """Fixed-point fake quantization of every tensor of ``tensors`` with
+    ``wl`` bits, ``fl`` of them fractional: one output per input, in order.
+    Stochastic rounding needs ``seed``, a 1-element int64 tensor on the
+    tensors' device (``bd_attention.draw_seed``); tensor ``t`` draws Philox
+    stream ``t``.
+
+    CPU tensors take :func:`fixed_point_quantize_grouped_reference`. CUDA
+    tensors (float32, contiguous, all on one device) go through one kernel
+    launch per ``MAX_GROUP`` tensors on the current stream, without
+    synchronising; empty tensors take no part of a launch, and each launch
+    adds one to ``fused_fixed_point_quantize.launches``. Each output is an
+    ``empty_like`` of its input: one flat buffer cut into views cost twice
+    the host time on the card (``attention_ablation.py``'s fixed mode)."""
+    tensors = list(tensors)
+    if stochastic and seed is None:
+        raise ValueError("stochastic rounding needs a seed tensor (draw_seed)")
+    seed = seed if stochastic else None
+    devices = {x.device for x in tensors}
+    if devices <= {torch.device("cpu")}:
+        return fixed_point_quantize_grouped_reference(tensors, wl, fl, clamp=clamp,
+                                                      symmetric=symmetric,
+                                                      stochastic=stochastic, seed=seed)
+    if len(devices) > 1:
+        raise ValueError(f"fused_fixed_point_quantize takes tensors on one device; got "
+                         f"{sorted(map(str, devices))}")
+    (device,) = devices
+    for x in tensors:  # one cheap test a tensor; the slow path names the fault
+        if x.dtype != torch.float32 or not x.is_contiguous() or device.type != "cuda":
+            _check_tensor(x, "fused_fixed_point_quantize")
+    if seed is not None and (seed.device != device or seed.dtype != torch.int64
+                             or seed.numel() != 1):
+        raise ValueError("the seed must be a 1-element int64 tensor on the tensors' device")
+    outs = [torch.empty_like(x) for x in tensors]
+    sizes = [x.numel() for x in tensors]
+    fn = _lib(FIXED_LIB, FIXED_FN)
+    t_min, t_max = _fixed_bounds(wl, fl, symmetric)
+    seed_ptr = None if seed is None else seed.data_ptr()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        for t0 in range(0, len(tensors), MAX_GROUP):
+            chunk = slice(t0, t0 + MAX_GROUP)
+            if not any(sizes[chunk]):
+                continue
+            table = array.array("q", [v for x, y, n in zip(tensors[chunk], outs[chunk],
+                                                           sizes[chunk])
+                                      for v in (x.data_ptr(), y.data_ptr(), n)])
+            err = fn(table.buffer_info()[0], len(table) // 3, t0, 2.0**fl, t_min, t_max,
+                     int(bool(clamp)), seed_ptr, stream)
+            if err != 0:
+                raise RuntimeError(f"fixed_point_quantize_grouped launch failed: cudaError {err}")
+            fused_fixed_point_quantize.launches += 1
+    return outs
 
 
 def fused_fixed_point_quantize(x: torch.Tensor, wl: int, fl: int, *, clamp: bool = True,
                                symmetric: bool = False, stochastic: bool = False,
                                seed: torch.Tensor | None = None) -> torch.Tensor:
-    """Fixed-point fake quantization of ``x`` with ``wl`` bits, ``fl`` of
-    them fractional; stochastic rounding needs ``seed``, a 1-element int64
-    tensor on x's device (``bd_attention.draw_seed``). CPU tensors take
-    :func:`fixed_point_quantize_reference`; CUDA tensors launch the kernel
-    on the current stream without synchronising, and each launch adds one
-    to ``fused_fixed_point_quantize.launches``."""
-    if stochastic and seed is None:
-        raise ValueError("stochastic rounding needs a seed tensor (draw_seed)")
-    seed = seed if stochastic else None
-    if x.device.type == "cpu":
-        return fixed_point_quantize_reference(x, wl, fl, clamp=clamp, symmetric=symmetric,
-                                              stochastic=stochastic, seed=seed)
-    stream = _check_input(x, "fused_fixed_point_quantize")
-    if seed is not None and (seed.device != x.device or seed.dtype != torch.int64
-                             or seed.numel() != 1):
-        raise ValueError("the seed must be a 1-element int64 tensor on x's device")
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    t_min, t_max = _fixed_bounds(wl, fl, symmetric)
-    with torch.cuda.device(x.device):
-        err = _lib(FIXED_LIB)(x.data_ptr(), out.data_ptr(), x.numel(), 2.0**fl, t_min, t_max,
-                              int(bool(clamp)), None if seed is None else seed.data_ptr(),
-                              stream)
-    if err != 0:
-        raise RuntimeError(f"fixed_point_quantize launch failed: cudaError {err}")
-    fused_fixed_point_quantize.launches += 1
-    return out
+    """Fixed-point fake quantization of one tensor: a group of one
+    (:func:`fused_fixed_point_quantize_grouped`), whose stochastic bits are
+    Philox stream 0. CPU tensors take :func:`fixed_point_quantize_reference`;
+    a CUDA tensor launches the kernel once, which adds one to
+    ``fused_fixed_point_quantize.launches``."""
+    return fused_fixed_point_quantize_grouped([x], wl, fl, clamp=clamp, symmetric=symmetric,
+                                              stochastic=stochastic, seed=seed)[0]
 
 
 fused_fixed_point_quantize.launches = 0

@@ -10,7 +10,12 @@ from .codebooks import (
     nearest_codeword,
 )
 from .formats import BlockFloatingPoint, FixedPoint, FloatingPoint
-from .functional import fibonacci_quantize, fixed_point_quantize, no_adjacent_ones_quantize
+from .functional import (
+    FixedPointWeightQuant,
+    fibonacci_quantize,
+    fixed_point_quantize,
+    no_adjacent_ones_quantize,
+)
 from .lsq import DenseLSQ, codebook_pass, grad_scale, lsq_quantize, lsq_step_size_init, round_pass
 from .optim import WeightQuantSettings, apply_weight_quant
 from .settings import QUANT_KERNEL_MARKERS, build_weight_quant_settings, quantized_param_names
@@ -24,6 +29,7 @@ __all__ = [
     "BlockFloatingPoint",
     "FixedPoint",
     "FloatingPoint",
+    "FixedPointWeightQuant",
     "fibonacci_quantize",
     "fixed_point_quantize",
     "no_adjacent_ones_quantize",

@@ -10,6 +10,9 @@ CPU tensor; the plain version's helpers (``_fixed_bounds``,
 seed from an explicit ``torch.Generator`` where JAX takes a ``key``, and
 follows the kernel's 24-bit ``u`` where JAX's functional version draws
 ``jax.random.uniform``: parity with JAX is statistical there.
+:class:`FixedPointWeightQuant` is the same transform as a value that
+carries its format, so that ``apply_weight_quant`` can quantize every
+tensor that shares it in one grouped launch (:meth:`~FixedPointWeightQuant.many`).
 
 The codebook snaps :func:`fibonacci_quantize` and
 :func:`no_adjacent_ones_quantize` go through the nearest-codeword kernel.
@@ -17,10 +20,12 @@ The codebook snaps :func:`fibonacci_quantize` and
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..cuda.bd_attention import draw_seed
-from ..cuda.quant import fused_fixed_point_quantize
+from ..cuda.quant import fused_fixed_point_quantize, fused_fixed_point_quantize_grouped
 from .codebooks import fibbinary_codebook, fibonacci_sequence_codebook, nearest_codeword
 
 
@@ -39,6 +44,47 @@ def fixed_point_quantize(x: torch.Tensor, wl: int, fl: int, *, clamp: bool = Tru
         seed = draw_seed(generator, x.device)
     return fused_fixed_point_quantize(x, wl, fl, clamp=clamp, symmetric=symmetric,
                                       stochastic=seed is not None, seed=seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedPointWeightQuant:
+    """The weight transform ``fn(w, percentage, generator)`` of one
+    fixed-point format: calling it is :func:`fixed_point_quantize` of one
+    tensor (``percentage`` is not read, as in the sweep's closure, JAX
+    ``experiments/ptq_sweep.py:99-103``). Equal quantizers are equal values,
+    so ``apply_weight_quant`` gathers the tensors that share one and
+    quantizes them with one :meth:`many` call."""
+
+    wl: int
+    fl: int
+    rounding: str = "nearest"
+    clamp: bool = True
+    symmetric: bool = False
+
+    def __post_init__(self):
+        if self.rounding not in ("nearest", "stochastic"):
+            raise ValueError(f"unknown rounding {self.rounding!r}")
+
+    def __call__(self, w: torch.Tensor, percentage: float = 1.0,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        return fixed_point_quantize(w, self.wl, self.fl, clamp=self.clamp,
+                                    symmetric=self.symmetric, rounding=self.rounding,
+                                    generator=generator)
+
+    def many(self, tensors, generator: torch.Generator | None = None) -> list:
+        """Every tensor of ``tensors`` (one device) quantized in one grouped
+        launch per ``MAX_GROUP`` tensors; stochastic rounding draws one
+        seed from ``generator`` for the group, and tensor ``t`` its Philox
+        stream ``t``."""
+        tensors = list(tensors)
+        seed = None
+        if self.rounding == "stochastic" and tensors:
+            if generator is None:
+                raise ValueError("stochastic rounding needs a torch.Generator")
+            seed = draw_seed(generator, tensors[0].device)
+        return fused_fixed_point_quantize_grouped(
+            tensors, self.wl, self.fl, clamp=self.clamp, symmetric=self.symmetric,
+            stochastic=seed is not None, seed=seed)
 
 
 def _snap(x, cb, clamp):

@@ -9,11 +9,17 @@ is validated against the model's names, as OptimLP validates against
 applies it and returns new tensors; the caller's tensors are left as they
 are, so a sweep can quantize the same FP32 weights again at its next point.
 
+Grouping. Names whose ``fn`` is one :class:`FixedPointWeightQuant` (equal
+values count as one) are quantized together by its ``many``: one kernel
+launch for the flagship's 72 tensors, as the TPU kernel's one pass over all
+the weights. Any other ``fn`` goes tensor by tensor.
+
 Random draws. JAX folds ``hash(name)`` into its key per tensor, which
-changes from process to process. Here every configured tensor is
-quantized in sorted-name order with one ``torch.Generator``, so a
-stochastic ``fn`` that draws from it (``fixed_point_quantize``) draws one
-seed per tensor in that order, the same in every run.
+changes from process to process. Here the configured tensors are visited in
+sorted-name order with one ``torch.Generator``: a stochastic closure that
+draws from it (``fixed_point_quantize``) draws one seed per tensor in that
+order; after them each group draws one seed, its tensors taking Philox
+streams 0, 1, ... in name order. The same in every run.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from __future__ import annotations
 from collections.abc import Callable, Mapping
 
 import torch
+
+from .functional import FixedPointWeightQuant
 
 
 class WeightQuantSettings:
@@ -48,8 +56,17 @@ def apply_weight_quant(params: Mapping[str, torch.Tensor], settings: WeightQuant
     """``{name: fn(w, percentage, generator)}`` for every configured
     parameter, in sorted-name order, and the other tensors as they are
     (reference ``optim_low.py:109-127``). Returns a new dict, ready for
-    ``load_state_dict`` when ``params`` was a ``state_dict``."""
+    ``load_state_dict`` when ``params`` was a ``state_dict``. The other
+    ``fn`` run first, then each :class:`FixedPointWeightQuant` group, in the
+    order of its first name."""
     out = dict(params)
+    groups = {}
     for name in sorted(settings.settings):
-        out[name] = settings.settings[name](params[name], percentage, generator)
+        fn = settings.settings[name]
+        if isinstance(fn, FixedPointWeightQuant):
+            groups.setdefault(fn, []).append(name)
+        else:
+            out[name] = fn(params[name], percentage, generator)
+    for fn, names in groups.items():
+        out.update(zip(names, fn.many([params[n] for n in names], generator)))
     return out

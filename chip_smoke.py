@@ -26,7 +26,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    (wl, fl) (8, 4), (4, 0), (15, 11), (2, -2), symmetric and clamp on and
    off, nearest and stochastic; stochastic rounding unbiased within 4
    sigma; kernel, plain and ``torch.fake_quantize_per_tensor_affine``
-   (yardstick) times;
+   (yardstick) times; then the grouped launch over the flagship's 72 PTQ
+   tensors (one launch a quantization) against the grouped plain version
+   bit for bit in every format x symmetric x clamp x rounding, timed beside
+   72 single-tensor launches, its bound, 72 ``fake_quantize`` calls and one
+   ``fake_quantize`` over a flat buffer of the same 1,015,808 elements;
 6. codeword: the nearest-codeword kernel against its plain version bit for
    bit for ten codebooks (LSQ-fibbinary of 4 to 11 bits, fibbinary(8, 4),
    Fibonacci(8, 4)) on inputs with every codeword, every tie and +-0;
@@ -54,12 +58,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    4,096 x 266 x 16 dataset: all 104 attention calls through the mha
    kernel, none through the bd kernels;
 10. ptq eval path: the flagship's FP32 weights quantized at wl 8, fl 4
-   (nearest, then stochastic) by ``apply_weight_quant`` with
-   ``fixed_point_quantize``: 72 fixed-point launches a quantization, the
-   72 tensors equal to the plain path's bit for bit, ``eval_chunk`` of the
-   quantized copy with 104 bd launches; the time of a 24-point sweep
-   (``experiments/ptq_sweep.py``'s wl 4-15 x two roundings, quantize
-   only); eval samples/s of the quantized and the FP32 weights;
+   (nearest, then stochastic) by ``apply_weight_quant`` with one
+   ``FixedPointWeightQuant``: one grouped fixed-point launch a
+   quantization, the 72 tensors equal to the plain path's bit for bit,
+   ``eval_chunk`` of the quantized copy with 104 bd launches; the time of a
+   24-point sweep (``experiments/ptq_sweep.py``'s wl 4-15 x two roundings,
+   quantize only), in turns with the same sweep through per-tensor
+   closures (72 launches a quantization); eval samples/s of the quantized
+   and the FP32 weights;
 11. lsq-fibbinary eval path: ``InformerConfig(use_pallas=True, lsq_nbits=8,
    lsq_fibbinary=True)`` through ``eval_chunk`` as in 8: 576 codeword and
    104 bd launches in 8 batches, one batch against the plain path (the
@@ -764,6 +770,78 @@ def phase_fixed_kernel(torch, quant, draw_seed):
     return rows
 
 
+def phase_fixed_grouped(torch, quant, draw_seed):
+    """The grouped fixed-point launch over the flagship's 72 PTQ tensors
+    (``QUANT_TENSORS``) against the grouped plain version bit for bit, one
+    launch each, in every format x symmetric x clamp x rounding; then at wl
+    8, fl 4, clamp, per rounding: the grouped launch (graph replay and
+    eager), the 72 single-tensor launches the per-tensor route makes, the
+    plain version, and two yardsticks (72 ``fake_quantize`` calls, and one
+    over a flat buffer of the same elements, made outside the timing)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tensors = [_fixed_input(torch, n, gen) for _, n, count in QUANT_TENSORS for _ in range(count)]
+    elements = sum(x.numel() for x in tensors)
+    checks = 0
+    for wl, fl in FIXED_FORMATS:
+        for symmetric in (False, True):
+            for clamp in (True, False):
+                for stochastic in (False, True):
+                    kw = dict(clamp=clamp, symmetric=symmetric, stochastic=stochastic,
+                              seed=draw_seed(gen, "cuda") if stochastic else None)
+                    before = quant.fused_fixed_point_quantize.launches
+                    got = quant.fused_fixed_point_quantize_grouped(tensors, wl, fl, **kw)
+                    torch.cuda.synchronize()
+                    launches = quant.fused_fixed_point_quantize.launches - before
+                    want = quant.fixed_point_quantize_grouped_reference(tensors, wl, fl, **kw)
+                    if launches != 1 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        fail(f"grouped fixed-point kernel ({launches} launches) differs from its "
+                             f"plain version at wl {wl} fl {fl} symmetric {symmetric} clamp "
+                             f"{clamp} stochastic {stochastic}")
+                    checks += 1
+    qmin, qmax = -(2 ** (PTQ_WL - 1)), 2 ** (PTQ_WL - 1) - 1
+    flat = torch.cat([x.reshape(-1) for x in tensors])
+
+    def library():
+        return [torch.fake_quantize_per_tensor_affine(x, 2.0 ** -PTQ_FL, 0, qmin, qmax)
+                for x in tensors]
+
+    def library_flat():
+        return torch.fake_quantize_per_tensor_affine(flat, 2.0 ** -PTQ_FL, 0, qmin, qmax)
+    rows = []
+    for stochastic in (False, True):
+        kw = dict(stochastic=stochastic, seed=draw_seed(gen, "cuda") if stochastic else None)
+
+        def grouped():
+            return quant.fused_fixed_point_quantize_grouped(tensors, PTQ_WL, PTQ_FL, **kw)
+
+        def per_tensor():
+            return [quant.fused_fixed_point_quantize(x, PTQ_WL, PTQ_FL, **kw) for x in tensors]
+        row = dict(size=f"{len(tensors)} tensors", elements=elements, tensors=len(tensors),
+                   per_quantisation=1, wl=PTQ_WL, fl=PTQ_FL,
+                   rounding="stochastic" if stochastic else "nearest", max_abs_err=0.0,
+                   ms=time_ms(torch, grouped), eager_ms=eager_ms(torch, grouped),
+                   per_tensor_ms=time_ms(torch, per_tensor, inner=5),
+                   per_tensor_eager_ms=eager_ms(torch, per_tensor, inner=5),
+                   plain_ms=time_ms(torch, lambda: quant.fixed_point_quantize_grouped_reference(
+                       tensors, PTQ_WL, PTQ_FL, **kw), reps=5, inner=3),
+                   library_ms=None if stochastic else time_ms(torch, library, inner=5),
+                   library_flat_ms=None if stochastic else time_ms(torch, library_flat),
+                   **_bound(8 * elements, 4 * elements, "float32"))
+        rows.append(row)
+        lib = ("" if stochastic else f", fake_quantize x {len(tensors)} "
+               f"{row['library_ms'] * 1e3:.1f} us, one flat fake_quantize "
+               f"{row['library_flat_ms'] * 1e3:.1f} us")
+        print(f"quant fixed grouped {len(tensors)} tensors ({elements:,} elements) "
+              f"{row['rounding']:10s} wl {PTQ_WL} fl {PTQ_FL}: kernel = plain bit for bit, one "
+              f"launch ({checks} settings) | grouped {row['ms'] * 1e3:.1f} us (eager "
+              f"{row['eager_ms'] * 1e3:.1f}), {len(tensors)} single launches "
+              f"{row['per_tensor_ms'] * 1e3:.1f} us (eager "
+              f"{row['per_tensor_eager_ms'] * 1e3:.1f}), "
+              f"plain {row['plain_ms'] * 1e3:.1f} us{lib}, bound {row['bound_ms'] * 1e3:.2f} us "
+              f"({row['bound_by']})", flush=True)
+    return rows
+
+
 def _codebooks(cbm):
     books = [(f"lsq_fibbinary({n})", cbm.lsq_fibbinary_codebook(n)) for n in range(4, 12)]
     return books + [("fibbinary(8, 4)", cbm.fibbinary_codebook(8, 4)),
@@ -908,15 +986,20 @@ def phase_lsq_codeword(torch, quant, lsq, cbm):
 def phase_ptq_path(torch, wrappers, card):
     """Post-training quantization at the flagship (``experiments/ptq_sweep.py:94-110``
     in the package): the FP32 weights quantized by ``apply_weight_quant``
-    with ``fixed_point_quantize`` (72 kernel launches), loaded into a copy
-    of the model, ``eval_chunk`` through the bd kernel; nearest and
-    stochastic, each against the plain path bit for bit; the time of a
-    whole 24-point sweep (quantize only); eval samples/s."""
+    with one ``FixedPointWeightQuant`` (one grouped kernel launch), loaded
+    into a copy of the model, ``eval_chunk`` through the bd kernel; nearest
+    and stochastic, each against the plain path (the grouped plain version
+    with the group's one seed) bit for bit; the time of a whole 24-point
+    sweep (quantize only), grouped and through per-tensor closures in
+    turns; eval samples/s."""
     import copy
 
     from channelestimationtransformer_torch.ops.cuda.bd_attention import draw_seed
-    from channelestimationtransformer_torch.ops.cuda.quant import fixed_point_quantize_reference
+    from channelestimationtransformer_torch.ops.cuda.quant import (
+        fixed_point_quantize_grouped_reference,
+    )
     from channelestimationtransformer_torch.ops.quant import (
+        FixedPointWeightQuant,
         apply_weight_quant,
         build_weight_quant_settings,
         fixed_point_quantize,
@@ -927,20 +1010,22 @@ def phase_ptq_path(torch, wrappers, card):
     sd = model.state_dict()
     n_batches, batch = 8, 256
 
-    def settings(wl, fl, rounding, plain=False):
-        stochastic = rounding == "stochastic"
+    def settings(wl, fl, rounding):
+        return build_weight_quant_settings(sd, FixedPointWeightQuant(wl, fl, rounding))
 
-        def kernel_fn(w, percentage, generator):
-            return fixed_point_quantize(w, wl, fl, rounding=rounding, generator=generator)
-
-        def plain_fn(w, percentage, generator):
-            return fixed_point_quantize_reference(
-                w, wl, fl, stochastic=stochastic,
-                seed=draw_seed(generator, w.device) if stochastic else None)
-        return build_weight_quant_settings(sd, plain_fn if plain else kernel_fn)
+    def closure_settings(wl, fl, rounding):
+        return build_weight_quant_settings(sd, lambda w, percentage, generator: (
+            fixed_point_quantize(w, wl, fl, rounding=rounding, generator=generator)))
 
     def quantise(s, seed=0):
         return apply_weight_quant(sd, s, generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    def plain(s, wl, fl, rounding, seed=0):
+        names = sorted(s.settings)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        key = draw_seed(gen, "cuda") if rounding == "stochastic" else None
+        return dict(sd) | dict(zip(names, fixed_point_quantize_grouped_reference(
+            [sd[k] for k in names], wl, fl, stochastic=key is not None, seed=key)))
 
     def run(m, seed):
         return eval_chunk(m, ds, num_batches=n_batches, batch_size=batch, label_len=cfg.label_len,
@@ -960,8 +1045,8 @@ def phase_ptq_path(torch, wrappers, card):
         res = run(qmodel, 1)
         torch.cuda.synchronize()
         launches = _counts(wrappers)
-        expected = {k: 0 for k in launches} | dict(fixed=72, bd_fwd=13 * n_batches)
-        want = quantise(settings(PTQ_WL, PTQ_FL, rounding, plain=True))
+        expected = {k: 0 for k in launches} | dict(fixed=1, bd_fwd=13 * n_batches)
+        want = plain(s, PTQ_WL, PTQ_FL, rounding)
         equal = all(torch.equal(q[k], want[k]) for k in sd)
         nmse = res["nmse"].item()
         print(f"ptq eval path, {rounding} wl {PTQ_WL} fl {PTQ_FL}: {len(s)} tensors, "
@@ -979,19 +1064,19 @@ def phase_ptq_path(torch, wrappers, card):
     if sum(v.double().abs().sum().item() for v in sd.values() if v.is_floating_point()) != fp32_sum:
         fail("the ptq path changed the FP32 weights")
 
-    sweep = [settings(wl, fl, rounding) for wl, fl, rounding in SWEEP]
-    sweep_times = []
-    for _ in range(5):  # the first warms up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i, s in enumerate(sweep):
+    sweeps = {"grouped": [settings(*point) for point in SWEEP],
+              "per-tensor": [closure_settings(*point) for point in SWEEP]}
+
+    def sweep(name, _):
+        for i, s in enumerate(sweeps[name]):
             quantise(s, i)
-        torch.cuda.synchronize()
-        sweep_times.append((time.perf_counter() - t0) * 1e3)
-    sweep_ms = statistics.median(sweep_times[1:])
+    sweep_times = _alternate(torch, sweep, rounds=10, names=tuple(sweeps))  # two warm up each
+    sweep_ms = {name: statistics.median(ts[2:]) * 1e3 for name, ts in sweep_times.items()}
     print(f"ptq sweep: {len(SWEEP)} points (wl 4-15, fl = wl - 4, nearest and stochastic), "
-          f"{72 * len(SWEEP):,} tensors: {sweep_ms:.3f} ms per sweep, quantize only (median of "
-          f"{len(sweep_times) - 1}) on {card}", flush=True)
+          f"{72 * len(SWEEP):,} tensors: {sweep_ms['grouped']:.3f} ms per sweep grouped (one "
+          f"launch a point), {sweep_ms['per-tensor']:.3f} ms through per-tensor closures (72 "
+          f"launches a point), in turns, quantize only (median of "
+          f"{len(sweep_times['grouped']) - 2}) on {card}", flush=True)
 
     models = {"ptq": qmodel, "fp32": model}
     times = _alternate(torch, lambda name, i: run(models[name], 100 + i), names=tuple(models))
@@ -1001,7 +1086,8 @@ def phase_ptq_path(torch, wrappers, card):
         print(f"ptq eval {name:4s} weights: {n_batches * batch / med:.1f} samples/s (median of "
               f"{len(ts) - 2} chunks of {n_batches * batch}, {med * 1e3:.3f} ms) on {card}",
               flush=True)
-    return dict(out, sweep_ms=sweep_ms, sweep_ms_all=sweep_times)
+    return dict(out, sweep_ms=sweep_ms["grouped"], sweep_per_tensor_ms=sweep_ms["per-tensor"],
+                sweep_s_all=sweep_times)
 
 
 def _per_path(rows, key, weight):
@@ -1088,6 +1174,7 @@ def main(argv):
                             [s + (XL_B, XL_H, XL_E, XL_E) for s in XL_SHAPES]
                             + MHA_EXTRA_SHAPES, prefix="mha kernel", seed=2)
     fixed_rows = phase_fixed_kernel(torch, quant, ops.draw_seed)
+    grouped_rows = phase_fixed_grouped(torch, quant, ops.draw_seed)
     codeword_rows = phase_codeword_kernel(torch, quant, codebooks)
     lsq_rows = phase_lsq_codeword(torch, quant, lsq, codebooks)
     fwd_rows, bwd_rows = phase_kernel_train(torch, F, ops)
@@ -1122,14 +1209,17 @@ def main(argv):
                       "(B 64, H 8, E 128)"),
         _kernel_entry("fixed_point_quantize", ["quant.py:38"],
                       ptq_path["nearest"]["launches"]["fixed"],
-                      [r for r in fixed_rows if r["rounding"] == "nearest"], "per_quantisation",
-                      f"one PTQ quantization: the 72 tensors at wl {PTQ_WL}, fl {PTQ_FL}, nearest"),
+                      [r for r in grouped_rows if r["rounding"] == "nearest"], "per_quantisation",
+                      f"one PTQ quantization: the 72 tensors at wl {PTQ_WL}, fl {PTQ_FL}, nearest, "
+                      f"in one grouped launch"),
         _kernel_entry("nearest_codeword", ["quant.py:107"], lsq_path["launches"]["codeword"],
                       lsq_rows, "per_forward", f"one LSQ-fibbinary forward: the 72 layers' "
                       f"LSQ mode (the lsq_quantize chain and the snap to the "
                       f"{len(codebooks.lsq_fibbinary_codebook(LSQ_NBITS))}-entry codebook, one "
                       f"launch each)"),
     ]
+    kernels[3].update(per_tensor_ms=grouped_rows[0]["per_tensor_ms"],
+                      library_flat_ms=grouped_rows[0]["library_flat_ms"])
     kernels[4].update(snap_mode_ms=_per_path(lsq_rows, "snap_ms", "per_forward"),
                       eager_chain_ms=_per_path(lsq_rows, "chain_ms", "per_forward"))
     kernels[0].update(eval_launches=eval_path["launches"]["bd_fwd"],
@@ -1138,7 +1228,8 @@ def main(argv):
                       eval_library_ms=_per_path(f32(eval_rows), "library_ms", "calls_per_batch"))
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
-        mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, codeword_rows=codeword_rows,
+        mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, fixed_grouped_rows=grouped_rows,
+        codeword_rows=codeword_rows,
         lsq_codeword_rows=lsq_rows, train_fwd_rows=fwd_rows,
         train_bwd_rows=bwd_rows, eval_path=eval_path, xl_eval_path=xl_eval_path,
         ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path, kernels=kernels), indent=1))

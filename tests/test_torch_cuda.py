@@ -365,8 +365,11 @@ def test_mha_kernel_raises_instead_of_falling_back(cuda):
 # --- quantization kernels ------------------------------------------------------
 
 from channelestimationtransformer_torch.ops.cuda.quant import (  # noqa: E402
+    MAX_GROUP,
+    fixed_point_quantize_grouped_reference,
     fixed_point_quantize_reference,
     fused_fixed_point_quantize,
+    fused_fixed_point_quantize_grouped,
     fused_lsq_codeword,
     fused_nearest_codeword,
     lsq_codeword_reference,
@@ -414,6 +417,83 @@ def test_fixed_point_kernel_matches_plain_version(cuda, n, wl, fl, symmetric, cl
     if n > 1:
         assert torch.equal(fused_fixed_point_quantize(x[1:], wl, fl, **kw),
                            fixed_point_quantize_reference(x[1:], wl, fl, **kw))
+
+
+def _flagship_group(device, seed=0):
+    """The flagship's 72 PTQ tensors (52 of 128 x 128, 20 of 128 x 64),
+    then ragged sizes, an empty tensor, and views that start 1 and 2
+    elements into their storage (no 16-byte alignment)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shapes = [(128, 128)] * 52 + [(128, 64)] * 20 + [(1,), (3,), (5,), (1_000_003,), (0, 4)]
+    tensors = [torch.randn(s, generator=g, device=device) * 8 for s in shapes]
+    base = _quant_input(4099, 8.0, device, seed=seed)
+    return tensors + [base[1:], base[2:1001]]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)  # NaN compares by its bits
+
+
+@pytest.mark.parametrize("wl,fl,symmetric,clamp", QUANT_FORMATS)
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_grouped_fixed_point_kernel_matches_plain_version(cuda, wl, fl, symmetric, clamp,
+                                                          stochastic):
+    """One launch over the flagship's 72 tensors, ragged sizes, an empty
+    tensor and unaligned views, bit for bit with the grouped plain version
+    (tensor t on Philox stream t); exact midpoints, +-0, NaN and values past
+    the range written into the first tensor."""
+    tensors = _flagship_group(cuda, seed=wl)
+    special = torch.tensor([0.0, -0.0, float("nan"), 1e30, -1e30, 2.0 ** (wl - fl) * 3],
+                           device=cuda)
+    tensors[0].view(-1)[:6] = special
+    tensors[1].view(-1)[: 4096] = (torch.arange(4096, device=cuda) - 2048 + 0.5) * 2.0 ** -fl
+    seed = _seed(cuda, 77 + wl) if stochastic else None
+    kw = dict(clamp=clamp, symmetric=symmetric, stochastic=stochastic, seed=seed)
+    before = fused_fixed_point_quantize.launches
+    got = fused_fixed_point_quantize_grouped(tensors, wl, fl, **kw)
+    torch.cuda.synchronize()
+    assert fused_fixed_point_quantize.launches == before + 1
+    want = fixed_point_quantize_grouped_reference(tensors, wl, fl, **kw)
+    for t, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == tensors[t].shape and torch.equal(_bits(a), _bits(b)), t
+    if stochastic:  # stream 0 is the single-tensor launch's
+        assert torch.equal(_bits(got[0]), _bits(fused_fixed_point_quantize(tensors[0], wl, fl,
+                                                                            **kw)))
+
+
+def test_grouped_fixed_point_kernel_past_max_group(cuda):
+    """More tensors than one launch's table: a launch per MAX_GROUP tensors,
+    none for a chunk of empty tensors, and each tensor on its global stream."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sizes = [0] * MAX_GROUP + [int(n) for n in torch.randint(1, 700, (2 * MAX_GROUP + 17,),
+                                                             generator=g, device=cuda)]
+    tensors = [torch.randn(n, generator=g, device=cuda) * 4 for n in sizes]
+    seed = _seed(cuda, 9)
+    before = fused_fixed_point_quantize.launches
+    got = fused_fixed_point_quantize_grouped(tensors, 8, 4, stochastic=True, seed=seed)
+    torch.cuda.synchronize()
+    assert fused_fixed_point_quantize.launches == before + 3
+    want = fixed_point_quantize_grouped_reference(tensors, 8, 4, stochastic=True, seed=seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(got[-1], fixed_point_quantize_reference(
+        tensors[-1], 8, 4, stochastic=True, seed=seed))  # stream 400, not 0
+
+
+def test_grouped_fixed_point_kernel_raises_instead_of_falling_back(cuda):
+    x = torch.randn(64, device=cuda)
+    with pytest.raises(TypeError):
+        fused_fixed_point_quantize_grouped([x, x.double()], 8, 4)
+    with pytest.raises(ValueError, match="one device"):
+        fused_fixed_point_quantize_grouped([x, x.cpu()], 8, 4)
+    with pytest.raises(ValueError, match="one device"):
+        fused_fixed_point_quantize_grouped([x.cpu(), x], 8, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_fixed_point_quantize_grouped([x, x.view(8, 8).t()], 8, 4)
+    with pytest.raises(ValueError, match="seed"):
+        fused_fixed_point_quantize_grouped([x, x], 8, 4, stochastic=True)
+    with pytest.raises(ValueError, match="seed"):
+        fused_fixed_point_quantize_grouped([x, x], 8, 4, stochastic=True, seed=_seed("cpu"))
+    assert all(torch.isfinite(q).all() for q in fused_fixed_point_quantize_grouped([x, x], 8, 4))
 
 
 def _codebook_cases():
@@ -601,4 +681,36 @@ def test_ptq_weight_transform_through_the_kernel(cuda):
         want = apply_weight_quant(sd, plain,
                                   generator=torch.Generator(device=cuda).manual_seed(1))
         assert all(torch.equal(got[k], want[k]) for k in sd)
+    assert all(torch.equal(sd[k], v) for k, v in fp32.items())
+
+
+def test_ptq_weight_transform_through_one_grouped_launch(cuda):
+    """apply_weight_quant with one FixedPointWeightQuant: one fixed-point
+    launch for the flagship's 72 tensors, equal to the grouped plain version
+    with the group's one seed, and the FP32 weights left as they were."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.ops.cuda.bd_attention import draw_seed
+    from channelestimationtransformer_torch.ops.quant import (
+        FixedPointWeightQuant,
+        apply_weight_quant,
+        build_weight_quant_settings,
+    )
+
+    sd = build_informer(InformerConfig(), device=cuda).state_dict()
+    fp32 = {k: v.clone() for k, v in sd.items()}
+    for rounding in ("nearest", "stochastic"):
+        settings = build_weight_quant_settings(sd, FixedPointWeightQuant(8, 4, rounding))
+        names = sorted(settings.settings)
+        before = fused_fixed_point_quantize.launches
+        got = apply_weight_quant(sd, settings,
+                                 generator=torch.Generator(device=cuda).manual_seed(1))
+        torch.cuda.synchronize()
+        assert len(names) == 72 and fused_fixed_point_quantize.launches == before + 1
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        seed = draw_seed(gen, cuda) if rounding == "stochastic" else None
+        want = fixed_point_quantize_grouped_reference(
+            [sd[k] for k in names], 8, 4, stochastic=seed is not None, seed=seed)
+        assert all(torch.equal(got[k], w) for k, w in zip(names, want))
+        assert all(got[k] is sd[k] for k in sd if k not in settings)
     assert all(torch.equal(sd[k], v) for k, v in fp32.items())

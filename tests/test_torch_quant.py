@@ -16,6 +16,14 @@
   tensors that ``from_flax`` makes of JAX's quantized params; the quantized
   eval forward matches flax within rtol 2e-4 / atol 2e-5; at the flagship
   both select the same 72 tensors.
+- Grouped fixed point (one launch over many tensors on the card): the
+  grouped plain version equals JAX and ``_fixed_kernel`` in interpret mode
+  exactly for nearest rounding, tensor by tensor, on a group with ragged,
+  empty and offset tensors; stochastic tensor ``t`` draws Philox stream
+  ``t`` (word 2 of the counter; stream 0 is the single-tensor layout),
+  unbiased within 4 sigma; ``FixedPointWeightQuant`` through
+  ``apply_weight_quant`` equals JAX's PTQ weights exactly and draws one
+  seed per group.
 """
 
 import functools
@@ -39,8 +47,12 @@ from channelestimationtransformer_torch.core.config import InformerConfig
 from channelestimationtransformer_torch.models.informer import build_informer
 from channelestimationtransformer_torch.ops import quant as tq
 from channelestimationtransformer_torch.ops.cuda.bd_attention import philox4x32_10
+from channelestimationtransformer_torch.ops.cuda.bd_attention import draw_seed
 from channelestimationtransformer_torch.ops.cuda.quant import (
+    fixed_point_quantize_grouped_reference,
+    fixed_point_quantize_reference,
     fused_fixed_point_quantize,
+    fused_fixed_point_quantize_grouped,
     fused_nearest_codeword,
     nearest_codeword_reference,
     stochastic_uniform,
@@ -353,3 +365,215 @@ def test_flagship_quantizes_the_same_72_tensors():
     assert sizes.count((128, 128)) == 52
     assert sizes.count((64, 128)) + sizes.count((128, 64)) == 20
     assert sum(sd[n].numel() for n in names) == 1_015_808
+
+
+# --- grouped fixed point -------------------------------------------------------
+
+def _group_arrays(wl, fl):
+    """A group as the wrapper meets it: 1, 3 and 5 elements, 128 x 128, a
+    ragged 1,003 (1,000,003 cut small), an empty tensor and a view that
+    starts one element into its storage; values from ``_fixed_inputs``."""
+    pool = np.concatenate([_fixed_inputs(wl, fl, seed=s).reshape(-1) for s in range(18)])
+    cuts, arrays, at = [(1,), (3,), (5,), (128, 128), (1003,)], [], 0
+    for shape in cuts:
+        n = int(np.prod(shape))
+        arrays.append(pool[at:at + n].reshape(shape))
+        at += n
+    return arrays + [np.zeros((0, 4), np.float32), pool[at:at + 301]]
+
+
+def _group_tensors(arrays):
+    tensors = [torch.from_numpy(a.copy()) for a in arrays[:-1]]
+    base = torch.from_numpy(np.concatenate([[7.0], arrays[-1]]).astype(np.float32))
+    return tensors + [base[1:]]  # offset view: storage_offset 1
+
+
+@pytest.mark.parametrize("wl,fl", FORMATS)
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("clamp", [True, False])
+def test_grouped_nearest_matches_jax_and_the_pallas_kernel(wl, fl, symmetric, clamp):
+    arrays = _group_arrays(wl, fl)
+    tensors = _group_tensors(arrays)
+    assert tensors[-1].storage_offset() == 1
+    got = fused_fixed_point_quantize_grouped(tensors, wl, fl, clamp=clamp, symmetric=symmetric)
+    assert len(got) == len(arrays)
+    for a, x, q in zip(arrays, tensors, got):
+        assert q.shape == x.shape and q.dtype == torch.float32
+        if a.size == 0:
+            continue
+        want = np.asarray(jq.fixed_point_quantize(jnp.asarray(a), wl, fl, clamp=clamp,
+                                                  symmetric=symmetric))
+        np.testing.assert_array_equal(q.numpy(), want)
+        np.testing.assert_array_equal(q.numpy(), _pallas_fixed(a, wl, fl, symmetric, clamp))
+    # Stochastic settings without stochastic rounding read no seed, and the
+    # single-tensor entry point is the group of one.
+    assert all(torch.equal(fused_fixed_point_quantize(x, wl, fl, clamp=clamp,
+                                                      symmetric=symmetric), q)
+               for x, q in zip(tensors, got))
+
+
+def _philox_py(counter, key):
+    """Philox4x32-10 on Python ints: a third implementation, for known answers."""
+    c, (k0, k1) = list(counter), key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & 0xFFFFFFFF, (k1 + 0xBB67AE85) & 0xFFFFFFFF
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k0, p1 & 0xFFFFFFFF, (p0 >> 32) ^ c[3] ^ k1, p0 & 0xFFFFFFFF]
+    return c
+
+
+def test_stochastic_uniform_streams_known_answers():
+    """Random123's Philox4x32-10 known answers (the last with counter word 2
+    set) hold for the Python-int generator, and u of stream t is word i % 4
+    of counter (i // 4, 0, t, 0) shifted to 24 bits."""
+    kat = [((0, 0, 0, 0), (0, 0), [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]),
+           ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD]),
+           ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+            [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1])]
+    for counter, key, want in kat:
+        assert _philox_py(counter, key) == want
+    seed = torch.tensor([0x299F_31D0_A409_3822], dtype=torch.int64)
+    n = 13
+    for stream in (0, 1, 0x13198A2E, 0xFFFFFFFF):
+        u = stochastic_uniform(seed, n, stream)
+        for i in range(n):
+            word = _philox_py((i // 4, 0, stream, 0), (0xA4093822, 0x299F31D0))[i % 4]
+            assert u[i].item() == (word >> 8) * 2.0 ** -24, (stream, i)
+    assert torch.equal(stochastic_uniform(seed, n, 0), stochastic_uniform(seed, n))
+
+
+@pytest.mark.parametrize("wl,fl", [(8, 4), (2, -2), (5, 7)])
+def test_grouped_stochastic_draws_stream_t(wl, fl):
+    """Tensor t is clamp(floor(x * 2^fl + u_t) / 2^fl) with u_t of stream t;
+    t = 0 is the single-tensor result; the streams differ; and each
+    tensor's mean error stays within 4 sigma."""
+    res, top = 2.0 ** -fl, 2.0 ** (wl - fl - 1)
+    values = np.float32([0.3, -0.7, 0.1, -0.45]) * top
+    n = 20000
+    tensors = [torch.full((n,), float(v)) for v in values]
+    seed = torch.tensor([17], dtype=torch.int64)
+    got = fused_fixed_point_quantize_grouped(tensors, wl, fl, stochastic=True, seed=seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, fixed_point_quantize_grouped_reference(
+        tensors, wl, fl, stochastic=True, seed=seed)))
+    for t, (x, q) in enumerate(zip(tensors, got)):
+        u = stochastic_uniform(seed, n, stream=t)
+        want = torch.clamp(torch.floor(x * 2.0 ** fl + u) / 2.0 ** fl, -top, top - res)
+        assert torch.equal(q, want), t
+        frac = float(values[t]) / res - np.floor(float(values[t]) / res)
+        sigma = res * np.sqrt(frac * (1 - frac) / n)
+        assert abs(q.double().mean().item() - float(values[t])) <= 4 * sigma + 1e-12, t
+    assert torch.equal(got[0], fused_fixed_point_quantize(tensors[0], wl, fl, stochastic=True,
+                                                          seed=seed))
+    streams = [stochastic_uniform(seed, n, stream=t) for t in range(len(tensors))]
+    assert all(not torch.equal(streams[a], streams[b]) for a in range(4) for b in range(a))
+
+
+def test_grouped_wrapper_checks_its_inputs():
+    x = torch.linspace(-3, 3, 64)
+    assert fused_fixed_point_quantize_grouped([], 8, 4) == []
+    with pytest.raises(ValueError, match="seed"):
+        fused_fixed_point_quantize_grouped([x, x], 8, 4, stochastic=True)
+    # Only a group wholly on the CPU takes the plain version.
+    with pytest.raises(ValueError, match="one device"):
+        fused_fixed_point_quantize_grouped([x, x.to("meta")], 8, 4)
+    with pytest.raises(ValueError, match="meta"):
+        fused_fixed_point_quantize_grouped([x.to("meta")], 8, 4)
+
+
+def test_fixed_point_weight_quant_is_fixed_point_quantize():
+    x = torch.from_numpy(_fixed_inputs(8, 4))
+    for rounding in ("nearest", "stochastic"):
+        fn = tq.FixedPointWeightQuant(8, 4, rounding, clamp=False, symmetric=True)
+        want = tq.fixed_point_quantize(x, 8, 4, rounding=rounding, clamp=False, symmetric=True,
+                                       generator=torch.Generator().manual_seed(2))
+        assert torch.equal(fn(x, 1.0, torch.Generator().manual_seed(2)), want)
+    assert tq.FixedPointWeightQuant(8, 4) == tq.FixedPointWeightQuant(8, 4, "nearest")
+    assert tq.FixedPointWeightQuant(8, 4) != tq.FixedPointWeightQuant(8, 4, symmetric=True)
+    with pytest.raises(ValueError, match="rounding"):
+        tq.FixedPointWeightQuant(8, 4, "proximal")
+    with pytest.raises(ValueError, match="Generator"):
+        tq.FixedPointWeightQuant(8, 4, "stochastic").many([x])
+
+
+@pytest.mark.parametrize("wl", [4, 8, 12])
+def test_ptq_weights_through_the_grouped_quantizer_match_jax(small_pair, wl):
+    """The sweep's point (wl, fl = wl - 4), nearest, through one
+    FixedPointWeightQuant: exactly the tensors that from_flax makes of JAX's
+    apply_weight_quant, and the caller's tensors left as they were."""
+    _, params, stats, model = small_pair
+    fl = wl - 4
+    jset = jq_settings.build_weight_quant_settings(
+        params, lambda w, p, k: jq.fixed_point_quantize(w, wl, fl, rounding="nearest", key=k))
+    want = from_flax(jax.tree.map(np.asarray, jq.apply_weight_quant(
+        params, jset, key=jax.random.key(wl))), stats)
+    sd = model.state_dict()
+    fp32 = {k: v.clone() for k, v in sd.items()}
+    got = tq.apply_weight_quant(sd, tq.build_weight_quant_settings(
+        sd, tq.FixedPointWeightQuant(wl, fl)))
+    assert got.keys() == want.keys()
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    assert all(torch.equal(sd[k], v) for k, v in fp32.items())
+
+
+def test_ptq_grouped_stochastic_draws_one_seed_per_group(small_pair):
+    sd = small_pair[3].state_dict()
+    fn = tq.FixedPointWeightQuant(6, 2, "stochastic")
+    settings = tq.build_weight_quant_settings(sd, fn)
+    gen = torch.Generator().manual_seed(3)
+    got = tq.apply_weight_quant(sd, settings, generator=gen)
+    by_hand = torch.Generator().manual_seed(3)
+    seed = draw_seed(by_hand, "cpu")
+    for t, name in enumerate(sorted(settings.settings)):
+        want = fixed_point_quantize_reference(sd[name], 6, 2, stochastic=True, seed=seed,
+                                              stream=t)
+        assert torch.equal(got[name], want), name
+    # One draw in all: the generators stand at the same place.
+    assert torch.equal(draw_seed(gen, "cpu"), draw_seed(by_hand, "cpu"))
+    other = tq.apply_weight_quant(sd, settings, generator=torch.Generator().manual_seed(4))
+    assert not torch.equal(got[name], other[name])
+    untouched = [k for k in sd if k not in settings]
+    assert untouched and all(got[k] is sd[k] for k in untouched)
+
+
+def test_apply_weight_quant_mixes_closures_and_groups(small_pair, monkeypatch):
+    """Closures go tensor by tensor, each distinct quantizer is one many()
+    call over its names; for nearest rounding the result equals quantizing
+    every tensor on its own."""
+    sd = small_pair[3].state_dict()
+    names = tq.quantized_param_names(sd)
+    fmt = {0: (6, 2), 1: (8, 4), 2: (5, 1)}
+    closure = lambda w, p, g: tq.fixed_point_quantize(w, 6, 2, generator=g)  # noqa: E731
+    fns = {name: closure if i % 3 == 0 else tq.FixedPointWeightQuant(*fmt[i % 3])
+           for i, name in enumerate(names)}
+    calls = []
+    many = tq.FixedPointWeightQuant.many
+    monkeypatch.setattr(tq.FixedPointWeightQuant, "many",
+                        lambda self, ts, g=None: calls.append(self) or many(self, ts, g))
+    got = tq.apply_weight_quant(sd, tq.WeightQuantSettings(fns, sd))
+    assert sorted(calls, key=lambda f: f.wl) == [tq.FixedPointWeightQuant(5, 1),
+                                                 tq.FixedPointWeightQuant(8, 4)]
+    for i, name in enumerate(names):
+        want = fixed_point_quantize_reference(sd[name], *fmt[i % 3])
+        assert torch.equal(got[name], want), name
+
+
+def test_apply_weight_quant_stochastic_draw_order(small_pair):
+    """Closures draw their seeds first, in name order; then each group draws
+    one seed, its tensors on streams 0, 1, ... in name order."""
+    sd = small_pair[3].state_dict()
+    names = tq.quantized_param_names(sd)
+    closure = lambda w, p, g: tq.fixed_point_quantize(  # noqa: E731
+        w, 6, 2, rounding="stochastic", generator=g)
+    quantizer = tq.FixedPointWeightQuant(8, 4, "stochastic")
+    fns = {name: closure if i % 2 else quantizer for i, name in enumerate(names)}
+    got = tq.apply_weight_quant(sd, tq.WeightQuantSettings(fns, sd),
+                                generator=torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(7)
+    for name in names[1::2]:
+        assert torch.equal(got[name], closure(sd[name], 1.0, gen)), name
+    seed = draw_seed(gen, "cpu")
+    for t, name in enumerate(names[0::2]):
+        assert torch.equal(got[name], fixed_point_quantize_reference(
+            sd[name], 8, 4, stochastic=True, seed=seed, stream=t)), name
