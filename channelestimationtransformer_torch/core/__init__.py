@@ -1,4 +1,4 @@
-from .config import DataConfig, InformerConfig, TrainConfig
+from .config import DataConfig, InformerConfig, TrainConfig, activation_dtype
 from .metrics import nmse, nmse_db, nmse_split
 from .runtime import resolve_device
 
@@ -6,6 +6,7 @@ __all__ = [
     "DataConfig",
     "InformerConfig",
     "TrainConfig",
+    "activation_dtype",
     "nmse",
     "nmse_db",
     "nmse_split",

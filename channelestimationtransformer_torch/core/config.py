@@ -12,6 +12,31 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
+import torch
+
+# Activation dtypes the port runs (``InformerConfig.dtype``). Parameters and
+# optimizer state stay float32 whatever the dtype, as flax keeps them.
+ACTIVATION_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def activation_dtype(name: str) -> torch.dtype:
+    """The ``torch.dtype`` of an ``InformerConfig.dtype`` string. A float
+    dtype the port does not run (float16, float64: the JAX package's
+    ``jnp.dtype`` takes them) raises ``NotImplementedError``; a string that
+    names no float dtype raises ``ValueError``."""
+    if name in ACTIVATION_DTYPES:
+        return ACTIVATION_DTYPES[name]
+    try:
+        floating = np.issubdtype(np.dtype(name), np.floating)
+    except TypeError:
+        floating = False
+    if floating:
+        raise NotImplementedError(
+            f"dtype={name!r}: the port runs float32 and bfloat16 activations only "
+            "(ROADMAP Queue 1: float16 and the other float dtypes are not ported)")
+    raise ValueError(f"dtype must name a float dtype ('float32' or 'bfloat16'), got {name!r}")
+
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
 class InformerConfig:
@@ -37,7 +62,7 @@ class InformerConfig:
     mix: bool = True  # transpose heads<->seq on decoder self-attn output
     output_attention: bool = False
     pre_norm: bool = False
-    dtype: str = "float32"  # computation dtype for activations
+    dtype: str = "float32"  # activations: "float32" | "bfloat16" (activation_dtype)
     # Hand-written kernels: attention (ops/cuda/bd_attention.py where it takes
     # the shape, else ops/cuda/mha_attention.py in eval mode; routing in
     # models/attention.py) and, with lsq_fibbinary, the nearest-codeword snap

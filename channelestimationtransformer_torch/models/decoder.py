@@ -8,7 +8,7 @@ from torch import nn
 
 from .attention import AttentionLayer
 from .dropout import dropout
-from .encoder import LN_EPS, FeedForward
+from .encoder import LN_EPS, FeedForward, LayerNorm
 
 
 class DecoderLayer(nn.Module):
@@ -16,25 +16,28 @@ class DecoderLayer(nn.Module):
     FFN, each with a residual (dropout on the two attention outputs, JAX
     ``decoder.py:58, 78``); post-norm after each (norm1..3), or ``pre_norm``
     before each. ``lsq_nbits`` / ``lsq_fibbinary`` reach every projection
-    and FFN layer (JAX ``decoder.py:34-35, 54-55, 74-75, 82-92``)."""
+    and FFN layer (JAX ``decoder.py:34-35, 54-55, 74-75, 82-92``), and
+    ``dtype`` every layer, as in the encoder."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str, *,
                  mix: bool = True, use_pallas: bool = False, pre_norm: bool = False,
                  dropout: float = 0.0, lsq_nbits: int | None = None,
-                 lsq_fibbinary: bool = False, **attn_kwargs):
+                 lsq_fibbinary: bool = False, dtype: torch.dtype = torch.float32,
+                 **attn_kwargs):
         super().__init__()
         self.pre_norm = pre_norm
         self.dropout = dropout
-        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas)
+        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas,
+                   dtype=dtype)
         self.self_attention = AttentionLayer(
             d_model, n_heads, mask_flag=True, mix=mix, dropout=dropout, **lsq, **attn_kwargs)
         self.cross_attention = AttentionLayer(
             d_model, n_heads, mask_flag=False, mix=False, dropout=dropout, **lsq,
             **attn_kwargs)
         self.ffn = FeedForward(d_model, d_ff, activation, dropout, **lsq)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = LayerNorm(d_model, eps=LN_EPS)
+        self.norm3 = LayerNorm(d_model, eps=LN_EPS)
 
     def _residual(self, x, attn_out, norm, generator):
         x = x + dropout(attn_out, self.dropout, generator, self.training)
@@ -60,7 +63,7 @@ class Decoder(nn.Module):
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(d_model, **layer_kwargs))
-        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, cross, generator: torch.Generator | None = None):
         for i in range(self.num_layers):

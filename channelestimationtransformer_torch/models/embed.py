@@ -41,10 +41,13 @@ def circular_conv1d(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.T
 
 
 class TokenEmbedding(nn.Module):
-    """Circular Conv1d ``c_in -> d_model`` (k=3, **no bias**), kaiming-normal init."""
+    """Circular Conv1d ``c_in -> d_model`` (k=3, **no bias**), kaiming-normal
+    init; x and the f32 weight cast to ``dtype`` for the conv (JAX
+    ``embed.py:74``)."""
 
-    def __init__(self, c_in: int, d_model: int):
+    def __init__(self, c_in: int, d_model: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(d_model, c_in, 3))
         self.reset_parameters()
 
@@ -52,7 +55,7 @@ class TokenEmbedding(nn.Module):
         variance_scaling_(self.weight, 2.0, generator=generator)
 
     def forward(self, x):
-        return circular_conv1d(x, self.weight)
+        return circular_conv1d(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
 
 
 class DataEmbedding(nn.Module):
@@ -61,13 +64,15 @@ class DataEmbedding(nn.Module):
 
     The position table is built once per (length, dtype, device) and kept,
     as the JAX package's is constant-folded: after the first call for a key,
-    ``forward`` copies nothing from the host."""
+    ``forward`` copies nothing from the host. Everything runs in ``dtype``,
+    the table included (JAX ``embed.py:94``)."""
 
-    def __init__(self, c_in: int, d_model: int, dropout: float = 0.0):
+    def __init__(self, c_in: int, d_model: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_model = d_model
         self.dropout = dropout
-        self.token = TokenEmbedding(c_in, d_model)
+        self.token = TokenEmbedding(c_in, d_model, dtype)
         self._tables: dict = {}
 
     def position_table(self, length: int, dtype, device) -> torch.Tensor:
@@ -78,5 +83,6 @@ class DataEmbedding(nn.Module):
         return self._tables[key]
 
     def forward(self, x, generator: torch.Generator | None = None):
-        out = self.token(x) + self.position_table(x.shape[-2], x.dtype, x.device)
+        tok = self.token(x)
+        out = tok + self.position_table(x.shape[-2], tok.dtype, x.device)
         return dropout(out, self.dropout, generator, self.training)

@@ -4,6 +4,13 @@
 Submodules carry the JAX package's parameter names (``layer_0``,
 ``distil_0``, ``encoder_0``, ...) so that ``utils/convert.py`` maps one tree
 onto the other name for name.
+
+``dtype`` is the activations' dtype (flax's ``dtype``): parameters and
+BatchNorm statistics stay f32; the convs and dense layers compute in
+``dtype``; both norms take their statistics and normalise in f32 with the
+f32 scale and bias, and round the result to the input's dtype (flax
+``normalization.py``: ``_compute_stats`` with ``force_float32_reductions``,
+``_normalize``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,15 @@ def activation_fn(name: str):
     return (lambda x: F.gelu(x, approximate="tanh")) if name == "gelu" else F.relu
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` on the input in f32, rounded back to the input's
+    dtype (flax ``nn.LayerNorm(dtype=...)``); at f32 it is ``nn.LayerNorm``.
+    torch's CUDA ``layer_norm`` takes no bf16 input with f32 weights."""
+
+    def forward(self, x):
+        return super().forward(x.float()).to(x.dtype)
+
+
 class BatchNorm(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` over ``[B, C, L]`` with flax ``nn.BatchNorm``'s
     train-mode semantics. It normalises with the batch mean and the biased
@@ -39,27 +55,35 @@ class BatchNorm(nn.BatchNorm1d):
     ``running_var`` with that biased variance:
     ``running = (1 - momentum) * running + momentum * batch``, momentum 0.1
     here being flax's 0.9. ``nn.BatchNorm1d`` updates ``running_var`` with
-    the unbiased variance instead. Eval mode is ``nn.BatchNorm1d``'s."""
+    the unbiased variance instead. Eval mode is ``nn.BatchNorm1d``'s, which
+    takes a bf16 input with the f32 statistics and parameters, computes in
+    f32 and returns bf16. In train mode a bf16 input is reduced and
+    normalised in f32 and the result rounded to bf16; the statistics stay
+    f32."""
 
     def forward(self, y):
         if not self.training:
             return super().forward(y)
-        mean = y.mean(dim=(0, 2))
-        var = torch.clamp_min(torch.square(y).mean(dim=(0, 2)) - torch.square(mean), 0.0)
+        yf = y.float()
+        mean = yf.mean(dim=(0, 2))
+        var = torch.clamp_min(torch.square(yf).mean(dim=(0, 2)) - torch.square(mean), 0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (y - mean[:, None]) * mul[:, None] + self.bias[:, None]
+        return ((yf - mean[:, None]) * mul[:, None] + self.bias[:, None]).to(y.dtype)
 
 
 class ConvLayer(nn.Module):
     """Distilling layer: circular conv k=3 + bias -> BatchNorm (eps 1e-5) ->
-    ELU -> MaxPool(3, 2, 1), halving the sequence."""
+    ELU -> MaxPool(3, 2, 1), halving the sequence. The f32 weight and bias
+    are cast to ``dtype`` for the conv (JAX ``encoder.py:43``); the input
+    arrives in it."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(d_model, d_model, 3))
         self.bias = nn.Parameter(torch.zeros(d_model))
         self.norm = BatchNorm(d_model, eps=1e-5, momentum=0.1)
@@ -70,7 +94,8 @@ class ConvLayer(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        y = circular_conv1d(x, self.weight, self.bias).transpose(1, 2)  # [B, C, L]
+        dt = self.compute_dtype
+        y = circular_conv1d(x, self.weight.to(dt), self.bias.to(dt)).transpose(1, 2)  # [B, C, L]
         y = F.max_pool1d(F.elu(self.norm(y)), kernel_size=3, stride=2, padding=1)
         return y.transpose(1, 2)
 
@@ -83,9 +108,10 @@ class FeedForward(nn.Module):
 
     def __init__(self, d_model: int, d_ff: int, activation: str, dropout: float = 0.0, *,
                  lsq_nbits: int | None = None, lsq_fibbinary: bool = False,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas)
+        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas,
+                   dtype=dtype)
         self.conv1 = dense_layer(d_model, d_ff, **lsq)
         self.conv2 = dense_layer(d_ff, d_model, **lsq)
         self.act = activation_fn(activation)
@@ -104,17 +130,19 @@ class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str, *,
                  output_attention: bool = False, use_pallas: bool = False,
                  pre_norm: bool = False, dropout: float = 0.0, lsq_nbits: int | None = None,
-                 lsq_fibbinary: bool = False, **attn_kwargs):
+                 lsq_fibbinary: bool = False, dtype: torch.dtype = torch.float32,
+                 **attn_kwargs):
         super().__init__()
         self.pre_norm = pre_norm
         self.dropout = dropout
-        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas)
+        lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas,
+                   dtype=dtype)
         self.attention = AttentionLayer(
             d_model, n_heads, mask_flag=False, mix=False, output_attention=output_attention,
             dropout=dropout, **lsq, **attn_kwargs)
         self.ffn = FeedForward(d_model, d_ff, activation, dropout, **lsq)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, generator: torch.Generator | None = None):
         a_in = self.norm1(x) if self.pre_norm else x
@@ -132,15 +160,15 @@ class Encoder(nn.Module):
     LayerNorm (reference ``encoder.py:57-82``)."""
 
     def __init__(self, num_layers: int, d_model: int, *, distil: bool = True,
-                 **layer_kwargs):
+                 dtype: torch.dtype = torch.float32, **layer_kwargs):
         super().__init__()
         self.num_layers = num_layers
         self.num_distil = num_layers - 1 if distil and num_layers > 1 else 0
         for i in range(num_layers):
-            self.add_module(f"layer_{i}", EncoderLayer(d_model, **layer_kwargs))
+            self.add_module(f"layer_{i}", EncoderLayer(d_model, dtype=dtype, **layer_kwargs))
         for i in range(self.num_distil):
-            self.add_module(f"distil_{i}", ConvLayer(d_model))
-        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+            self.add_module(f"distil_{i}", ConvLayer(d_model, dtype))
+        self.norm = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, generator: torch.Generator | None = None):
         attns = []

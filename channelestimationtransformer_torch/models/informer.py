@@ -7,6 +7,11 @@ pred_len, F]) -> pred [B, pred_len, c_out]`` (plus attention maps with
 attention probabilities, FFN, residuals) draws from the ``generator``
 passed to ``forward``, and the distilling BatchNorms use and update batch
 statistics; in ``eval()`` mode the forward is deterministic.
+
+``config.dtype`` is flax's compute dtype: parameters (and so the optimizer
+state) and BatchNorm statistics are f32 whatever it is; with "bfloat16"
+every activation is bf16, the inputs are cast by the embeddings, and the
+prediction comes out bf16, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -14,9 +19,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..core.config import InformerConfig
+from ..core.config import InformerConfig, activation_dtype
 from ..core.runtime import resolve_device
 from ..ops.quant.lsq import DenseLSQ
+from .attention import Dense
 from .decoder import Decoder
 from .embed import DataEmbedding, TokenEmbedding
 from .encoder import ConvLayer, Encoder, EncoderStack
@@ -29,24 +35,23 @@ class InformerBase(nn.Module):
     def __init__(self, config: InformerConfig):
         super().__init__()
         cfg = config
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={cfg.dtype!r}: the port runs float32 activations only so "
-                "far (ROADMAP Queue 1: bf16 activations)")
+        dtype = activation_dtype(cfg.dtype)
         self.config = cfg
-        self.enc_embedding = DataEmbedding(cfg.enc_in, cfg.d_model, cfg.dropout)
-        self.dec_embedding = DataEmbedding(cfg.dec_in, cfg.d_model, cfg.dropout)
+        self.enc_embedding = DataEmbedding(cfg.enc_in, cfg.d_model, cfg.dropout, dtype)
+        self.dec_embedding = DataEmbedding(cfg.dec_in, cfg.d_model, cfg.dropout, dtype)
         self.encoder = self._encoder(dict(
             n_heads=cfg.n_heads, d_ff=cfg.d_ff, activation=cfg.activation,
             attn=cfg.attn, distil=cfg.distil, output_attention=cfg.output_attention,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
-            lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout))
+            lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout,
+            dtype=dtype))
         self.decoder = Decoder(
             cfg.d_layers, cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
             activation=cfg.activation, attn=cfg.attn, mix=cfg.mix,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
-            lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout)
-        self.projection = nn.Linear(cfg.d_model, cfg.c_out)
+            lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout,
+            dtype=dtype)
+        self.projection = Dense(cfg.d_model, cfg.c_out, dtype=dtype)
 
     def _encoder(self, kwargs) -> nn.Module:
         raise NotImplementedError

@@ -119,13 +119,18 @@ class DenseLSQ(nn.Linear):
     ``DenseLSQ`` with ``quantize=True``). ``weight`` is ``[out, in]``;
     ``step_size`` is a scalar parameter. ``fibbinary=True`` snaps to the
     signed fibbinary codebook, kept as a buffer so that it moves to the
-    weight's device once, with the module, and not on every forward."""
+    weight's device once, with the module, and not on every forward.
+    ``dtype`` is the compute dtype: the f32 weight is quantized in f32,
+    then the quantized weight, the bias and x are cast to ``dtype`` for the
+    product (JAX ``lsq.py:97-104``)."""
 
     def __init__(self, in_features: int, out_features: int, *, nbits: int,
-                 fibbinary: bool = False, use_pallas: bool = True):
+                 fibbinary: bool = False, use_pallas: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features)
         self.nbits = nbits
         self.use_pallas = use_pallas
+        self.compute_dtype = dtype
         self.step_size = nn.Parameter(torch.empty(()))
         codebook = (torch.tensor(lsq_fibbinary_codebook(nbits), dtype=torch.float32)
                     if fibbinary else None)
@@ -141,4 +146,5 @@ class DenseLSQ(nn.Linear):
     def forward(self, x):
         w = lsq_quantize(self.weight, self.step_size, self.nbits, self.codebook,
                          use_pallas=self.use_pallas)
-        return F.linear(x, w, self.bias)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), w.to(dt), self.bias.to(dt))

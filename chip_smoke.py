@@ -1,12 +1,14 @@
 """Drive the PyTorch port's serving, quantized serving and training paths
-on one NVIDIA card.
+on one NVIDIA card, in float32 and in bfloat16 activations.
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
 
 Phases, each printing its own lines; any failure exits non-zero:
 
-1. device: the card's name and power limit; TF32 off for matmuls and convs;
+1. device: the card's name and power limit; TF32 off for matmuls and convs,
+   and cuBLAS's bf16 reduced-precision reductions off (bf16 GEMMs accumulate
+   in f32, as the JAX package's dots);
 2. build: the five CUDA kernel libraries, compiled in parallel with nvcc
    from the sources here; per library its kernels' registers, spill bytes
    and static shared memory from ``-Xptxas -v`` (the full logs go beside
@@ -77,7 +79,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    same weights, batch and generator seed (so the same dropout masks),
    compared loss, output and gradient by gradient; ``train_chunk`` with the
    kernels' launch counts and a finite loss; steady-state training
-   samples/s of both paths.
+   samples/s of both paths;
+13. bf16 eval path: ``InformerConfig(use_pallas=True, dtype="bfloat16")``
+   (``bench.py``'s config) as in 8: 104 bd launches, one batch against the
+   bf16 plain path (``BF16_TOL``), the NMSE of its prediction against its
+   f32 twin's (same weights and batch) with cuBLAS's bf16 reductions off
+   and on, eval samples/s in turns with the twin;
+14. bf16 xl eval path: the xl row in bf16 (``scale_demo.py``'s default
+   dtype) as in 9: 104 mha launches, no bd launch, the same checks;
+15. bf16 lsq-fibbinary eval batch: one batch of the model of 11 in bf16
+   (72 codeword and 13 bd launches) against its plain path;
+16. bf16 training path: 12 in bf16: the step through the kernels against
+   the plain path and both against the f32 twin's gradients
+   (``BF16_GRAD_*``), 104 forward and 104 backward launches, parameters and
+   Adam state f32, training samples/s in turns with the twin.
+
+Each attention kernel's entry in the kernels line carries its bf16 instance
+(time, launches, bound at bf16 bytes or tensor-core FLOPs, SDPA) under
+``bfloat16``.
 
 With ``--profile`` each path's line also gives its device kernel launches
 per chunk. The last three lines are the card's name and power limit, the kernels' JSON
@@ -154,6 +173,20 @@ DROPOUT = 0.05  # InformerConfig().dropout
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}  # (rtol, atol), forward
 BWD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # longer sums in dK, dV
 MAIN_TOL = (1e-3, 1e-4)  # kernel path vs plain path, whole model forward, TF32 off
+# bf16 kernel path vs bf16 plain path, whole model: max|kernel - plain| /
+# max|plain| and NMSE(kernel, plain). The kernels compute attention in f32
+# and round their output once; the plain path's einsums and softmax run in
+# bf16 (as JAX's XLA path), so the two differ by bf16 rounding noise: ~1e-2
+# and ~1e-4 at the flagship (tests/test_torch_bf16.py's bars against flax).
+BF16_TOL = (5e-2, 1e-3)
+# bf16 training step, each gradient's max abs difference over its own max
+# abs (floor: BF16_GRAD_FLOOR of the largest gradient's). Every backward op
+# rounds its cotangent to bf16, so the bf16 gradients of either path sit up
+# to ~0.2 of their max from the f32 model's: the bar is that the kernel
+# path's worst error against the f32 gradients is at most BF16_GRAD_RATIO
+# times the plain path's, and that the two paths differ by at most
+# BF16_GRAD_CAP.
+BF16_GRAD_FLOOR, BF16_GRAD_RATIO, BF16_GRAD_CAP = 5e-2, 1.25, 0.3
 # Kernel path vs plain path, one training step: each gradient's max abs
 # difference over the larger of its own max abs and 1e-3 of the largest
 # gradient's (the two paths round the attention sums differently, and the
@@ -461,6 +494,36 @@ def _models_and_data(torch, cfg=None, samples=65536, slots=None):
     return cfg, model, plain, ds
 
 
+def _f32_twin(model, cfg):
+    """The float32 model of ``cfg`` (kernel path) with ``model``'s weights."""
+    from channelestimationtransformer_torch.models.informer import build_informer
+
+    twin = build_informer(dataclasses.replace(cfg, dtype="float32"), device="cuda", seed=0)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def _rel_nmse(got, want):
+    """max|got - want| / max|want| and NMSE(got, want), in f32."""
+    got, want = got.float(), want.float()
+    diff = got - want
+    return ((diff.abs().max() / want.abs().max()).item(),
+            (diff.square().sum() / want.square().sum()).item())
+
+
+def _close(torch, got, want, dtype):
+    """Kernel path against plain path, one model output: (text, ok) at
+    MAIN_TOL in f32, at BF16_TOL in bf16."""
+    if dtype == "float32":
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=MAIN_TOL[0], atol=MAIN_TOL[1])
+        return f"max_abs {err:.3e} (rtol {MAIN_TOL[0]}, atol {MAIN_TOL[1]})", ok, err
+    rel, nm = _rel_nmse(got, want)
+    ok = bool(torch.isfinite(got).all()) and rel <= BF16_TOL[0] and nm <= BF16_TOL[1]
+    return (f"max_abs/max {rel:.3e}, nmse {nm:.3e} (limits {BF16_TOL[0]}, {BF16_TOL[1]})",
+            ok, (got.float() - want.float()).abs().max().item())
+
+
 # Printed names of the kernel wrappers' launch counters (keys of _counts).
 COUNT_LABELS = dict(bd_fwd="bd", bd_bwd="bd backward", mha="mha", fixed="fixed",
                     codeword="codeword")
@@ -527,7 +590,10 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
     ``expected`` (by key of :func:`_counts`; by default every attention call
     on the bd forward kernel) and none elsewhere, a finite NMSE, one batch
     against the plain path, and samples/s of both paths and of the
-    ``beside`` models (name -> model), all in turns."""
+    ``beside`` models (name -> model), all in turns. A bf16 ``cfg`` also
+    times its f32 twin (same weights) in the turns, and prints the NMSE of
+    its prediction against the twin's on the batch, with cuBLAS's bf16
+    reduced-precision reductions off (this script's setting) and on."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from channelestimationtransformer_torch.data.windows import make_batch
@@ -561,13 +627,27 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
                                       generator=torch.Generator(device="cuda").manual_seed(2))
     with torch.no_grad():
         p_kernel, p_plain = model(x_enc, x_dec), plain(x_enc, x_dec)
-    err = (p_kernel - p_plain).abs().max().item()
-    ok = p_kernel.shape == target.shape and torch.allclose(
-        p_kernel, p_plain, rtol=MAIN_TOL[0], atol=MAIN_TOL[1])
-    print(f"{name} vs plain attention path, one batch: max_abs {err:.3e} "
-          f"(rtol {MAIN_TOL[0]}, atol {MAIN_TOL[1]}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    text, ok, err = _close(torch, p_kernel, p_plain, cfg.dtype)
+    ok = ok and p_kernel.shape == target.shape and p_kernel.dtype == p_plain.dtype
+    print(f"{name} vs plain attention path, one batch ({p_kernel.dtype}): {text} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         fail(f"kernel path and plain path disagree on the {name}")
+    vs_f32 = {}
+    if cfg.dtype != "float32":
+        twin = _f32_twin(model, cfg)
+        beside = {"f32-kernel": twin, **(beside or {})}
+        matmul = torch.backends.cuda.matmul
+        with torch.no_grad():
+            p_f32 = twin(x_enc, x_dec)
+            for reduced in (False, True):
+                matmul.allow_bf16_reduced_precision_reduction = reduced
+                vs_f32[reduced] = _rel_nmse(model(x_enc, x_dec), p_f32)[1]
+            matmul.allow_bf16_reduced_precision_reduction = False
+        print(f"{name} vs its f32 twin (same weights and batch): nmse {vs_f32[False]:.3e} "
+              f"(with bf16 reduced-precision reductions: {vs_f32[True]:.3e})", flush=True)
+        if not all(math.isfinite(v) for v in vs_f32.values()):
+            fail(f"non-finite NMSE against the f32 twin on the {name}")
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         plain(x_enc, x_dec)
     batch_flops = counter.get_total_flops()
@@ -595,57 +675,95 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
         summary.update(_profile(torch, lambda path: run(model if path == "kernel" else plain, 7),
                                 "eval_chunk", card, f"profile_{name.replace(' ', '_')}.txt"))
     return dict(nmse=nmse, split=split, launches=launches, vs_plain_max_abs=err,
-                parameters=n_params, batch_flops=batch_flops, **summary)
+                parameters=n_params, batch_flops=batch_flops, dtype=cfg.dtype,
+                vs_f32_nmse=vs_f32.get(False), vs_f32_nmse_reduced=vs_f32.get(True), **summary)
 
 
-def phase_train_path(torch, wrappers, card, profile):
+def _grad_errors(got, want, floor):
+    """Each gradient's max abs difference over its own max abs, or ``floor``."""
+    return {n: (got[n] - want[n]).abs().max().item() / max(want[n].abs().max().item(), floor)
+            for n in want}
+
+
+def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train"):
+    """The training path (``cfg``, by default the f32 flagship): one step
+    through the kernels against one through the plain attention path (same
+    weights, batch and generator seed, so the same dropout masks), the
+    launch counts and loss of ``train_chunk``, and steady-state samples/s
+    of both paths in turns. A bf16 ``cfg`` holds its gradients to its f32
+    twin's (same weights) too, times the twin in the turns, and checks that
+    the parameters and Adam state stay f32."""
     from channelestimationtransformer_torch.core.config import TrainConfig
     from channelestimationtransformer_torch.core.metrics import nmse
     from channelestimationtransformer_torch.data.windows import make_batch
     from channelestimationtransformer_torch.train.trainer import create_train_state, train_chunk
 
-    cfg, model, plain, ds = _models_and_data(torch)
+    cfg, model, plain, ds = _models_and_data(torch, cfg)
+    bf16 = cfg.dtype != "float32"
     batch = 256
 
     # (a) One step's loss and gradients, kernel path vs plain path: the same
     # weights, batch and generator seed, hence the same dropout masks.
     x_enc, x_dec, target = make_batch(ds, batch, cfg.label_len,
                                       generator=torch.Generator(device="cuda").manual_seed(3))
+    paths = {"kernel": model, "plain": plain}
+    if bf16:
+        paths["f32"] = _f32_twin(model, cfg)
     results = {}
-    for name, m in (("kernel", model), ("plain", plain)):
+    for path, m in paths.items():
         m.train()
         pred = m(x_enc, x_dec, generator=torch.Generator(device="cuda").manual_seed(4))
         loss = nmse(pred, target)
         loss.backward()
-        results[name] = (pred.detach(), loss.item(),
+        results[path] = (pred.detach(), loss.item(),
                          {n: p.grad.detach().clone() for n, p in m.named_parameters()},
                          {n: b.clone() for n, b in m.named_buffers() if "running" in n})
         m.zero_grad(set_to_none=True)
     (pk, lk, gk, sk), (pp, lp, gp, sp) = results["kernel"], results["plain"]
-    floor = 1e-3 * max(g.abs().max().item() for g in gp.values())
-    grad_err = {n: (gk[n] - gp[n]).abs().max().item() / max(gp[n].abs().max().item(), floor)
-                for n in gp}
     stat_err = max(((sk[n] - sp[n]).abs().max()).item() for n in sp)
-    out_err = (pk - pp).abs().max().item()
-    worst = max(grad_err, key=grad_err.get)
-    ok = (math.isfinite(lk) and abs(lk - lp) <= MAIN_TOL[0] * abs(lp)
-          and torch.allclose(pk, pp, rtol=MAIN_TOL[0], atol=MAIN_TOL[1])
-          and max(grad_err.values()) <= GRAD_TOL and stat_err <= MAIN_TOL[1])
-    print(f"train step, kernel path vs plain path (same weights, batch, masks): loss "
-          f"{lk:.6f} vs {lp:.6f}, output max_abs {out_err:.3e} (rtol {MAIN_TOL[0]}, atol "
-          f"{MAIN_TOL[1]}), {len(grad_err)} gradients, worst max_abs/max {grad_err[worst]:.3e} "
-          f"at {worst} (limit {GRAD_TOL}), BatchNorm stats max_abs {stat_err:.3e} "
-          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if bf16:
+        _, _, gf, _ = results["f32"]
+        floor = BF16_GRAD_FLOOR * max(g.abs().max().item() for g in gf.values())
+        grad_err = _grad_errors(gk, gp, floor)
+        vs_f32 = {path: max(_grad_errors(results[path][2], gf, floor).values())
+                  for path in ("kernel", "plain")}
+        out_text, out_ok, out_err = _close(torch, pk, pp, cfg.dtype)
+        worst = max(grad_err, key=grad_err.get)
+        ok = (math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp) and out_ok
+              and grad_err[worst] <= BF16_GRAD_CAP
+              and vs_f32["kernel"] <= BF16_GRAD_RATIO * vs_f32["plain"]
+              and stat_err <= 1e-2 and pk.dtype == torch.bfloat16)
+        grad_text = (f"worst max_abs/max {grad_err[worst]:.3e} at {worst} (cap {BF16_GRAD_CAP}, "
+                     f"floor {BF16_GRAD_FLOOR} of the largest f32 gradient); against the f32 "
+                     f"twin's gradients: kernel path worst {vs_f32['kernel']:.3e}, plain path "
+                     f"{vs_f32['plain']:.3e} (limit {BF16_GRAD_RATIO}x)")
+    else:
+        floor = 1e-3 * max(g.abs().max().item() for g in gp.values())
+        grad_err = _grad_errors(gk, gp, floor)
+        vs_f32 = {}
+        out_err = (pk - pp).abs().max().item()
+        out_text = f"max_abs {out_err:.3e} (rtol {MAIN_TOL[0]}, atol {MAIN_TOL[1]})"
+        worst = max(grad_err, key=grad_err.get)
+        ok = (math.isfinite(lk) and abs(lk - lp) <= MAIN_TOL[0] * abs(lp)
+              and torch.allclose(pk, pp, rtol=MAIN_TOL[0], atol=MAIN_TOL[1])
+              and grad_err[worst] <= GRAD_TOL and stat_err <= MAIN_TOL[1])
+        grad_text = f"worst max_abs/max {grad_err[worst]:.3e} at {worst} (limit {GRAD_TOL})"
+    print(f"{name} step, kernel path vs plain path (same weights, batch, masks; {pk.dtype}): "
+          f"loss {lk:.6f} vs {lp:.6f}, output {out_text}, {len(grad_err)} gradients, "
+          f"{grad_text}, BatchNorm stats max_abs {stat_err:.3e} {'ok' if ok else 'MISMATCH'}",
+          flush=True)
     if not ok:
-        fail("kernel path and plain path disagree on one training step")
+        fail(f"kernel path and plain path disagree on one {name} step")
 
     # (b, c) train_chunk through the kernels: launch counts and a finite loss.
     train_cfg = TrainConfig(batch_size=batch, lr=1e-4)
     states = {"kernel": create_train_state(model, train_cfg),
               "plain": create_train_state(plain, train_cfg)}
+    if bf16:
+        states["f32-kernel"] = create_train_state(paths["f32"], train_cfg)
 
-    def run(name, seed, steps=TRAIN_STEPS):
-        return train_chunk(states[name], ds, num_steps=steps, batch_size=batch,
+    def run(path, seed, steps=TRAIN_STEPS):
+        return train_chunk(states[path], ds, num_steps=steps, batch_size=batch,
                            label_len=cfg.label_len,
                            generator=torch.Generator(device="cuda").manual_seed(seed))
 
@@ -657,37 +775,47 @@ def phase_train_path(torch, wrappers, card, profile):
     fwd, bwd = launches["bd_fwd"], launches["bd_bwd"]
     loss = m["loss_sum"].item() / TRAIN_STEPS
     split = (m["split_sum"] / TRAIN_STEPS).cpu().tolist()
-    print(f"train path: train_chunk {TRAIN_STEPS} x {batch}: mean loss {loss:.6f}, split "
+    print(f"{name} path: train_chunk {TRAIN_STEPS} x {batch}: mean loss {loss:.6f}, split "
           f"{[round(s, 6) for s in split]}, forward launches {fwd}, backward launches {bwd} "
           f"(expected {13 * TRAIN_STEPS} each), mha launches {launches['mha']} (expected 0), "
           f"quant launches {launches['fixed'] + launches['codeword']} (expected 0)", flush=True)
     if launches != dict(bd_fwd=13 * TRAIN_STEPS, bd_bwd=13 * TRAIN_STEPS, mha=0, fixed=0,
                         codeword=0):
-        fail(f"kernels launched {launches} times on the training path, "
+        fail(f"kernels launched {launches} times on the {name} path, "
              f"not {13 * TRAIN_STEPS} forward and backward, 0 mha, 0 quant")
     if not (math.isfinite(loss) and all(math.isfinite(s) for s in split)):
-        fail("non-finite loss on the training path")
+        fail(f"non-finite loss on the {name} path")
+    if bf16:
+        opt = states["kernel"].optimizer
+        state_dtypes = {t.dtype for st in opt.state.values() for t in st.values()
+                        if torch.is_tensor(t)}
+        param_dtypes = {p.dtype for p in model.parameters()}
+        print(f"{name} path: parameter dtypes {sorted(map(str, param_dtypes))}, Adam state "
+              f"dtypes {sorted(map(str, state_dtypes))} (expected float32 only)", flush=True)
+        if param_dtypes != {torch.float32} or state_dtypes != {torch.float32}:
+            fail(f"the {name} path's parameters or Adam state left float32")
 
-    # (d) Steady state, the two paths in turns.
+    # (d) Steady state, the paths in turns.
     torch.cuda.reset_peak_memory_stats()
-    times = _alternate(torch, lambda name, i: run(name, 100 + i), rounds=10)
+    times = _alternate(torch, lambda path, i: run(path, 100 + i), rounds=10,
+                       names=tuple(states))
     samples = TRAIN_STEPS * batch
     summary = {}
-    for name, ts in times.items():
+    for path, ts in times.items():
         ts = ts[2:]
         med = statistics.median(ts)
-        summary[name] = dict(chunk_ms_median=med * 1e3, samples_per_s=samples / med,
+        summary[path] = dict(chunk_ms_median=med * 1e3, samples_per_s=samples / med,
                              chunk_ms=[t * 1e3 for t in ts])
-        print(f"train {name:6s} path: {samples / med:.1f} samples/s (median of {len(ts)} "
+        print(f"{name} {path:6s} path: {samples / med:.1f} samples/s (median of {len(ts)} "
               f"chunks of {TRAIN_STEPS} steps x {batch}, {med * 1e3:.3f} ms) on {card}",
               flush=True)
     summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     if profile:  # (e)
-        summary.update(_profile(torch, lambda name: run(name, 7), "train_chunk", card,
-                                "profile_train.txt"))
-    return dict(loss=loss, split=split, launches_fwd=fwd, launches_bwd=bwd,
+        summary.update(_profile(torch, lambda path: run(path, 7), "train_chunk", card,
+                                f"profile_{name.replace(' ', '_')}.txt"))
+    return dict(loss=loss, split=split, launches_fwd=fwd, launches_bwd=bwd, dtype=cfg.dtype,
                 step_loss=(lk, lp), step_out_max_abs=out_err, step_grad_rel_err=grad_err,
-                step_stats_max_abs=stat_err, **summary)
+                step_grad_vs_f32=vs_f32, step_stats_max_abs=stat_err, **summary)
 
 def _fixed_input(torch, n, gen):
     """Normal values over twice the formats' range (+-8), with exact
@@ -1090,6 +1218,34 @@ def phase_ptq_path(torch, wrappers, card):
                 sweep_s_all=sweep_times)
 
 
+def phase_one_batch(torch, wrappers, name, cfg, expected):
+    """One eval batch of 256 of ``cfg`` through the kernels, against its
+    plain path (the kernels' plain versions and plain attention), with the
+    launch counts ``expected`` and none elsewhere."""
+    from channelestimationtransformer_torch.data.windows import make_batch
+
+    cfg, model, plain, ds = _models_and_data(torch, cfg, samples=4096)
+    x_enc, x_dec, _ = make_batch(ds, 256, cfg.label_len,
+                                 generator=torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    _zero_counts(wrappers)
+    with torch.no_grad():
+        p_kernel = model(x_enc, x_dec)
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    expected = {key: expected.get(key, 0) for key in launches}
+    with torch.no_grad():
+        p_plain = plain(x_enc, x_dec)
+    text, ok, err = _close(torch, p_kernel, p_plain, cfg.dtype)
+    print(f"{name}: launches {_launch_report(launches, expected)}; vs plain path "
+          f"({p_kernel.dtype}): {text} {'ok' if ok else 'MISMATCH'}", flush=True)
+    if launches != expected:
+        fail(f"kernels launched {launches} times on the {name}, not {expected}")
+    if not ok:
+        fail(f"kernel path and plain path disagree on the {name}")
+    return dict(launches=launches, vs_plain_max_abs=err, dtype=cfg.dtype)
+
+
 def _per_path(rows, key, weight):
     """Sum of ``key`` weighted by each row's count on the path (``weight``)."""
     return sum(r[key] * r[weight] for r in rows if r[weight])
@@ -1134,9 +1290,13 @@ def main(argv):
                           text=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in f32 throughout, as the JAX package's dots do.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"device: {card} | torch {torch.__version__}, CUDA {torch.version.cuda} | "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"matmul.allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}", flush=True)
 
     t0 = time.perf_counter()
     libs = (ops.FWD_LIB, ops.BWD_LIB, mha.LIB, quant.FIXED_LIB, quant.CODEWORD_LIB)
@@ -1195,7 +1355,22 @@ def main(argv):
                                               seed=0)})
     train_path = phase_train_path(torch, wrappers, card, profile)
 
+    # bf16 activations (bench.py's config, and scale_demo.py's default dtype at xl).
+    bf16_eval_path = phase_eval_path(torch, wrappers, card, profile, name="bf16 eval path",
+                                     cfg=InformerConfig(use_pallas=True, dtype="bfloat16"))
+    bf16_xl_eval_path = phase_eval_path(
+        torch, wrappers, card, profile, name="bf16 xl eval path",
+        cfg=dataclasses.replace(xl_cfg, dtype="bfloat16"), samples=4096,
+        slots=xl_cfg.seq_len + 10, batch=64, expected={"mha": 13 * 8})
+    bf16_lsq_batch = phase_one_batch(
+        torch, wrappers, "bf16 lsq-fibbinary eval batch",
+        dataclasses.replace(lsq_cfg, dtype="bfloat16"), {"bd_fwd": 13, "codeword": 72})
+    bf16_train_path = phase_train_path(torch, wrappers, card, profile,
+                                       cfg=InformerConfig(use_pallas=True, dtype="bfloat16"),
+                                       name="bf16 train")
+
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
+    bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]  # noqa: E731
     kernels = [
         _kernel_entry("bd_attention_fwd", ["bd_attention.py:121"], train_path["launches_fwd"],
                       f32(fwd_rows), "calls_per_step", "one training step: the 13 float32 calls "
@@ -1226,13 +1401,33 @@ def main(argv):
                       eval_ms=_per_path(f32(eval_rows), "ms", "calls_per_batch"),
                       eval_bound_ms=_per_path(f32(eval_rows), "bound_ms", "calls_per_batch"),
                       eval_library_ms=_per_path(f32(eval_rows), "library_ms", "calls_per_batch"))
+    # Each attention kernel's bf16 instance on its bf16 path, as the f32 keys.
+    bf16_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "per")
+    for kernel, launches, rows, weight, per in (
+            (kernels[0], bf16_train_path["launches_fwd"], fwd_rows, "calls_per_step",
+             "one bf16 training step: the 13 calls at their flagship shapes (dropout 0.05)"),
+            (kernels[1], bf16_train_path["launches_bwd"], bwd_rows, "calls_per_step",
+             "one bf16 training step: the 13 calls at their flagship shapes (dropout 0.05)"),
+            (kernels[2], bf16_xl_eval_path["launches"]["mha"], mha_rows, "calls_per_batch",
+             "one bf16 xl eval batch: the 13 calls at their xl shapes (B 64, H 8, E 128)")):
+        entry = _kernel_entry(kernel["name"], [], launches, bf16(rows), weight, per)
+        kernel["bfloat16"] = {k: entry[k] for k in bf16_keys}
+    kernels[0]["bfloat16"].update(
+        eval_launches=bf16_eval_path["launches"]["bd_fwd"],
+        eval_ms=_per_path(bf16(eval_rows), "ms", "calls_per_batch"),
+        eval_bound_ms=_per_path(bf16(eval_rows), "bound_ms", "calls_per_batch"),
+        eval_library_ms=_per_path(bf16(eval_rows), "library_ms", "calls_per_batch"))
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
         mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, fixed_grouped_rows=grouped_rows,
         codeword_rows=codeword_rows,
         lsq_codeword_rows=lsq_rows, train_fwd_rows=fwd_rows,
         train_bwd_rows=bwd_rows, eval_path=eval_path, xl_eval_path=xl_eval_path,
-        ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path, kernels=kernels), indent=1))
+        ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path,
+        bf16_eval_path=bf16_eval_path, bf16_xl_eval_path=bf16_xl_eval_path,
+        bf16_lsq_batch=bf16_lsq_batch, bf16_train_path=bf16_train_path, kernels=kernels),
+        indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -714,3 +714,118 @@ def test_ptq_weight_transform_through_one_grouped_launch(cuda):
         assert all(torch.equal(got[k], w) for k, w in zip(names, want))
         assert all(got[k] is sd[k] for k in sd if k not in settings)
     assert all(torch.equal(sd[k], v) for k, v in fp32.items())
+
+
+# --- bf16 models through the attention kernels --------------------------------
+# The kernels compute attention in f32 and round their output to bf16 once;
+# the plain path (use_pallas=False) runs its einsums and softmax in bf16, as
+# the JAX package's XLA path does. So a bf16 model's two paths differ by bf16
+# rounding noise, and are compared as tests/test_torch_bf16.py compares the
+# port with flax: max|kernel - plain| / max|plain| <= 5e-2 and NMSE <= 1e-3;
+# gradients of a step each within 3e-1 of their own max abs (floor 5e-2 of
+# the largest f32 gradient's), and the kernel path's worst error against the
+# f32 model's gradients at most 1.25 x the plain path's.
+
+BF16_MODEL_TOL = (5e-2, 1e-3)
+
+
+def _rel_nmse(got, want):
+    got, want = got.float(), want.float()
+    diff = got - want
+    return ((diff.abs().max() / want.abs().max()).item(),
+            (diff.square().sum() / want.square().sum()).item())
+
+
+def _bf16_models(cfg, device):
+    """The bf16 model of ``cfg`` (kernel path), its plain path and its f32
+    twin, all with the weights of seed 0."""
+    import dataclasses
+
+    from channelestimationtransformer_torch.models.informer import build_informer
+
+    return tuple(build_informer(dataclasses.replace(cfg, **kw), device=device, seed=0)
+                 for kw in ({}, dict(use_pallas=False), dict(dtype="float32")))
+
+
+def test_bf16_flagship_forward_through_the_kernels_matches_the_plain_path(cuda):
+    """bench.py's config, InformerConfig(use_pallas=True, dtype="bfloat16"),
+    eval: 13 bd forward launches a batch, a bf16 prediction within the bf16
+    limits of the plain path's."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
+
+    model, plain, _ = _bf16_models(InformerConfig(use_pallas=True, dtype="bfloat16"), cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x_enc = torch.randn(64, 90, 16, generator=g, device=cuda)
+    x_dec = torch.randn(64, 15, 16, generator=g, device=cuda)
+    before = bd_attention_fwd.launches
+    with torch.no_grad():
+        got = model(x_enc, x_dec)
+        torch.cuda.synchronize()
+        assert bd_attention_fwd.launches == before + 13
+        want = plain(x_enc, x_dec)
+    assert bd_attention_fwd.launches == before + 13
+    assert got.dtype == want.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    rel, nmse_ = _rel_nmse(got, want)
+    assert rel <= BF16_MODEL_TOL[0] and nmse_ <= BF16_MODEL_TOL[1], (rel, nmse_)
+
+
+def test_bf16_training_step_through_the_kernels_matches_the_plain_path(cuda):
+    """One bf16 training step of the flagship (dropout 0.05, batch 64) through
+    the bd forward and backward kernels against the plain path on the same
+    generator seed, and both against the f32 twin's gradients; the gradients
+    and parameters stay f32."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.core.metrics import nmse
+
+    models = _bf16_models(InformerConfig(use_pallas=True, dtype="bfloat16"), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x_enc = torch.randn(64, 90, 16, generator=g, device=cuda)
+    x_dec = torch.randn(64, 15, 16, generator=g, device=cuda)
+    target = torch.randn(64, 5, 16, generator=g, device=cuda)
+    outs, grads = [], []
+    before = (bd_attention_fwd.launches, bd_attention_bwd.launches)
+    for m in models:
+        m.train()
+        pred = m(x_enc, x_dec, generator=torch.Generator(device=cuda).manual_seed(2))
+        nmse(pred, target).backward()
+        outs.append(pred.detach())
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    torch.cuda.synchronize()
+    # The kernel path and the f32 twin launch 13 each way; the plain path none.
+    assert (bd_attention_fwd.launches, bd_attention_bwd.launches) == (before[0] + 26,
+                                                                     before[1] + 26)
+    assert outs[0].dtype == torch.bfloat16 and outs[2].dtype == torch.float32
+    rel, nmse_ = _rel_nmse(outs[0], outs[1])
+    assert rel <= BF16_MODEL_TOL[0] and nmse_ <= BF16_MODEL_TOL[1], (rel, nmse_)
+    assert all(gr.dtype == torch.float32 for gs in grads for gr in gs.values())
+    floor = 5e-2 * max(gr.abs().max().item() for gr in grads[2].values())
+
+    def worst(got, want):
+        return max((got[n] - want[n]).abs().max().item() / max(want[n].abs().max().item(), floor)
+                   for n in want)
+    assert worst(grads[0], grads[1]) <= 3e-1
+    assert worst(grads[0], grads[2]) <= 1.25 * worst(grads[1], grads[2])
+
+
+def test_bf16_xl_forward_through_mha_matches_the_plain_path(cuda):
+    """The xl width in bf16 (d_model 1024, d_ff 4096, E 128, seq_len 256;
+    depth cut to e_layers (2, 1), d_layers 1), eval: its 5 attention calls
+    through the mha kernel and none through bd, within the bf16 limits of the
+    plain path."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
+
+    cfg = InformerConfig(d_model=1024, d_ff=4096, seq_len=256, e_layers=(2, 1), d_layers=1,
+                         use_pallas=True, dtype="bfloat16")
+    model, plain, _ = _bf16_models(cfg, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x_enc = torch.randn(8, 256, 16, generator=g, device=cuda)
+    x_dec = torch.randn(8, 15, 16, generator=g, device=cuda)
+    before = (mha_attention_fwd.launches, bd_attention_fwd.launches)
+    with torch.no_grad():
+        got = model(x_enc, x_dec)
+        torch.cuda.synchronize()
+        want = plain(x_enc, x_dec)
+    assert (mha_attention_fwd.launches, bd_attention_fwd.launches) == (before[0] + 5, before[1])
+    assert got.dtype == want.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    rel, nmse_ = _rel_nmse(got, want)
+    assert rel <= BF16_MODEL_TOL[0] and nmse_ <= BF16_MODEL_TOL[1], (rel, nmse_)
