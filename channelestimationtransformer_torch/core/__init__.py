@@ -1,6 +1,6 @@
 from .config import DataConfig, InformerConfig, TrainConfig, activation_dtype
 from .metrics import nmse, nmse_db, nmse_split
-from .runtime import resolve_device
+from .runtime import resolve_device, stream_generator
 
 __all__ = [
     "DataConfig",
@@ -11,4 +11,5 @@ __all__ = [
     "nmse_db",
     "nmse_split",
     "resolve_device",
+    "stream_generator",
 ]

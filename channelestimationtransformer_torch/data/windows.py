@@ -13,12 +13,18 @@ so the port can be held to the JAX package's exact batches.
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..core.runtime import resolve_device
+from .packing import ri_pack
+
+# ri channel [..., T, Nr, Nt, 2] -> packed [..., T, Nr*Nt*2]: the JAX
+# package's name for ri_pack here (data/windows.py:33-38).
+pack_features = ri_pack
 
 
 @dataclasses.dataclass
@@ -50,6 +56,22 @@ class WindowDataset:
     @property
     def features(self) -> int:
         return self.h.shape[-1]
+
+    @classmethod
+    def from_pickle(cls, path: str, *, seq_len: int, pred_len: int, snr_db: float,
+                    device=None) -> "WindowDataset":
+        """Load a reference-format pickled dataset (complex ``[N, slots, Nr,
+        Nt]``, as ``channel/dataset.py:save_reference_format`` and the
+        reference's ``GenerateChannelsFreqPostMatlab.py`` write it). It is
+        packed to the feature layout on the host, then moved to ``device``
+        (default: the card). Unpickling runs code from the file: load only
+        files this program or the reference wrote."""
+        with open(path, "rb") as f:
+            arr = np.asarray(pickle.load(f))
+        n, slots, nr, nt = arr.shape
+        ri = np.stack([arr.real, arr.imag], axis=-1).astype(np.float32)
+        return cls(h=ri.reshape(n, slots, nr * nt * 2), seq_len=seq_len, pred_len=pred_len,
+                   snr_db=snr_db, device=device)
 
 
 def _complex_rms(x: torch.Tensor) -> torch.Tensor:

@@ -51,13 +51,16 @@ def load_checkpoint(path: str, state):
 
 def latest_checkpoint(folder: str, basename: str) -> Optional[str]:
     """Newest checkpoint by numeric epoch suffix (reference
-    ``latest_weights_file_path``, ``FullPrecision/config.py:44-50``)."""
+    ``latest_weights_file_path``, ``FullPrecision/config.py:44-50``). The
+    run names hold ``[4, 3]`` (the e_layers list), which a glob pattern
+    would read as a character class, so files are matched by a regex on
+    the escaped name alone."""
     p = Path(folder)
     if not p.exists():
         return None
     best, best_epoch = None, -1
     pat = re.compile(re.escape(basename) + r"(\d+)\.pt$")
-    for f in p.glob(f"{basename}*.pt"):
+    for f in p.iterdir():
         m = pat.match(f.name)
         if m and int(m.group(1)) > best_epoch:
             best, best_epoch = str(f), int(m.group(1))

@@ -22,12 +22,12 @@ import math
 import time
 from typing import Any, Callable, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..core.config import InformerConfig, TrainConfig
 from ..core.metrics import nmse, nmse_split
+from ..core.runtime import stream_generator
 from ..data.windows import WindowDataset, make_batch
 
 
@@ -175,14 +175,6 @@ def eval_chunk(model, dataset: WindowDataset, *, num_batches: int, batch_size: i
         nmses.append(m["nmse"])
         splits.append(m["split"])
     return {"nmse": torch.stack(nmses).mean(), "split": torch.stack(splits).mean(dim=0)}
-
-
-def stream_generator(device, seed: int, *path: int) -> torch.Generator:
-    """A generator on ``device`` seeded from ``(seed, *path)``, the
-    counterpart of JAX's ``fold_in`` streams: a run keyed by absolute epoch
-    and batch index replays the same draws when resumed."""
-    words = np.random.SeedSequence([seed, *path]).generate_state(2, np.uint32)
-    return torch.Generator(device=device).manual_seed((int(words[0]) << 32) | int(words[1]))
 
 
 @dataclasses.dataclass

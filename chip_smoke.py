@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, quantized serving and training paths
-on one NVIDIA card, in float32 and in bfloat16 activations.
+on one NVIDIA card, in float32 and in bfloat16 activations, and its channel
+generator and training driver.
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
@@ -92,7 +93,20 @@ Phases, each printing its own lines; any failure exits non-zero:
 16. bf16 training path: 12 in bf16: the step through the kernels against
    the plain path and both against the f32 twin's gradients
    (``BF16_GRAD_*``), 104 forward and 104 backward launches, parameters and
-   Adam state f32, training samples/s in turns with the twin.
+   Adam state f32, training samples/s in turns with the twin;
+17. datagen: ``generate_beamformed_dataset`` (CDL-B 64 x 2, 100 slots, one
+   chunk of 128 samples) on the card against the CPU from the same draws
+   (``DATAGEN_TOL``, the kept beams equal); the parity recipe's data on the
+   card (``CDLModel.calibrated(5.0)``, 16,384 + 2,048 samples) with its
+   seconds, samples/s, peak memory, per-(sample, rx, beam) mean and N - 1
+   variance, four distinct beams a sample and the lag correlation curve of
+   ``experiments/calibrate_channel.py``; a reference pickle round trip
+   (``save_reference_format`` -> ``WindowDataset.from_pickle``) bit for bit;
+18. cli: ``cli.train_informer.main`` in this process on a short recipe
+   (``CLI_ARGS``: SNR 20, calibrated 5 km/h, 2 epochs of 20 steps, 1,024 +
+   512 samples, the kernels on), with the bd launch counts (13 a step
+   forward and backward, 13 a validation batch), finite losses and the
+   result JSON written.
 
 Each attention kernel's entry in the kernels line carries its bf16 instance
 (time, launches, bound at bf16 bytes or tensor-core FLOPs, SDPA) under
@@ -107,7 +121,9 @@ record and ``{"ok": true, "device": {...}}``. Details go to
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import pathlib
@@ -1246,6 +1262,152 @@ def phase_one_batch(torch, wrappers, name, cfg, expected):
     return dict(launches=launches, vs_plain_max_abs=err, dtype=cfg.dtype)
 
 
+# The datagen phase: CDL-B (default model, 64 x 2 antennas, 100 slots) one
+# chunk of 128 samples on the card against the CPU from the same draws, then
+# the parity recipe's data (CDLModel.calibrated(5.0), 16,384 train + 2,048 val
+# samples of 100 slots, streams (seed + 100, 0) and (seed + 100, 1) at seed 0,
+# as cli/train_informer.py keys them).
+DATAGEN_TOL = 1e-4  # card vs CPU, max abs on the standardised dataset
+CARD_BATCH = 128
+PARITY_SAMPLES = (16384, 2048)
+LAGS = (1, 2, 3, 5, 10)
+# The cli phase: cli.train_informer's short recipe; the bd kernels launch 13
+# times a training step (forward and backward) and 13 times a validation batch
+# (8 a validation).
+CLI_EPOCHS, CLI_STEPS = 2, 20
+CLI_ARGS = ["--snr", "20", "--calibrated", "--ue-speed-kmh", "5", "--use-pallas",
+            "--epochs", str(CLI_EPOCHS), "--steps-per-epoch", str(CLI_STEPS),
+            "--train-samples", "1024", "--val-samples", "512", "--log-every", "10"]
+
+
+def lag_curve(torch, h):
+    """Mean-removed lag-k correlation magnitude of an ri dataset ``[N, T, ...,
+    2]``, each sample scaled to unit RMS, as ``experiments/calibrate_channel.py:
+    lag_curve`` computes it for ``calibration.json`` (float64 sums)."""
+    x = torch.view_as_complex(h.double().contiguous()).reshape(h.shape[0], h.shape[1], -1)
+    x = x / x.abs().square().mean(dim=(1, 2), keepdim=True).sqrt()
+    xm = x - x.mean(dim=1, keepdim=True)
+    out = {}
+    for k in LAGS:
+        a, b = xm[:, :-k].reshape(-1), xm[:, k:].reshape(-1)
+        out[k] = (torch.vdot(a, b).abs() / (a.norm() * b.norm())).item()
+    return out
+
+
+def phase_datagen(torch, card):
+    """The channel generator on the card: one chunk against the CPU from the
+    same draws (``DATAGEN_TOL``, the beams kept equal), the parity recipe's
+    data with its time, rate, peak memory and statistics, and a reference
+    pickle round trip, bit for bit."""
+    from channelestimationtransformer_torch.channel.cdl import CDLDraws, CDLModel
+    from channelestimationtransformer_torch.channel.dataset import (
+        generate_beamformed_dataset,
+        save_reference_format,
+    )
+    from channelestimationtransformer_torch.data.windows import WindowDataset, pack_features
+
+    model = CDLModel()
+    draws = CDLDraws.sample(model, CARD_BATCH, torch.Generator().manual_seed(0), device="cpu")
+    (h_dev, sel_dev), (h_cpu, sel_cpu) = (
+        generate_beamformed_dataset(0, model=model, num_samples=CARD_BATCH, num_slots=100,
+                                    device=dev, draws=[draws], return_selected=True)
+        for dev in ("cuda", "cpu"))
+    err = (h_dev.cpu() - h_cpu).abs().max().item()
+    differ = int((sel_dev.cpu() != sel_cpu).any(dim=1).sum())
+    ok = err <= DATAGEN_TOL and not differ
+    print(f"datagen cuda vs cpu (CDL-B 64x2, 100 slots, {CARD_BATCH} samples, one chunk "
+          f"of draws): max_abs {err:.3e} (limit {DATAGEN_TOL}), selected "
+          f"{'equal' if not differ else f'DIFFERENT in {differ} samples'}"
+          f" {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the channel generator on the card disagrees with the CPU")
+    result = dict(card_vs_cpu_max_abs=err)
+
+    cdl = CDLModel.calibrated(5.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the generation's own peak: above what is held now
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    (train, sel_train), (val, sel_val) = (
+        generate_beamformed_dataset((100, i), model=cdl, num_samples=n, num_slots=100,
+                                    device="cuda", return_selected=True)
+        for i, n in enumerate(PARITY_SAMPLES))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    n_all = sum(PARITY_SAMPLES)
+    both = torch.cat([train, val])
+    mean = both.mean(dim=1)  # complex mean per (sample, rx, beam): [N, U, beams, 2]
+    var = (both - both.mean(dim=1, keepdim=True)).square().sum(dim=(1, 4)) / (both.shape[1] - 1)
+    sel = torch.cat([sel_train, sel_val]).sort(dim=1).values
+    distinct = bool((sel.diff(dim=1) != 0).all())
+    finite = bool(torch.isfinite(both).all())
+    mean_err, var_err = mean.abs().max().item(), (var - 1).abs().max().item()
+    lags = lag_curve(torch, both)
+    ok = finite and distinct and mean_err <= 1e-5 and var_err <= 1e-4
+    print(f"datagen parity data (CDLModel.calibrated(5.0), {PARITY_SAMPLES[0]:,} train + "
+          f"{PARITY_SAMPLES[1]:,} val samples x 100 slots, {both.numel() * 4 / 1e6:.1f} MB packed "
+          f"f32): {secs:.3f} s, {n_all / secs:,.1f} samples/s, max_memory_allocated "
+          f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before | finite "
+          f"{finite}, max |mean| {mean_err:.2e} (limit 1e-05), max |var(N-1) - 1| "
+          f"{var_err:.2e} (limit 1e-04), four distinct beams a sample "
+          f"{distinct} | lag correlation " + ", ".join(f"{k}: {v:.4f}" for k, v in lags.items())
+          + f" {'ok' if ok else 'FAILED'} | {card}", flush=True)
+    if not ok:
+        fail("the parity recipe's data fail their checks")
+    result.update(seconds=secs, samples_per_s=n_all / secs, max_memory_allocated=peak,
+                  memory_allocated_before=base, max_abs_mean=mean_err, max_abs_var_err=var_err,
+                  lag_curve=lags)
+
+    path = OUT / "datagen_val.pickle"
+    save_reference_format(str(path), val)
+    ds = WindowDataset.from_pickle(str(path), seq_len=90, pred_len=5, snr_db=20.0, device="cuda")
+    path.unlink()
+    same = torch.equal(ds.h, pack_features(val))
+    print(f"datagen pickle round trip: save_reference_format -> WindowDataset.from_pickle, "
+          f"{tuple(ds.h.shape)} {'bit for bit' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        fail("the reference pickle round trip changed the dataset")
+    return result
+
+
+def phase_cli(torch, wrappers):
+    """``cli.train_informer.main`` in this process on a short recipe: the bd
+    launch counts against 13 x (steps + 8 x epochs) forward and 13 x steps
+    backward, none elsewhere; finite losses; the result JSON written."""
+    from channelestimationtransformer_torch.cli import train_informer
+
+    out = OUT / "cli"
+    argv = [*CLI_ARGS, "--out", str(out)]
+    steps = CLI_EPOCHS * CLI_STEPS
+    expected = {key: 0 for key in wrappers}
+    expected.update(bd_fwd=13 * (steps + 8 * CLI_EPOCHS), bd_bwd=13 * steps)
+    log = io.StringIO()
+    _zero_counts(wrappers)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        result = train_informer.main(argv)
+    secs = time.perf_counter() - t0
+    print(log.getvalue(), end="", flush=True)
+    launches = _counts(wrappers)
+    losses = [float(v) for v in re.findall(r"\| loss (\S+)", log.getvalue())]
+    valid = [float(v) for v in re.findall(r"valid loss (\S+)", log.getvalue())]
+    written = (out / f"result_{result['name']}.json").exists()
+    finite = (bool(losses) and len(valid) == CLI_EPOCHS
+              and all(math.isfinite(v) for v in losses + valid + [result["final_val_nmse"]]))
+    print(f"cli phase: cli.train_informer {' '.join(argv)}: {secs:.1f} s; launches "
+          f"{_launch_report(launches, expected)}; train loss {losses[-1] if losses else None}, "
+          f"valid loss {valid[-1] if valid else None}, final_val_nmse "
+          f"{result['final_val_nmse']:.5f}; finite {finite}, result JSON written {written}",
+          flush=True)
+    if launches != expected:
+        fail(f"kernels launched {launches} times in the cli phase, not {expected}")
+    if not (finite and written):
+        fail("the cli phase's losses are not finite or its result JSON is missing")
+    return dict(argv=argv, seconds=secs, launches=launches, losses=losses, valid_losses=valid,
+                result=result)
+
+
 def _per_path(rows, key, weight):
     """Sum of ``key`` weighted by each row's count on the path (``weight``)."""
     return sum(r[key] * r[weight] for r in rows if r[weight])
@@ -1369,6 +1531,10 @@ def main(argv):
                                        cfg=InformerConfig(use_pallas=True, dtype="bfloat16"),
                                        name="bf16 train")
 
+    # The channel generator and the training driver (cli.train_informer).
+    datagen = phase_datagen(torch, card)
+    cli = phase_cli(torch, wrappers)
+
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
     bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]  # noqa: E731
     kernels = [
@@ -1426,7 +1592,8 @@ def main(argv):
         train_bwd_rows=bwd_rows, eval_path=eval_path, xl_eval_path=xl_eval_path,
         ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path,
         bf16_eval_path=bf16_eval_path, bf16_xl_eval_path=bf16_xl_eval_path,
-        bf16_lsq_batch=bf16_lsq_batch, bf16_train_path=bf16_train_path, kernels=kernels),
+        bf16_lsq_batch=bf16_lsq_batch, bf16_train_path=bf16_train_path, datagen=datagen,
+        cli=cli, kernels=kernels),
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

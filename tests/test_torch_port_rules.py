@@ -11,6 +11,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from channelestimationtransformer_torch.channel.cdl import CDLModel, generate_cdl_channel
+from channelestimationtransformer_torch.channel.dataset import generate_beamformed_dataset
+from channelestimationtransformer_torch.cli import generate_dataset, train_informer
 from channelestimationtransformer_torch.core.config import InformerConfig
 from channelestimationtransformer_torch.data.windows import WindowDataset
 from channelestimationtransformer_torch.models.informer import build_informer
@@ -41,15 +44,22 @@ def _imported_roots(path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("cli/train_informer.py", "cli/generate_dataset.py", "channel/cdl.py",
+                   "channel/beamforming.py", "channel/dataset.py", "channel/interpolate.py",
+                   "data/packing.py"):
+        assert f"channelestimationtransformer_torch/{module}" in names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
-    """With no CUDA device and no ``device``, the entry points raise; the
-    batch and eval functions run where the dataset and model were placed,
-    so they cannot reach the CPU unless the caller asked for it."""
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """With no CUDA device and no ``device``, the entry points raise (the
+    model builder, the dataset, the channel generator and the two command-line
+    drivers, before they write anything); the batch and eval functions run
+    where the dataset and model were placed, so they cannot reach the CPU
+    unless the caller asked for it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_informer(InformerConfig(d_model=16, n_heads=2, e_layers=(1,), d_layers=1))
@@ -59,6 +69,21 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     ds = WindowDataset(h=np.zeros((2, 30, 16), np.float32), seq_len=20, pred_len=5,
                        snr_db=10.0, device="cpu")
     assert ds.h.device.type == "cpu"
+    # The channel generator and the drivers: the card unless the CPU is asked for.
+    model = CDLModel(num_bs_ant=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_beamformed_dataset(0, model=model, num_samples=2, num_slots=10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_cdl_channel(model, 2, 10, generator=torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_informer.main(["--d-model", "16", "--e-layers", "1", "--d-layers", "1",
+                             "--train-samples", "8", "--val-samples", "8"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_dataset.main(["--num-samples", "2", "--num-slots", "10", "--out-dir",
+                               str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+    h = generate_beamformed_dataset(0, model=model, num_samples=2, num_slots=10, device="cpu")
+    assert h.device.type == "cpu" and h.shape == (2, 10, 2, 4, 2)
 
 
 def test_unported_options_raise():
