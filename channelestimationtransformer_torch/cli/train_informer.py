@@ -49,8 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--d-ff", type=int, default=64)
     p.add_argument("--dropout", type=float, default=0.05)
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
-    p.add_argument("--attn", choices=["full", "prob"], default="full",
-                   help="'prob' is not ported yet and raises (ROADMAP Queue 1)")
+    p.add_argument("--attn", choices=["full", "prob"], default="full")
     p.add_argument("--no-distil", action="store_true")
     p.add_argument("--use-pallas", action="store_true",
                    help="hand-written CUDA attention kernels (bd_attention) in "
@@ -168,8 +167,7 @@ def main(argv=None) -> dict:
     print(f"Model_name:  {name}", flush=True)
     print("Using device: " + (torch.cuda.get_device_name(device) if device.type == "cuda"
                               else str(device)), flush=True)
-    # Built before the data, so an option the port lacks (attn='prob') fails
-    # at once. The weights come from their own generator (seed), as in JAX.
+    # The weights come from their own generator (seed), as in JAX.
     model = build_informer(cfg, device=device, seed=args.seed)
 
     t0 = time.time()

@@ -56,7 +56,7 @@ class InformerConfig:
     d_layers: int = 3
     d_ff: int = 64
     dropout: float = 0.05
-    attn: str = "full"  # "full" | "prob" | "ring" (only "full" is ported)
+    attn: str = "full"  # "full" | "prob" | "ring" ("ring" is not ported and raises)
     activation: str = "gelu"  # "gelu" | "relu"
     distil: bool = True
     mix: bool = True  # transpose heads<->seq on decoder self-attn output
@@ -68,6 +68,9 @@ class InformerConfig:
     # models/attention.py) and, with lsq_fibbinary, the nearest-codeword snap
     # (ops/cuda/quant.py); False = the plain torch path.
     use_pallas: bool = False
+    # One qkv projection to 3 * d_model in self-attention, a query and one kv
+    # projection in cross-attention (JAX models/attention.py:252-262); off
+    # under LSQ.
     fuse_qkv: bool = False
     lsq_nbits: int | None = None
     lsq_fibbinary: bool = False
@@ -81,6 +84,10 @@ class InformerConfig:
                 "attn='ring' shards the encoder sequence axis; the distilling "
                 "conv pyramid produces shard-indivisible lengths — use "
                 "distil=False for sequence-parallel configs")
+        if self.attn == "ring":
+            raise NotImplementedError(
+                "attn='ring' (sequence-parallel ring attention) is not ported yet "
+                "(ROADMAP Queue 1 item 13, parallelism)")
         if self.activation not in ("gelu", "relu"):
             raise ValueError(f"activation must be 'gelu' or 'relu', got {self.activation!r}")
 

@@ -1,4 +1,4 @@
-from .attention import AttentionLayer, causal_mask, full_attention
+from .attention import AttentionLayer, causal_mask, full_attention, prob_sparse_attention
 from .embed import DataEmbedding, TokenEmbedding, circular_conv1d, sinusoid_position_encoding
 from .informer import Informer, InformerBase, InformerStack, build_informer
 from .informer_lsq import build_informer_lsq
@@ -7,6 +7,7 @@ __all__ = [
     "AttentionLayer",
     "causal_mask",
     "full_attention",
+    "prob_sparse_attention",
     "DataEmbedding",
     "TokenEmbedding",
     "circular_conv1d",

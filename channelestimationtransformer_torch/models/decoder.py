@@ -12,16 +12,18 @@ from .encoder import LN_EPS, FeedForward, LayerNorm
 
 
 class DecoderLayer(nn.Module):
-    """Causal self-attention (``mix``) -> cross-attention (``mix=False``) ->
-    FFN, each with a residual (dropout on the two attention outputs, JAX
-    ``decoder.py:58, 78``); post-norm after each (norm1..3), or ``pre_norm``
-    before each. ``lsq_nbits`` / ``lsq_fibbinary`` reach every projection
-    and FFN layer (JAX ``decoder.py:34-35, 54-55, 74-75, 82-92``), and
-    ``dtype`` every layer, as in the encoder."""
+    """Causal self-attention (``mix``, the configured ``attn``) ->
+    cross-attention (``mix=False``, always ``attn="full"``, JAX
+    ``decoder.py:42, 66``) -> FFN, each with a residual (dropout on the two
+    attention outputs, JAX ``decoder.py:58, 78``); post-norm after each
+    (norm1..3), or ``pre_norm`` before each. ``lsq_nbits`` /
+    ``lsq_fibbinary`` reach every projection and FFN layer (JAX
+    ``decoder.py:34-35, 54-55, 74-75, 82-92``), and ``dtype`` every layer,
+    as in the encoder."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str, *,
-                 mix: bool = True, use_pallas: bool = False, pre_norm: bool = False,
-                 dropout: float = 0.0, lsq_nbits: int | None = None,
+                 attn: str = "full", mix: bool = True, use_pallas: bool = False,
+                 pre_norm: bool = False, dropout: float = 0.0, lsq_nbits: int | None = None,
                  lsq_fibbinary: bool = False, dtype: torch.dtype = torch.float32,
                  **attn_kwargs):
         super().__init__()
@@ -30,10 +32,11 @@ class DecoderLayer(nn.Module):
         lsq = dict(lsq_nbits=lsq_nbits, lsq_fibbinary=lsq_fibbinary, use_pallas=use_pallas,
                    dtype=dtype)
         self.self_attention = AttentionLayer(
-            d_model, n_heads, mask_flag=True, mix=mix, dropout=dropout, **lsq, **attn_kwargs)
-        self.cross_attention = AttentionLayer(
-            d_model, n_heads, mask_flag=False, mix=False, dropout=dropout, **lsq,
+            d_model, n_heads, attn=attn, mask_flag=True, mix=mix, dropout=dropout, **lsq,
             **attn_kwargs)
+        self.cross_attention = AttentionLayer(
+            d_model, n_heads, attn="full", mask_flag=False, mix=False, cross=True,
+            dropout=dropout, **lsq, **attn_kwargs)
         self.ffn = FeedForward(d_model, d_ff, activation, dropout, **lsq)
         self.norm1 = LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = LayerNorm(d_model, eps=LN_EPS)

@@ -41,13 +41,14 @@ class InformerBase(nn.Module):
         self.dec_embedding = DataEmbedding(cfg.dec_in, cfg.d_model, cfg.dropout, dtype)
         self.encoder = self._encoder(dict(
             n_heads=cfg.n_heads, d_ff=cfg.d_ff, activation=cfg.activation,
-            attn=cfg.attn, distil=cfg.distil, output_attention=cfg.output_attention,
+            attn=cfg.attn, factor=cfg.factor, distil=cfg.distil,
+            output_attention=cfg.output_attention,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
             lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout,
             dtype=dtype))
         self.decoder = Decoder(
             cfg.d_layers, cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
-            activation=cfg.activation, attn=cfg.attn, mix=cfg.mix,
+            activation=cfg.activation, attn=cfg.attn, factor=cfg.factor, mix=cfg.mix,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
             lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout,
             dtype=dtype)
@@ -58,8 +59,11 @@ class InformerBase(nn.Module):
 
     def forward(self, x_enc, x_dec, generator: torch.Generator | None = None):
         """``generator`` (on the inputs' device) feeds every dropout and
-        every attention-kernel seed in train mode; it is required there when
-        ``dropout`` > 0 and unused in eval mode."""
+        every attention-kernel seed in train mode, where it is required when
+        ``dropout`` > 0, and the ProbSparse layers' ``index_sample`` draws
+        (``attn="prob"``) in train and in eval mode; a model with no prob
+        layer draws nothing from it in eval mode. A prob model with no
+        generator takes the fixed draws of a generator seeded 0."""
         cfg = self.config
         if self.training and cfg.dropout > 0.0 and generator is None:
             raise ValueError("train mode with dropout > 0 needs a torch.Generator "

@@ -5,7 +5,14 @@ Quantization is a config option threaded through the one model tree:
 every attention projection and FFN layer becomes a ``DenseLSQ``
 (``ops/quant/lsq.py``); the embeddings, distil convs and the output
 projection stay FP32. Parameter names are those of the FP32 model plus a
-``step_size`` per quantized layer.
+``step_size`` per quantized layer, so an FP32 checkpoint overlays an LSQ
+model name for name (``train/checkpoint.py:load_weights_overlay``, as
+``cli/train_lsq.py`` preloads). The overlay leaves each ``step_size``
+with the value it got from the LSQ model's own initial weights: that is
+what the JAX package's code does (``Trainer.__post_init__`` initialises it
+from the random kernel, ``train/trainer.py:344-348``, and the overlay of
+``experiments/train_lsq.py:91-108`` leaves it alone), though that script's
+docstring says it initialises from the loaded weights.
 """
 
 from __future__ import annotations

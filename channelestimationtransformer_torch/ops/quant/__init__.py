@@ -1,6 +1,6 @@
 """Quantization: formats, codebooks, fixed-point fake quantization, the
-PTQ weight transform and the LSQ layer (JAX counterpart ``ops/quant``).
-Ported so far: the serving paths (PTQ eval, LSQ and LSQ-fibbinary eval)."""
+PTQ weight transform and the LSQ layers (JAX counterpart ``ops/quant``).
+Ported so far: PTQ eval, LSQ and LSQ-fibbinary eval and training."""
 
 from .codebooks import (
     fibbinary_codebook,
@@ -16,7 +16,15 @@ from .functional import (
     fixed_point_quantize,
     no_adjacent_ones_quantize,
 )
-from .lsq import DenseLSQ, codebook_pass, grad_scale, lsq_quantize, lsq_step_size_init, round_pass
+from .lsq import (
+    ConvLSQ,
+    DenseLSQ,
+    codebook_pass,
+    grad_scale,
+    lsq_quantize,
+    lsq_step_size_init,
+    round_pass,
+)
 from .optim import WeightQuantSettings, apply_weight_quant
 from .settings import QUANT_KERNEL_MARKERS, build_weight_quant_settings, quantized_param_names
 
@@ -33,6 +41,7 @@ __all__ = [
     "fibonacci_quantize",
     "fixed_point_quantize",
     "no_adjacent_ones_quantize",
+    "ConvLSQ",
     "DenseLSQ",
     "codebook_pass",
     "grad_scale",

@@ -1,5 +1,5 @@
-"""LSQ (learned step size quantization) dense layer and its fibbinary
-variant (JAX counterpart ``ops/quant/lsq.py``; reference
+"""LSQ (learned step size quantization) dense and conv layers and their
+fibbinary variant (JAX counterpart ``ops/quant/lsq.py``; reference
 ``models/InformerLSQ/LSQ.py`` and ``models/InformerLSQFibbinary/LSQ.py``).
 
 Semantics kept exactly, value for value:
@@ -148,3 +148,54 @@ class DenseLSQ(nn.Linear):
                          use_pallas=self.use_pallas)
         dt = self.compute_dtype
         return F.linear(x.to(dt), w.to(dt), self.bias.to(dt))
+
+
+class ConvLSQ(nn.Module):
+    """1D conv with circular padding and optional LSQ weight quantization
+    (reference ``Conv1dLSQ``, ``models/InformerLSQ/LSQ.py:77-314``; JAX
+    ``ConvLSQ``, ``ops/quant/lsq.py:107-140``): ``kernel_size`` 1 (the
+    reference's FFN convs, a dense product) or 3 (its distil conv).
+    ``weight`` is torch's ``[C_out, C_in, K]``; ``quantize`` with ``nbits``
+    adds ``step_size`` and fake-quantizes the weight on every forward as
+    :class:`DenseLSQ` does (``fibbinary``: onto the codebook), else the
+    layer is a plain conv. No model of the JAX package uses it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1, *,
+                 nbits: int | None = None, quantize: bool = False, fibbinary: bool = False,
+                 use_pallas: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.nbits = nbits if quantize else None
+        self.use_pallas = use_pallas
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        if self.nbits is not None:
+            self.step_size = nn.Parameter(torch.empty(()))
+        codebook = (torch.tensor(lsq_fibbinary_codebook(nbits), dtype=torch.float32)
+                    if fibbinary and self.nbits is not None else None)
+        self.register_buffer("codebook", codebook, persistent=False)
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """flax's lecun-normal kernel (fan-in C_in * K), zero bias, and
+        ``step_size`` from the weight."""
+        from ...models.init import variance_scaling_
+
+        variance_scaling_(self.weight, 1.0, generator=generator)
+        nn.init.zeros_(self.bias)
+        if self.nbits is not None:
+            self.step_size.copy_(lsq_step_size_init(self.weight, self.nbits))
+
+    def forward(self, x):
+        from ...models.embed import circular_conv1d
+
+        w = self.weight
+        if self.nbits is not None:
+            w = lsq_quantize(w, self.step_size, self.nbits, self.codebook,
+                             use_pallas=self.use_pallas)
+        dt = self.compute_dtype
+        x, w, bias = x.to(dt), w.to(dt), self.bias.to(dt)
+        if w.shape[-1] == 1:
+            return F.linear(x, w[..., 0], bias)
+        return circular_conv1d(x, w, bias)

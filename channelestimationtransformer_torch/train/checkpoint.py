@@ -49,6 +49,22 @@ def load_checkpoint(path: str, state):
     return state, payload.get("epoch"), payload.get("extra")
 
 
+def load_weights_overlay(path: str, model) -> list[str]:
+    """Overlay the model weights of a checkpoint onto ``model``, as torch's
+    ``load_state_dict(strict=False)`` does (the reference's FP32 -> LSQ
+    preload): every parameter and buffer whose name ``model`` has is
+    replaced, the others on either side are left alone (an LSQ model's
+    ``step_size``). The JAX package's overlay (``experiments/train_lsq.py:91-108``)
+    replaces the parameters only and keeps the BatchNorm statistics of the
+    init. Returns the names replaced."""
+    device = next(model.parameters()).device
+    saved = torch.load(path, map_location=device, weights_only=True)["model"]
+    own = model.state_dict()
+    overlay = {k: v for k, v in saved.items() if k in own}
+    model.load_state_dict(overlay, strict=False)
+    return sorted(overlay)
+
+
 def latest_checkpoint(folder: str, basename: str) -> Optional[str]:
     """Newest checkpoint by numeric epoch suffix (reference
     ``latest_weights_file_path``, ``FullPrecision/config.py:44-50``). The

@@ -156,10 +156,13 @@ def eval_step(model, dataset: WindowDataset, *, batch_size: int, label_len: int,
               **draws) -> dict:
     """Per-horizon NMSE (``split``) and scalar NMSE (``nmse``) of one batch
     of fresh windows. ``draws`` go to :func:`make_batch` (``generator``, or
-    injected ``idx``/``starts``/``noise``)."""
+    injected ``idx``/``starts``/``noise``); the ``generator`` then feeds the
+    model's ProbSparse draws (JAX draws its eval ``"sample"`` stream,
+    ``train/trainer.py:280-284``), and a model with no prob layer draws
+    nothing more from it."""
     model.eval()
     x_enc, x_dec, target = make_batch(dataset, batch_size, label_len, **draws)
-    pred = _predict(model, x_enc, x_dec)
+    pred = _predict(model, x_enc, x_dec, draws.get("generator"))
     return {"split": nmse_split(pred, target), "nmse": nmse(pred, target)}
 
 

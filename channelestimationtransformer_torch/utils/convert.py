@@ -5,12 +5,14 @@ converts device arrays with ``np.asarray``, so this module never sees a JAX
 type). The port's modules carry the flax names, so each flax leaf maps to
 the key of the same path, with these conversions:
 
-- Dense kernels ``[in, out]`` -> ``Linear.weight`` ``[out, in]``; an LSQ
+- Dense kernels ``[in, out]`` -> ``Linear.weight`` ``[out, in]`` (the
+  fused ``qkv`` / ``kv`` projections of ``fuse_qkv`` likewise); an LSQ
   layer's scalar ``step_size`` goes along as it is;
 - conv kernels ``[K, C_in, C_out]`` -> ``weight`` ``[C_out, C_in, K]``;
 - norm ``scale`` -> ``weight``; BatchNorm ``mean``/``var`` (from
   ``batch_stats``) -> ``running_mean``/``running_var``.
 
+A ProbSparse model (``attn="prob"``) has the parameters of a full one.
 The walk knows the Informer architecture: it raises on any flax leaf it did
 not consume and on any leaf it needs that is missing. :func:`load_flax`
 then loads with ``strict=True``, which raises on any torch parameter or
@@ -91,7 +93,18 @@ class FlaxBridge:
         self.conv_weight(_join(path, "token"))
 
     def attention(self, path):
-        for name in ("query", "key", "value", "out"):
+        """The projections of an ``AttentionLayer``: ``query``, ``key`` and
+        ``value``, or with ``fuse_qkv`` one ``qkv`` (self-attention) or a
+        ``query`` and one ``kv`` (cross-attention); then ``out``. The kernels
+        of a fused projection are ``[d_model, 3d]`` / ``[d_model, 2d]`` with
+        Q, K, V side by side, as the port's weight rows are."""
+        if self.has(_join(path, "qkv")):
+            names = ("qkv",)
+        elif self.has(_join(path, "kv")):
+            names = ("query", "kv")
+        else:
+            names = ("query", "key", "value")
+        for name in names + ("out",):
             self.dense(_join(path, name))
 
     def distil(self, path):

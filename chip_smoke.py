@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, quantized serving and training paths
-on one NVIDIA card, in float32 and in bfloat16 activations, and its channel
-generator and training driver.
+on one NVIDIA card, in float32 and in bfloat16 activations, its channel
+generator and training drivers, ProbSparse attention, fused QKV projections
+and LSQ training.
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
@@ -78,7 +79,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 12. training path: the flagship model in train mode (dropout 0.05). One step
    through the kernels and one through the plain attention path from the
    same weights, batch and generator seed (so the same dropout masks),
-   compared loss, output and gradient by gradient; ``train_chunk`` with the
+   compared loss, output and gradient by gradient (max pooling routed as
+   the kernel path's); ``train_chunk`` with the
    kernels' launch counts and a finite loss; steady-state training
    samples/s of both paths;
 13. bf16 eval path: ``InformerConfig(use_pallas=True, dtype="bfloat16")``
@@ -106,7 +108,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``CLI_ARGS``: SNR 20, calibrated 5 km/h, 2 epochs of 20 steps, 1,024 +
    512 samples, the kernels on), with the bd launch counts (13 a step
    forward and backward, 13 a validation batch), finite losses and the
-   result JSON written.
+   result JSON written;
+19. prob eval path: ``InformerConfig(use_pallas=True, attn="prob")`` as in
+   8: ProbSparse attention in the encoder and the decoder's self-attention
+   (torch ops), the 3 cross-attention calls a batch on the bd forward (24
+   in 8 batches, no mha), one batch against the plain path from the same
+   generator seed (the same ``index_sample`` draws), eval samples/s in
+   turns with the full-attention flagship;
+20. prob training path: 12 for that model: one step through the kernels
+   against the plain path (the same draws and dropout masks), 24 forward
+   and 24 backward launches in 8 steps, training samples/s in turns with
+   the full flagship, beside the reference's A100 figure (2,230);
+21. fused path: ``InformerConfig(use_pallas=True, fuse_qkv=True)`` as in 8
+   (104 launches) and 12, each in turns with the unfused model carrying
+   its weights (the query, key and value kernels stacked are the fused
+   ones), and one eval batch and one training step against that model;
+22. lsq train: ``cli.train_lsq.main`` in this process (``LSQ_TRAIN_ARGS``:
+   LSQ-fibbinary, nbits 8, 2 epochs of 20 steps, 1,024 samples, the kernels
+   on) from phase 18's checkpoint: the preload, the launch counts (72
+   LSQ-mode and 72 snap-mode codeword launches and 13 bd forward and
+   backward a step; 72 LSQ-mode and 13 bd forward a validation batch),
+   finite losses, the results JSON; then 12 for the LSQ-fibbinary model:
+   one step through the kernels against the plain path (the snap's plain
+   version, plain attention), ``step_size`` gradients included, 104 + 104
+   bd and 1,152 codeword launches in 8 steps, samples/s of both paths.
 
 Each attention kernel's entry in the kernels line carries its bf16 instance
 (time, launches, bound at bf16 bytes or tensor-core FLOPs, SDPA) under
@@ -212,6 +237,9 @@ BF16_GRAD_FLOOR, BF16_GRAD_RATIO, BF16_GRAD_CAP = 5e-2, 1.25, 0.3
 # noise to noise.
 GRAD_TOL = 1e-3
 TRAIN_STEPS = 8
+# The reference's A100 training rate with ProbSparse attention (BASELINE.md:15),
+# printed beside the prob training path's; not a number of this card.
+A100_PROB = ("reference A100 (BASELINE.md, attn prob)", 2230)
 OUT = pathlib.Path("chiprun_out")
 
 
@@ -605,8 +633,10 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
     """``eval_chunk`` of 8 batches through the kernels: the launch counts
     ``expected`` (by key of :func:`_counts`; by default every attention call
     on the bd forward kernel) and none elsewhere, a finite NMSE, one batch
-    against the plain path, and samples/s of both paths and of the
-    ``beside`` models (name -> model), all in turns. A bf16 ``cfg`` also
+    against the plain path (each model given a generator of the same seed,
+    so a ProbSparse model draws the same ``index_sample``), and samples/s of
+    both paths and of the ``beside`` models (name -> model, or a function
+    of the kernel-path model giving them), all in turns. A bf16 ``cfg`` also
     times its f32 twin (same weights) in the turns, and prints the NMSE of
     its prediction against the twin's on the batch, with cuBLAS's bf16
     reduced-precision reductions off (this script's setting) and on."""
@@ -616,6 +646,8 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
     from channelestimationtransformer_torch.train.trainer import eval_chunk
 
     cfg, model, plain, ds = _models_and_data(torch, cfg, samples, slots)
+    if callable(beside):
+        beside = beside(model)
     n_batches = 8
 
     def run(m, seed):
@@ -641,8 +673,11 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
 
     x_enc, x_dec, target = make_batch(ds, batch, cfg.label_len,
                                       generator=torch.Generator(device="cuda").manual_seed(2))
+
+    def draws():
+        return torch.Generator(device="cuda").manual_seed(6)
     with torch.no_grad():
-        p_kernel, p_plain = model(x_enc, x_dec), plain(x_enc, x_dec)
+        p_kernel, p_plain = (m(x_enc, x_dec, generator=draws()) for m in (model, plain))
     text, ok, err = _close(torch, p_kernel, p_plain, cfg.dtype)
     ok = ok and p_kernel.shape == target.shape and p_kernel.dtype == p_plain.dtype
     print(f"{name} vs plain attention path, one batch ({p_kernel.dtype}): {text} "
@@ -701,14 +736,54 @@ def _grad_errors(got, want, floor):
             for n in want}
 
 
-def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train"):
+@contextlib.contextmanager
+def _maxpool_routing(torch, indices, replay=False):
+    """The distil layers' max pooling (``models/encoder.py:ConvLayer``, the
+    only caller of ``max_pool1d``) inside this block: it appends each call's
+    argmax to ``indices``, or with ``replay`` takes its values at the
+    recorded argmax in order, so that the gradient flows through the same
+    window entries, and appends the count of windows whose own argmax
+    differs. Two forwards that differ by ~1e-6 route a gradient differently
+    wherever two entries of a window are that close, and one such window
+    moves a distil weight's gradient by percents (seen in an LSQ-fibbinary
+    step, and on the CPU between the two plain routes), which says nothing
+    of the kernels."""
+    import torch.nn.functional as F
+
+    real = F.max_pool1d
+    recorded = iter(list(indices)) if replay else None
+    flips = []
+
+    def pool(x, kernel_size, stride, padding):
+        y, own = real(x, kernel_size, stride, padding, return_indices=True)
+        if not replay:
+            indices.append(own)
+            return y
+        idx = next(recorded)
+        flips.append(int((own != idx).sum()))
+        return x.gather(2, idx)
+    F.max_pool1d = pool
+    try:
+        yield flips
+    finally:
+        F.max_pool1d = real
+
+
+def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per_step=None,
+                     beside=None, reference=None):
     """The training path (``cfg``, by default the f32 flagship): one step
     through the kernels against one through the plain attention path (same
-    weights, batch and generator seed, so the same dropout masks), the
-    launch counts and loss of ``train_chunk``, and steady-state samples/s
-    of both paths in turns. A bf16 ``cfg`` holds its gradients to its f32
-    twin's (same weights) too, times the twin in the turns, and checks that
-    the parameters and Adam state stay f32."""
+    weights, batch and generator seed, so the same dropout masks and
+    ProbSparse draws; in f32 the plain path's max pooling takes the kernel
+    path's routing, :func:`_maxpool_routing`), the launch counts of
+    ``train_chunk`` (``per_step``
+    a step by key of :func:`_counts`; by default the 13 attention calls on
+    the bd forward and backward kernels) and its loss, and steady-state
+    samples/s of both paths and of the ``beside`` models (a function of the
+    kernel-path model giving name -> model) in turns; ``reference`` (label,
+    samples/s) is printed beside them. A bf16 ``cfg`` holds its gradients
+    to its f32 twin's (same weights) too, times the twin in the turns, and
+    checks that the parameters and Adam state stay f32."""
     from channelestimationtransformer_torch.core.config import TrainConfig
     from channelestimationtransformer_torch.core.metrics import nmse
     from channelestimationtransformer_torch.data.windows import make_batch
@@ -726,9 +801,14 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train"):
     if bf16:
         paths["f32"] = _f32_twin(model, cfg)
     results = {}
-    for path, m in paths.items():
+    # In f32 the paths after the first take its max-pooling routing.
+    routing, flips = [], []
+    for i, (path, m) in enumerate(paths.items()):
         m.train()
-        pred = m(x_enc, x_dec, generator=torch.Generator(device="cuda").manual_seed(4))
+        with (_maxpool_routing(torch, routing, replay=i > 0) if not bf16
+              else contextlib.nullcontext([])) as path_flips:
+            pred = m(x_enc, x_dec, generator=torch.Generator(device="cuda").manual_seed(4))
+        flips += path_flips
         loss = nmse(pred, target)
         loss.backward()
         results[path] = (pred.detach(), loss.item(),
@@ -763,7 +843,9 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train"):
         ok = (math.isfinite(lk) and abs(lk - lp) <= MAIN_TOL[0] * abs(lp)
               and torch.allclose(pk, pp, rtol=MAIN_TOL[0], atol=MAIN_TOL[1])
               and grad_err[worst] <= GRAD_TOL and stat_err <= MAIN_TOL[1])
-        grad_text = f"worst max_abs/max {grad_err[worst]:.3e} at {worst} (limit {GRAD_TOL})"
+        grad_text = (f"worst max_abs/max {grad_err[worst]:.3e} at {worst} (limit {GRAD_TOL}; "
+                     f"max pooling routed as the kernel path's, whose argmax differs from "
+                     f"the plain path's own in {sum(flips)} windows)")
     print(f"{name} step, kernel path vs plain path (same weights, batch, masks; {pk.dtype}): "
           f"loss {lk:.6f} vs {lp:.6f}, output {out_text}, {len(grad_err)} gradients, "
           f"{grad_text}, BatchNorm stats max_abs {stat_err:.3e} {'ok' if ok else 'MISMATCH'}",
@@ -777,6 +859,8 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train"):
               "plain": create_train_state(plain, train_cfg)}
     if bf16:
         states["f32-kernel"] = create_train_state(paths["f32"], train_cfg)
+    for path, m in (beside(model) if beside else {}).items():
+        states[path] = create_train_state(m, train_cfg)
 
     def run(path, seed, steps=TRAIN_STEPS):
         return train_chunk(states[path], ds, num_steps=steps, batch_size=batch,
@@ -789,16 +873,15 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train"):
     torch.cuda.synchronize()
     launches = _counts(wrappers)
     fwd, bwd = launches["bd_fwd"], launches["bd_bwd"]
+    expected = {key: TRAIN_STEPS * (per_step or dict(bd_fwd=13, bd_bwd=13)).get(key, 0)
+                for key in launches}
     loss = m["loss_sum"].item() / TRAIN_STEPS
     split = (m["split_sum"] / TRAIN_STEPS).cpu().tolist()
     print(f"{name} path: train_chunk {TRAIN_STEPS} x {batch}: mean loss {loss:.6f}, split "
-          f"{[round(s, 6) for s in split]}, forward launches {fwd}, backward launches {bwd} "
-          f"(expected {13 * TRAIN_STEPS} each), mha launches {launches['mha']} (expected 0), "
-          f"quant launches {launches['fixed'] + launches['codeword']} (expected 0)", flush=True)
-    if launches != dict(bd_fwd=13 * TRAIN_STEPS, bd_bwd=13 * TRAIN_STEPS, mha=0, fixed=0,
-                        codeword=0):
-        fail(f"kernels launched {launches} times on the {name} path, "
-             f"not {13 * TRAIN_STEPS} forward and backward, 0 mha, 0 quant")
+          f"{[round(s, 6) for s in split]}, launches {_launch_report(launches, expected)}",
+          flush=True)
+    if launches != expected:
+        fail(f"kernels launched {launches} times on the {name} path, not {expected}")
     if not (math.isfinite(loss) and all(math.isfinite(s) for s in split)):
         fail(f"non-finite loss on the {name} path")
     if bf16:
@@ -823,15 +906,91 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train"):
         summary[path] = dict(chunk_ms_median=med * 1e3, samples_per_s=samples / med,
                              chunk_ms=[t * 1e3 for t in ts])
         print(f"{name} {path:6s} path: {samples / med:.1f} samples/s (median of {len(ts)} "
-              f"chunks of {TRAIN_STEPS} steps x {batch}, {med * 1e3:.3f} ms) on {card}",
+              f"chunks of {TRAIN_STEPS} steps x {batch}, {med * 1e3:.3f} ms) on {card}"
+              + (f"; {reference[0]}: {reference[1]:,} samples/s" if reference else ""),
               flush=True)
     summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     if profile:  # (e)
         summary.update(_profile(torch, lambda path: run(path, 7), "train_chunk", card,
                                 f"profile_{name.replace(' ', '_')}.txt"))
-    return dict(loss=loss, split=split, launches_fwd=fwd, launches_bwd=bwd, dtype=cfg.dtype,
-                step_loss=(lk, lp), step_out_max_abs=out_err, step_grad_rel_err=grad_err,
-                step_grad_vs_f32=vs_f32, step_stats_max_abs=stat_err, **summary)
+    return dict(loss=loss, split=split, launches_fwd=fwd, launches_bwd=bwd, launches=launches,
+                dtype=cfg.dtype, step_loss=(lk, lp), step_out_max_abs=out_err,
+                step_grad_rel_err=grad_err, step_grad_vs_f32=vs_f32, step_stats_max_abs=stat_err,
+                step_maxpool_flips=sum(flips), **summary)
+
+
+def _unfused_names(name):
+    """The unfused parameters a fused ``qkv`` / ``kv`` parameter stacks, in order."""
+    *path, proj, leaf = name.split(".")
+    parts = {"qkv": ("query", "key", "value"), "kv": ("key", "value")}.get(proj, (proj,))
+    return [".".join([*path, part, leaf]) for part in parts]
+
+
+def _split_fused(tensors):
+    """A fused model's parameters (or gradients) by the unfused model's
+    names: each ``qkv`` / ``kv`` split along its output rows."""
+    out = {}
+    for name, t in tensors.items():
+        names = _unfused_names(name)
+        out.update(zip(names, t.chunk(len(names), dim=0)) if len(names) > 1 else {name: t})
+    return out
+
+
+def _unfused_twin(model):
+    """The unfused model (kernel path) carrying a ``fuse_qkv`` model's
+    weights: its query, key and value kernels stacked are the fused ones."""
+    from channelestimationtransformer_torch.models.informer import build_informer
+
+    twin = build_informer(dataclasses.replace(model.config, fuse_qkv=False), device="cuda",
+                          seed=0)
+    twin.load_state_dict({k: v.clone() for k, v in _split_fused(model.state_dict()).items()})
+    return twin
+
+
+def phase_fused_vs_unfused(torch, card):
+    """``fuse_qkv`` against the unfused model with the same weights, both on
+    the kernels: one eval batch and one training step (dropout 0.05, the
+    same generator seed: the same masks), loss, output and every gradient
+    (the fused ones split by rows) at the path tolerances."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.core.metrics import nmse
+    from channelestimationtransformer_torch.data.windows import make_batch
+
+    _, model, _, ds = _models_and_data(torch, InformerConfig(use_pallas=True, fuse_qkv=True),
+                                       samples=4096)
+    twin = _unfused_twin(model)
+    x_enc, x_dec, target = make_batch(ds, 256, model.config.label_len,
+                                      generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.no_grad():
+        p_fused, p_twin = model(x_enc, x_dec), twin(x_enc, x_dec)
+    eval_text, eval_ok, eval_err = _close(torch, p_fused, p_twin, "float32")
+    results = {}
+    for path, m in (("fused", model), ("unfused", twin)):
+        m.train()
+        pred = m(x_enc, x_dec, generator=torch.Generator(device="cuda").manual_seed(4))
+        loss = nmse(pred, target)
+        loss.backward()
+        results[path] = (pred.detach(), loss.item(),
+                         {n: p.grad.detach().clone() for n, p in m.named_parameters()})
+        m.zero_grad(set_to_none=True)
+    (pf, lf, gf), (pu, lu, gu) = results["fused"], results["unfused"]
+    gf = _split_fused(gf)
+    floor = 1e-3 * max(g.abs().max().item() for g in gu.values())
+    grad_err = _grad_errors(gf, gu, floor)
+    worst = max(grad_err, key=grad_err.get)
+    out_err = (pf - pu).abs().max().item()
+    ok = (eval_ok and set(gf) == set(gu) and math.isfinite(lf)
+          and abs(lf - lu) <= MAIN_TOL[0] * abs(lu)
+          and torch.allclose(pf, pu, rtol=MAIN_TOL[0], atol=MAIN_TOL[1])
+          and grad_err[worst] <= GRAD_TOL)
+    print(f"fused vs unfused (same weights, the kernels on both): eval batch {eval_text}; "
+          f"train step loss {lf:.6f} vs {lu:.6f}, output max_abs {out_err:.3e}, {len(gu)} "
+          f"gradients, worst max_abs/max {grad_err[worst]:.3e} at {worst} (limit {GRAD_TOL}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the fused model and the unfused model with its weights disagree")
+    return dict(eval_max_abs=eval_err, step_loss=(lf, lu), step_out_max_abs=out_err,
+                step_grad_rel_err=grad_err)
 
 def _fixed_input(torch, n, gen):
     """Normal values over twice the formats' range (+-8), with exact
@@ -1408,6 +1567,108 @@ def phase_cli(torch, wrappers):
                 result=result)
 
 
+# The LSQ training phase: cli.train_lsq's short recipe from the cli phase's
+# checkpoint (the driver draws its 2,048 validation samples, as JAX's). Per
+# training step 72 LSQ-mode codeword launches (the forward), 72 snap-mode
+# launches (the backward's rebuilt chain) and 13 bd forward and backward; per
+# validation batch 72 LSQ-mode and 13 bd forward launches (8 a validation).
+LSQ_TRAIN_EPOCHS, LSQ_TRAIN_STEPS = 2, 20
+LSQ_TRAIN_ARGS = ["--fibbinary", "--nbits-min", str(LSQ_NBITS), "--nbits-max", str(LSQ_NBITS),
+                  "--snr", "20", "--calibrated", "--ue-speed-kmh", "5", "--use-pallas",
+                  "--epochs", str(LSQ_TRAIN_EPOCHS), "--steps-per-epoch", str(LSQ_TRAIN_STEPS),
+                  "--train-samples", "1024"]
+
+
+def phase_lsq_train(torch, wrappers, lsq, checkpoint):
+    """``cli.train_lsq.main`` in this process from ``checkpoint``: the
+    preload (every checkpoint weight in place, each ``step_size`` kept from
+    the LSQ model's initial weights and not the loaded ones), the launch
+    counts (LSQ mode counted apart by a spy on its wrapper), finite losses
+    and the results JSON written."""
+    from channelestimationtransformer_torch.cli import train_lsq
+    from channelestimationtransformer_torch.ops.quant.lsq import DenseLSQ
+
+    out = OUT / "lsq_train"
+    argv = [*LSQ_TRAIN_ARGS, "--checkpoint", str(checkpoint), "--out", str(out)]
+    preload = {}
+    real_preload, real_lsq_mode = train_lsq.load_weights_overlay, lsq.fused_lsq_codeword
+    lsq_mode = []
+
+    def checked_preload(path, model):
+        layers = {n: m for n, m in model.named_modules() if isinstance(m, DenseLSQ)}
+        before = {n: (m.weight.detach().clone(), m.step_size.detach().clone())
+                  for n, m in layers.items()}
+        names = real_preload(path, model)
+        saved = torch.load(path, map_location="cuda", weights_only=True)["model"]
+        now = model.state_dict()
+        init = lsq.lsq_step_size_init
+        preload.update(
+            replaced=len(names), layers=len(layers),
+            weights_equal=set(names) == set(saved) and all(torch.equal(now[k], saved[k])
+                                                           for k in names),
+            # Bit for bit the init weights' mean|w| / sqrt(Qp), and not the loaded
+            # ones', each taken on the CPU, where build_informer initialises.
+            step_sizes_kept=all(torch.equal(m.step_size.detach(), before[n][1])
+                                and torch.equal(before[n][1].cpu(),
+                                                init(before[n][0].cpu(), LSQ_NBITS))
+                                for n, m in layers.items()),
+            step_sizes_not_from_loaded=not any(
+                torch.equal(m.step_size.detach().cpu(), init(m.weight.detach().cpu(), LSQ_NBITS))
+                for m in layers.values()))
+        return names
+
+    def counted_lsq_mode(*args, **kwargs):
+        lsq_mode.append(1)
+        return real_lsq_mode(*args, **kwargs)
+
+    log = io.StringIO()
+    _zero_counts(wrappers)
+    train_lsq.load_weights_overlay, lsq.fused_lsq_codeword = checked_preload, counted_lsq_mode
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            results = train_lsq.main(argv)
+    finally:
+        train_lsq.load_weights_overlay, lsq.fused_lsq_codeword = real_preload, real_lsq_mode
+    secs = time.perf_counter() - t0
+    print(log.getvalue(), end="", flush=True)
+    launches = _counts(wrappers)
+    steps = LSQ_TRAIN_EPOCHS * LSQ_TRAIN_STEPS
+    val_batches = 8 * LSQ_TRAIN_EPOCHS
+    expected = {key: 0 for key in wrappers}
+    expected.update(bd_fwd=13 * (steps + val_batches), bd_bwd=13 * steps,
+                    codeword=72 * (2 * steps + val_batches))
+    expected_lsq_mode = 72 * (steps + val_batches)
+    row = results.get(f"lsqfib_n{LSQ_NBITS}", {})
+    losses = [float(v) for v in re.findall(r"\| loss (\S+)", log.getvalue())]
+    valid = [float(v) for v in re.findall(r"valid loss (\S+)", log.getvalue())]
+    written = (out / "lsq_fibbinary_results.json").exists()
+    finite = (bool(losses) and len(valid) == LSQ_TRAIN_EPOCHS
+              and all(math.isfinite(v) for v in losses + valid + [row.get("final_val_nmse")]))
+    preload_ok = (preload.get("weights_equal") and preload.get("step_sizes_kept")
+                  and preload.get("step_sizes_not_from_loaded") and preload.get("layers") == 72)
+    print(f"lsq train phase: cli.train_lsq {' '.join(argv)}: {secs:.1f} s; preload: "
+          f"{preload.get('replaced')} entries replaced, equal to the checkpoint's "
+          f"{preload.get('weights_equal')}, {preload.get('layers')} step sizes kept from the "
+          f"init weights {preload.get('step_sizes_kept')}, none from the loaded weights "
+          f"{preload.get('step_sizes_not_from_loaded')}; launches "
+          f"{_launch_report(launches, expected)}, of the codeword launches LSQ mode "
+          f"{len(lsq_mode)} (expected {expected_lsq_mode}) and snap mode "
+          f"{launches['codeword'] - len(lsq_mode)} (expected {72 * steps}); train loss "
+          f"{losses[-1] if losses else None}, valid loss {valid[-1] if valid else None}, "
+          f"final_val_nmse {row.get('final_val_nmse')}, preload {row.get('preload')}; finite "
+          f"{finite}, results JSON written {written}", flush=True)
+    if not preload_ok:
+        fail(f"the FP32 preload of the lsq train phase is wrong: {preload}")
+    if launches != expected or len(lsq_mode) != expected_lsq_mode:
+        fail(f"kernels launched {launches} times ({len(lsq_mode)} LSQ mode) in the lsq train "
+             f"phase, not {expected} ({expected_lsq_mode})")
+    if not (finite and written and row.get("preload") == pathlib.Path(checkpoint).name):
+        fail("the lsq train phase's losses are not finite or its results JSON is wrong")
+    return dict(argv=argv, seconds=secs, preload=preload, launches=launches,
+                lsq_mode_launches=len(lsq_mode), losses=losses, valid_losses=valid, result=row)
+
+
 def _per_path(rows, key, weight):
     """Sum of ``key`` weighted by each row's count on the path (``weight``)."""
     return sum(r[key] * r[weight] for r in rows if r[weight])
@@ -1535,6 +1796,33 @@ def main(argv):
     datagen = phase_datagen(torch, card)
     cli = phase_cli(torch, wrappers)
 
+    # ProbSparse attention (the decoder's cross-attention alone on the bd
+    # kernels), fuse_qkv, and LSQ training from the cli phase's checkpoint.
+    def full_flagship(_):
+        return {"full-kernel": build_informer(InformerConfig(use_pallas=True), device="cuda",
+                                              seed=0)}
+    prob_cfg = InformerConfig(use_pallas=True, attn="prob")
+    prob_eval_path = phase_eval_path(torch, wrappers, card, profile, name="prob eval path",
+                                     cfg=prob_cfg, expected={"bd_fwd": 3 * 8},
+                                     beside=full_flagship)
+    prob_train_path = phase_train_path(torch, wrappers, card, profile, cfg=prob_cfg,
+                                       name="prob train", per_step=dict(bd_fwd=3, bd_bwd=3),
+                                       beside=full_flagship, reference=A100_PROB)
+    fused_cfg = InformerConfig(use_pallas=True, fuse_qkv=True)
+    fused_eval_path = phase_eval_path(torch, wrappers, card, profile, name="fused eval path",
+                                      cfg=fused_cfg,
+                                      beside=lambda m: {"unfused": _unfused_twin(m)})
+    fused_train_path = phase_train_path(torch, wrappers, card, profile, cfg=fused_cfg,
+                                        name="fused train",
+                                        beside=lambda m: {"unfused": _unfused_twin(m)})
+    fused_vs_unfused = phase_fused_vs_unfused(torch, card)
+    lsq_train = phase_lsq_train(
+        torch, wrappers, lsq,
+        OUT / "cli" / f"tmodel_{cli['result']['name']}_{CLI_EPOCHS}.pt")
+    lsq_train_path = phase_train_path(torch, wrappers, card, profile, cfg=lsq_cfg,
+                                      name="lsq-fibbinary train",
+                                      per_step=dict(bd_fwd=13, bd_bwd=13, codeword=2 * 72))
+
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
     bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]  # noqa: E731
     kernels = [
@@ -1584,6 +1872,17 @@ def main(argv):
         eval_ms=_per_path(bf16(eval_rows), "ms", "calls_per_batch"),
         eval_bound_ms=_per_path(bf16(eval_rows), "bound_ms", "calls_per_batch"),
         eval_library_ms=_per_path(bf16(eval_rows), "library_ms", "calls_per_batch"))
+    # The slice-10 paths' launches, beside each kernel's main path's.
+    for kernel, key in ((kernels[0], "bd_fwd"), (kernels[1], "bd_bwd")):
+        kernel.update(prob_train_launches=prob_train_path["launches"][key],
+                      fused_train_launches=fused_train_path["launches"][key],
+                      lsq_train_launches=lsq_train_path["launches"][key],
+                      lsq_driver_launches=lsq_train["launches"][key])
+    kernels[0].update(prob_eval_launches=prob_eval_path["launches"]["bd_fwd"],
+                      fused_eval_launches=fused_eval_path["launches"]["bd_fwd"])
+    kernels[4].update(lsq_train_launches=lsq_train_path["launches"]["codeword"],
+                      lsq_driver_launches=lsq_train["launches"]["codeword"],
+                      lsq_driver_lsq_mode_launches=lsq_train["lsq_mode_launches"])
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
         mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, fixed_grouped_rows=grouped_rows,
@@ -1593,7 +1892,10 @@ def main(argv):
         ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path,
         bf16_eval_path=bf16_eval_path, bf16_xl_eval_path=bf16_xl_eval_path,
         bf16_lsq_batch=bf16_lsq_batch, bf16_train_path=bf16_train_path, datagen=datagen,
-        cli=cli, kernels=kernels),
+        cli=cli, prob_eval_path=prob_eval_path, prob_train_path=prob_train_path,
+        fused_eval_path=fused_eval_path, fused_train_path=fused_train_path,
+        fused_vs_unfused=fused_vs_unfused, lsq_train=lsq_train, lsq_train_path=lsq_train_path,
+        kernels=kernels),
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

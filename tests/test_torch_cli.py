@@ -205,8 +205,6 @@ def test_train_informer_resume_is_step_exact_and_preload_restarts(tmp_path, caps
 
 
 def test_train_informer_unported_options_raise(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_informer.main(SMALL + ["--attn", "prob", "--out", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 14"):
         train_informer.main(SMALL + ["--tensorboard", "--out", str(tmp_path)])
     assert "Dataset generated" not in capsys.readouterr().out  # refused before any work

@@ -87,9 +87,10 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
 
 
 def test_unported_options_raise():
-    for kwargs in (dict(attn="prob"), dict(fuse_qkv=True), dict(dtype="float16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_informer(InformerConfig(**kwargs), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        InformerConfig(attn="ring", distil=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_informer(InformerConfig(dtype="float16"), device="cpu")
 
 
 def test_model_serves_only_in_eval_mode():
