@@ -1,6 +1,8 @@
-"""Quantization: formats, codebooks, fixed-point fake quantization, the
-PTQ weight transform and the LSQ layers (JAX counterpart ``ops/quant``).
-Ported so far: PTQ eval, LSQ and LSQ-fibbinary eval and training."""
+"""Quantization: formats, codebooks, the fake-quantization ops, the PTQ and
+QAT weight transforms, gradient quantization and the LSQ layers (JAX
+counterpart ``ops/quant``). ``auto_low`` (activation quantization by
+forward hooks) is imported from its module. Not ported: ``rate.py``, which
+comes with int8 serving."""
 
 from .codebooks import (
     fibbinary_codebook,
@@ -11,10 +13,19 @@ from .codebooks import (
 )
 from .formats import BlockFloatingPoint, FixedPoint, FloatingPoint
 from .functional import (
+    FibbinaryPartialWeightQuant,
+    FixedPointPartialWeightQuant,
     FixedPointWeightQuant,
+    block_quantize,
     fibonacci_quantize,
+    fibonacci_quantize_partial,
     fixed_point_quantize,
+    fixed_point_quantize_partial,
+    fixed_point_quantize_with_mask,
+    float_quantize,
     no_adjacent_ones_quantize,
+    quantizer,
+    ste,
 )
 from .lsq import (
     ConvLSQ,
@@ -25,7 +36,7 @@ from .lsq import (
     lsq_step_size_init,
     round_pass,
 )
-from .optim import WeightQuantSettings, apply_weight_quant
+from .optim import WeightQuantSettings, apply_weight_quant, assign_, quantize_grads_
 from .settings import QUANT_KERNEL_MARKERS, build_weight_quant_settings, quantized_param_names
 
 __all__ = [
@@ -37,10 +48,19 @@ __all__ = [
     "BlockFloatingPoint",
     "FixedPoint",
     "FloatingPoint",
+    "FibbinaryPartialWeightQuant",
+    "FixedPointPartialWeightQuant",
     "FixedPointWeightQuant",
+    "block_quantize",
     "fibonacci_quantize",
+    "fibonacci_quantize_partial",
     "fixed_point_quantize",
+    "fixed_point_quantize_partial",
+    "fixed_point_quantize_with_mask",
+    "float_quantize",
     "no_adjacent_ones_quantize",
+    "quantizer",
+    "ste",
     "ConvLSQ",
     "DenseLSQ",
     "codebook_pass",
@@ -50,6 +70,8 @@ __all__ = [
     "round_pass",
     "WeightQuantSettings",
     "apply_weight_quant",
+    "assign_",
+    "quantize_grads_",
     "QUANT_KERNEL_MARKERS",
     "build_weight_quant_settings",
     "quantized_param_names",

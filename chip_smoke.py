@@ -1,7 +1,7 @@
 """Drive the PyTorch port's serving, quantized serving and training paths
 on one NVIDIA card, in float32 and in bfloat16 activations, its channel
-generator and training drivers, ProbSparse attention, fused QKV projections
-and LSQ training.
+generator and training drivers, ProbSparse attention, fused QKV projections,
+LSQ training and the quantization study (QAT, pruning and their drivers).
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
@@ -131,7 +131,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    finite losses, the results JSON; then 12 for the LSQ-fibbinary model:
    one step through the kernels against the plain path (the snap's plain
    version, plain attention), ``step_size`` gradients included, 104 + 104
-   bd and 1,152 codeword launches in 8 steps, samples/s of both paths.
+   bd and 1,152 codeword launches in 8 steps, samples/s of both paths;
+23. qat step: the flagship (kernels on) after one training step, its 72
+   attention and FFN weights through ``FixedPointPartialWeightQuant`` and
+   then ``FibbinaryPartialWeightQuant`` (proximal, wl 2, fl -2, fraction
+   0.7: ``experiments/qat_incremental.py``'s defaults) by
+   ``apply_weight_quant`` and ``assign_``: one fixed-point (codeword)
+   launch for all 72, the tensors bit for bit with a per-tensor plain path
+   written out here (the plain snap, ``torch.sort``, the select and the
+   clamp), at least the fraction on the grid, the parameters and Adam's
+   moments the same objects with the same values; 8-step chunks of QAT
+   (train step, then the transform) with 13 + 13 bd and one fixed-point or
+   codeword launch a step;
+24. prune step: 8-step chunks of pruning (train step, then ``apply_pruning``
+   at 0.9; 13 + 13 bd launches a step), the QAT, prune and plain FP32
+   chunks' samples/s in turns; ``apply_pruning`` at 0.5 and 0.9 on the card
+   against the CPU (masks and values bit for bit) and ``measured_sparsity``
+   equal to what the block count gives;
+25. drivers: ``cli.ptq_sweep`` (wl 8-10, 512 samples), ``cli.qat_incremental``
+   (fibbinary, one epoch of 10 steps a fraction, 1,024 samples) and
+   ``cli.prune`` (2 epochs of 10 steps) in this process from phase 18's
+   checkpoint, the kernels on: their launch counts, finite validation NMSEs
+   and files.
 
 Each attention kernel's entry in the kernels line carries its bf16 instance
 (time, launches, bound at bf16 bytes or tensor-core FLOPs, SDPA) under
@@ -1669,6 +1690,234 @@ def phase_lsq_train(torch, wrappers, lsq, checkpoint):
                 lsq_mode_launches=len(lsq_mode), losses=losses, valid_losses=valid, result=row)
 
 
+# The quantization study (slice 11). QAT: the flagship's 72 weights
+# transformed after every step at fraction QAT_FRACTION (proximal, wl 2, fl
+# -2: experiments/qat_incremental.py's defaults), through the fixed grid and
+# through the fibbinary codebook; pruning at PRUNE_LEVELS with 4x1 blocks.
+QAT_WL, QAT_FL, QAT_FRACTION = 2, -2, 0.7
+PRUNE_LEVELS = (0.5, 0.9)
+# The drivers' short recipes, from the cli phase's checkpoint, the kernels on.
+DRIVER_STEPS, DRIVER_PRUNE_EPOCHS = 10, 2  # steps an epoch; the prune run's epochs
+DRIVER_PTQ = ["--wl-min", "8", "--wl-max", "10", "--val-samples", "512"]
+DRIVER_QAT = ["--codebook", "fibonacci", "--epochs-per-step", "1", "--steps-per-epoch",
+              str(DRIVER_STEPS), "--train-samples", "1024"]
+DRIVER_PRUNE = ["--epochs", str(DRIVER_PRUNE_EPOCHS), "--steps-per-epoch", str(DRIVER_STEPS),
+                "--train-samples", "1024"]
+DRIVER_COMMON = ["--snr", "20", "--calibrated", "--ue-speed-kmh", "5", "--use-pallas"]
+
+
+def _plain_partial(torch, w, q, fraction, bounds):
+    """The per-tensor plain path of a proximal partial transform, written
+    out apart from the port's: ``q`` where ``|w - q|`` is at most its
+    ``int32(float32 p * (n - 1))``-th smallest, then the clamp."""
+    d = (w - q).abs()
+    k = int((torch.tensor(fraction, dtype=torch.float32) * (d.numel() - 1)).item())
+    return torch.where(d <= torch.sort(d.reshape(-1)).values[k], q, w).clamp(*bounds)
+
+
+def phase_qat_prune(torch, wrappers, card):
+    """One QAT step at the flagship through each grouped transform, fixed
+    grid then fibbinary: the 72 tensors bit for bit with the per-tensor
+    plain path from the same post-step weights, at least the fraction on
+    the grid, Adam's state the same objects with the same values; the launch
+    counts of 8-step chunks of QAT and of pruning (train step, then
+    ``apply_pruning`` at 0.9); the chunks' samples/s in turns with plain
+    FP32 training; ``apply_pruning`` on the card against the CPU at
+    ``PRUNE_LEVELS``, and ``measured_sparsity`` against the block count."""
+    import copy
+
+    from channelestimationtransformer_torch.core.config import TrainConfig
+    from channelestimationtransformer_torch.ops.cuda.quant import (
+        fixed_point_quantize_reference,
+        nearest_codeword_reference,
+    )
+    from channelestimationtransformer_torch.ops.prune import apply_pruning, measured_sparsity
+    from channelestimationtransformer_torch.ops.quant import (
+        FibbinaryPartialWeightQuant,
+        FixedPointPartialWeightQuant,
+        apply_weight_quant,
+        assign_,
+        build_weight_quant_settings,
+        fibbinary_codebook,
+    )
+    from channelestimationtransformer_torch.train.trainer import create_train_state, train_step
+
+    cfg, model, _, ds = _models_and_data(torch)
+    batch = 256
+    tc = TrainConfig(batch_size=batch, lr=1e-4)
+    cb = torch.tensor(fibbinary_codebook(QAT_WL, QAT_FL), dtype=torch.float32, device="cuda")
+    transforms = {
+        "qat fixed": (FixedPointPartialWeightQuant(QAT_WL, QAT_FL), "fixed",
+                      lambda w: fixed_point_quantize_reference(w, QAT_WL, QAT_FL),
+                      (-(2.0 ** (QAT_WL - QAT_FL - 1)), 2.0 ** (QAT_WL - QAT_FL - 1) - 2.0 ** -QAT_FL)),
+        "qat fibbinary": (FibbinaryPartialWeightQuant(QAT_WL, QAT_FL), "codeword",
+                          lambda w: nearest_codeword_reference(w, cb),
+                          (cb.min().item(), cb.max().item())),
+    }
+    paths = {name: copy.deepcopy(model) for name in (*transforms, "prune", "fp32")}
+    states = {name: create_train_state(m, tc) for name, m in paths.items()}
+    params = {name: dict(m.named_parameters()) for name, m in paths.items()}
+    settings = {name: build_weight_quant_settings(paths[name].state_dict(), t[0])
+                for name, t in transforms.items()}
+
+    def step(name, gen):
+        train_step(states[name], ds, batch_size=batch, label_len=cfg.label_len, generator=gen)
+        with torch.no_grad():
+            if name in transforms:
+                assign_(params[name], apply_weight_quant(params[name], settings[name],
+                                                         percentage=QAT_FRACTION))
+            elif name == "prune":
+                assign_(params[name], apply_pruning(params[name], PRUNE_LEVELS[-1]))
+
+    out = {}
+    # (a) One step of each QAT path: the grouped transform against the plain
+    # per-tensor path, the grid share, Adam's state.
+    for name, (_, key, snap, bounds) in transforms.items():
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        train_step(states[name], ds, batch_size=batch, label_len=cfg.label_len, generator=gen)
+        p = params[name]
+        names = sorted(settings[name].settings)
+        before = {n: p[n].detach().clone() for n in names}
+        adam = {n: states[name].optimizer.state[p[n]] for n in p}
+        adam_values = {n: {k: v.clone() for k, v in a.items()} for n, a in adam.items()}
+        objects = [id(v) for v in p.values()]
+        torch.cuda.synchronize()
+        _zero_counts(wrappers)
+        with torch.no_grad():
+            assign_(p, apply_weight_quant(p, settings[name], percentage=QAT_FRACTION))
+        torch.cuda.synchronize()
+        launches = _counts(wrappers)
+        want = {n: _plain_partial(torch, before[n], snap(before[n]), QAT_FRACTION, bounds)
+                for n in names}
+        equal = all(torch.equal(p[n].detach(), want[n]) for n in names)
+        on_grid = sum((p[n].detach() == snap(before[n]).clamp(*bounds)).sum().item()
+                      for n in names) / sum(p[n].numel() for n in names)
+        kept = (objects == [id(v) for v in p.values()]
+                and all(states[name].optimizer.state[p[n]] is adam[n]
+                        and all(torch.equal(adam[n][k], adam_values[n][k]) for k in adam[n])
+                        for n in p))
+        expected = {k: 0 for k in launches} | {key: 1}
+        print(f"{name} step (proximal, wl {QAT_WL}, fl {QAT_FL}, fraction {QAT_FRACTION}): "
+              f"{len(names)} tensors, transform launches {_launch_report(launches, expected)}; "
+              f"equal to the per-tensor plain path bit for bit {equal}; on the grid "
+              f"{on_grid:.4f} (at least {QAT_FRACTION}); parameters and Adam's moments the same "
+              f"objects, moments unchanged {kept}", flush=True)
+        if launches != expected or len(names) != 72:
+            fail(f"the {name} transform launched {launches}, not {expected}")
+        if not (equal and on_grid >= QAT_FRACTION and kept):
+            fail(f"the {name} transform differs from the per-tensor plain path or lost Adam's "
+                 f"state")
+        out[name] = dict(transform_launches=launches, on_grid=on_grid)
+
+    # (b) Launches of 8-step chunks, then samples/s of the chunks in turns.
+    def run(name, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for _ in range(TRAIN_STEPS):
+            step(name, gen)
+
+    per_step = {"qat fixed": dict(fixed=1), "qat fibbinary": dict(codeword=1), "prune": {},
+                "fp32": {}}
+    for name, extra in per_step.items():
+        torch.cuda.synchronize()
+        _zero_counts(wrappers)
+        run(name, 5)
+        torch.cuda.synchronize()
+        launches = _counts(wrappers)
+        expected = {k: TRAIN_STEPS * (dict(bd_fwd=13, bd_bwd=13) | extra).get(k, 0)
+                    for k in launches}
+        finite = all(torch.isfinite(v).all().item() for v in params[name].values())
+        print(f"{name} chunk: {TRAIN_STEPS} steps x {batch}, launches "
+              f"{_launch_report(launches, expected)}; weights finite {finite}", flush=True)
+        if launches != expected or not finite:
+            fail(f"the {name} chunk launched {launches}, not {expected}, or went non-finite")
+        out.setdefault(name, {})["launches"] = launches
+    times = _alternate(torch, lambda name, i: run(name, 100 + i), rounds=6, names=tuple(per_step))
+    samples = TRAIN_STEPS * batch
+    for name, ts in times.items():
+        med = statistics.median(ts[2:])
+        out[name].update(samples_per_s=samples / med, chunk_ms=[t * 1e3 for t in ts[2:]])
+        print(f"{name:13s} chunk: {samples / med:.1f} samples/s (median of {len(ts) - 2} chunks "
+              f"of {TRAIN_STEPS} steps x {batch}, {med * 1e3:.3f} ms; "
+              f"{out[name]['samples_per_s'] / (samples / statistics.median(times['fp32'][2:])):.3f}"
+              f"x plain FP32 training in the same turns) on {card}", flush=True)
+
+    # (c) apply_pruning on the card against the CPU; measured_sparsity
+    # against the block count (k + 1 blocks of 4 a weight, no ties).
+    weights = dict(paths["fp32"].named_parameters())
+    for level in PRUNE_LEVELS:
+        with torch.no_grad():
+            got = apply_pruning(weights, level)
+            want = apply_pruning({n: w.detach().cpu() for n, w in weights.items()}, level)
+        equal = all(torch.equal(got[n].cpu(), want[n]) for n in weights)
+        blocks = [w.numel() // 4 for n, w in weights.items() if got[n] is not w]
+        f32 = torch.tensor(level, dtype=torch.float32)
+        predicted = 4 * sum(int((f32 * (b - 1)).item()) + 1 for b in blocks) / (4 * sum(blocks))
+        measured = measured_sparsity(got)
+        print(f"prune {level}: {len(blocks)} weights on the card equal to the CPU's bit for bit "
+              f"(masks and values) {equal}; measured_sparsity {measured!r} (the block count "
+              f"gives {predicted!r})", flush=True)
+        if not (equal and measured == predicted and len(blocks) == 72):
+            fail(f"pruning at {level} differs between the card and the CPU or from its block "
+                 f"count")
+        out[f"prune_{level}"] = dict(measured_sparsity=measured, predicted=predicted)
+    return out
+
+
+def phase_study_drivers(torch, wrappers, checkpoint):
+    """``cli.ptq_sweep``, ``cli.qat_incremental`` and ``cli.prune`` in this
+    process on their short recipes from ``checkpoint``: the launch counts
+    the recipes give (a quantization one fixed-point launch, a QAT step one
+    codeword launch, 13 bd forward and backward a step, 13 bd forward a
+    validation batch), finite losses and the files written. The drivers'
+    checkpoints (~16 MB each) are deleted once seen."""
+    from channelestimationtransformer_torch.cli import prune, ptq_sweep, qat_incremental
+
+    fractions = len(qat_incremental.SCHEDULES["proximal"])
+    qat_steps, prune_steps = fractions * DRIVER_STEPS, DRIVER_PRUNE_EPOCHS * DRIVER_STEPS
+    study = OUT / "study"
+    runs = [
+        ("ptq_sweep", ptq_sweep, [*DRIVER_PTQ, "--out", str(study / "ptq_results.json")],
+         dict(fixed=2 * 3, bd_fwd=13 * 8 * (1 + 2 * 3)),
+         ["ptq_results.json", "loss_list_nearest.pkl", "loss_list_stochastic.pkl"]),
+        ("qat_incremental", qat_incremental, [*DRIVER_QAT, "--out", str(study)],
+         dict(codeword=qat_steps, bd_fwd=13 * (qat_steps + 8 * fractions), bd_bwd=13 * qat_steps),
+         ["qat_wl2_fl-2_proximal_partial_fibonacci.json",
+          f"qat_wl2_fl-2_proximal_partial_fibonacci_{fractions}.pt"]),
+        ("prune", prune, [*DRIVER_PRUNE, "--out", str(study)],
+         dict(bd_fwd=13 * (prune_steps + 4 * DRIVER_PRUNE_EPOCHS), bd_bwd=13 * prune_steps),
+         ["prune_results.json", f"pruned_{DRIVER_PRUNE_EPOCHS}.pt"]),
+    ]
+    out = {}
+    for name, cli, argv, counts, files in runs:
+        argv = [*DRIVER_COMMON, *argv, "--checkpoint", str(checkpoint)]
+        expected = {key: counts.get(key, 0) for key in wrappers}
+        log = io.StringIO()
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            result = cli.main(argv)
+        secs = time.perf_counter() - t0
+        print(log.getvalue(), end="", flush=True)
+        launches = _counts(wrappers)
+        values = (list(result.values()) if isinstance(result, dict) else result)
+        losses = [v[1] if isinstance(v, (list, tuple)) else v["val_nmse"] for v in values]
+        finite = bool(losses) and all(math.isfinite(v) for v in losses)
+        written = all((study / f).exists() for f in files)
+        for f in files:
+            if f.endswith(".pt") and (study / f).exists():
+                (study / f).unlink()
+        print(f"driver phase: cli.{name} {' '.join(argv)}: {secs:.1f} s; launches "
+              f"{_launch_report(launches, expected)}; {len(losses)} validation NMSEs, last "
+              f"{losses[-1] if losses else None}; finite {finite}; files written {written}",
+              flush=True)
+        if launches != expected:
+            fail(f"kernels launched {launches} times in cli.{name}, not {expected}")
+        if not (finite and written):
+            fail(f"cli.{name}'s losses are not finite or its files are missing")
+        out[name] = dict(argv=argv, seconds=secs, launches=launches, val_nmse=losses)
+    return out
+
+
 def _per_path(rows, key, weight):
     """Sum of ``key`` weighted by each row's count on the path (``weight``)."""
     return sum(r[key] * r[weight] for r in rows if r[weight])
@@ -1823,6 +2072,12 @@ def main(argv):
                                       name="lsq-fibbinary train",
                                       per_step=dict(bd_fwd=13, bd_bwd=13, codeword=2 * 72))
 
+    # The quantization study: QAT and pruning steps, then the three drivers
+    # from the cli phase's checkpoint.
+    qat_prune = phase_qat_prune(torch, wrappers, card)
+    drivers = phase_study_drivers(
+        torch, wrappers, OUT / "cli" / f"tmodel_{cli['result']['name']}_{CLI_EPOCHS}.pt")
+
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
     bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]  # noqa: E731
     kernels = [
@@ -1883,6 +2138,17 @@ def main(argv):
     kernels[4].update(lsq_train_launches=lsq_train_path["launches"]["codeword"],
                       lsq_driver_launches=lsq_train["launches"]["codeword"],
                       lsq_driver_lsq_mode_launches=lsq_train["lsq_mode_launches"])
+    # The slice-11 paths' launches: 8-step QAT and prune chunks and the drivers.
+    for kernel, key in ((kernels[0], "bd_fwd"), (kernels[1], "bd_bwd")):
+        kernel.update(qat_train_launches=qat_prune["qat fixed"]["launches"][key],
+                      prune_train_launches=qat_prune["prune"]["launches"][key],
+                      qat_driver_launches=drivers["qat_incremental"]["launches"][key],
+                      prune_driver_launches=drivers["prune"]["launches"][key])
+    kernels[0].update(ptq_driver_launches=drivers["ptq_sweep"]["launches"]["bd_fwd"])
+    kernels[3].update(qat_train_launches=qat_prune["qat fixed"]["launches"]["fixed"],
+                      ptq_driver_launches=drivers["ptq_sweep"]["launches"]["fixed"])
+    kernels[4].update(qat_train_launches=qat_prune["qat fibbinary"]["launches"]["codeword"],
+                      qat_driver_launches=drivers["qat_incremental"]["launches"]["codeword"])
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
         mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, fixed_grouped_rows=grouped_rows,
@@ -1895,7 +2161,7 @@ def main(argv):
         cli=cli, prob_eval_path=prob_eval_path, prob_train_path=prob_train_path,
         fused_eval_path=fused_eval_path, fused_train_path=fused_train_path,
         fused_vs_unfused=fused_vs_unfused, lsq_train=lsq_train, lsq_train_path=lsq_train_path,
-        kernels=kernels),
+        qat_prune=qat_prune, drivers=drivers, kernels=kernels),
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,8 +14,8 @@ not bit for bit. Errors are ``max|port - jax| / max|jax|``:
 - one module (embedding, ConvLayer in eval and train mode, encoder and
   decoder layers pre- and post-norm, ``DenseLSQ``): <= 2e-2;
 - a whole model (the small InformerStack on the plain and kernel routes,
-  LSQ-fibbinary, PTQ weights, the flagship width): <= 5e-2, and NMSE(port,
-  jax) <= 1e-3. The long-wide shape that routes to mha: <= 1e-1 and NMSE
+  its prob and fused variants, LSQ-fibbinary, PTQ weights, the flagship
+  width): <= 5e-2, and NMSE(port, jax) <= 1e-3. The long-wide shape that routes to mha: <= 1e-1 and NMSE
   <= 3e-3, since there the two sides round at different points by design:
   mha's plain version (as its kernel) computes softmax(QK^T)V in f32 and
   rounds once, JAX's CPU route is XLA attention in bf16;
@@ -305,6 +305,45 @@ def test_bf16_informer_stack_matches_flax(use_pallas):
     rng = np.random.default_rng(35)
     _check_forward(*_bf16_model_pair(rng, 3, jax_pallas=use_pallas, port_pallas=use_pallas,
                                      **SMALL))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one thread for a test of many small ops, which the default
+    intra-op pool slows several-fold on a shared machine (as under
+    pytest-xdist's workers); restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("name", ["prob", "fused"])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_bf16_prob_and_fused_stacks_match_flax(name, use_pallas, monkeypatch, one_torch_thread):
+    """The small prob InformerStack of ``tests/test_torch_prob_attention.py``
+    (flax applied unjitted, JAX's ``index_sample`` draws injected) and the
+    small fused one in bf16, on the kernel route and the plain path, against
+    flax's bf16: ``MODEL_TOL``, and no further from the f32 model than
+    flax's bf16 is (``F32_RATIO``)."""
+    from test_torch_prob_attention import PROB_SMALL, _Draws
+
+    rng = np.random.default_rng(37)
+    cfg = PROB_SMALL if name == "prob" else dict(SMALL, fuse_qkv=True)
+    fmod, tmod, params, stats, x_enc, x_dec = _bf16_model_pair(rng, 3, port_pallas=use_pallas,
+                                                               **cfg)
+    variables = {"params": params, "batch_stats": stats}
+    inputs, kw = (jnp.asarray(x_enc), jnp.asarray(x_dec)), dict(rngs={"sample": jax.random.key(3)})
+    f32 = jax.jit(fmod.clone(config=dataclasses.replace(fmod.config, dtype="float32")).apply)(
+        variables, *inputs, **kw)  # the same key: the same draws
+    draws = _Draws(monkeypatch)
+    want = (fmod.apply if name == "prob" else jax.jit(fmod.apply))(variables, *inputs, **kw)
+    left = draws.inject()
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x_enc), torch.from_numpy(x_dec))
+    assert left == [] and got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert _rel_err(got, want) <= MODEL_TOL[0] and _nmse(got, want) <= MODEL_TOL[1]
+    assert _nmse(got, f32) <= F32_RATIO * _nmse(want, f32)
 
 
 def test_bf16_flagship_width_forward_matches_flax():

@@ -47,7 +47,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("cli/train_informer.py", "cli/generate_dataset.py", "channel/cdl.py",
                    "channel/beamforming.py", "channel/dataset.py", "channel/interpolate.py",
-                   "data/packing.py"):
+                   "data/packing.py", "cli/ptq_sweep.py", "cli/qat_incremental.py",
+                   "cli/prune.py", "cli/_study.py", "ops/prune.py", "ops/quant/auto_low.py",
+                   "ops/quant/functional.py", "ops/quant/optim.py"):
         assert f"channelestimationtransformer_torch/{module}" in names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}

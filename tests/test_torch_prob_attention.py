@@ -15,6 +15,12 @@ package's, on the CPU.
   (rtol 2e-4, atol 2e-5). JAX's per-layer ``index_sample`` draws are
   recorded by wrapping ``jax.random.randint`` while the flax model applies
   unjitted, and fed to the port's layers in call order.
+- The configs no other test pins (``PROBED``): prob with ``mix=False``,
+  ``pre_norm``, ``distil=False``, an int ``e_layers``, ``output_attention``,
+  relu, ``fuse_qkv`` and ``factor=3``; fused with ``pre_norm``,
+  ``output_attention``, ``mix=False`` and ``distil=False``: each on the
+  kernel route against flax in eval at atol 1e-5 (rtol 2e-4), the
+  attention maps included.
 """
 
 import numpy as np
@@ -249,6 +255,74 @@ def test_prob_model_draws_from_its_generator_in_eval_and_full_models_do_not():
         before = gen.get_state()
         full(x_enc, x_dec, generator=gen)
         assert torch.equal(gen.get_state(), before)
+
+
+# Prob and fused configs no other test pins, each a change to PROB_SMALL (L
+# 48 and its distilled 24 both sparse, the decoder's 15 full; fewer layers
+# than PROB, as flax applies them unjitted) or to SMALL with fuse_qkv.
+PROB_SMALL = dict(SMALL, seq_len=48, label_len=10, e_layers=(2, 1), d_layers=1, attn="prob")
+FUSED = dict(SMALL, fuse_qkv=True)
+PROBED = {
+    "prob_no_mix": dict(PROB_SMALL, mix=False),
+    "prob_pre_norm": dict(PROB_SMALL, pre_norm=True),
+    "prob_no_distil": dict(PROB_SMALL, distil=False),
+    "prob_e_layers_int": dict(PROB_SMALL, e_layers=2),
+    "prob_output_attention": dict(PROB_SMALL, output_attention=True),
+    "prob_relu": dict(PROB_SMALL, activation="relu"),
+    "prob_fuse_qkv": dict(PROB_SMALL, fuse_qkv=True),
+    "prob_factor_3": dict(PROB_SMALL, factor=3),
+    "fused_pre_norm": dict(FUSED, pre_norm=True),
+    "fused_output_attention": dict(FUSED, output_attention=True),
+    "fused_no_mix": dict(FUSED, mix=False),
+    "fused_no_distil": dict(FUSED, distil=False),
+}
+
+
+def _maps(maps):
+    if isinstance(maps, (list, tuple)):
+        return [a for m in maps for a in _maps(m)]
+    if isinstance(maps, torch.Tensor):
+        maps = maps.numpy()
+    return [] if maps is None else [np.asarray(maps)]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one thread for a test of many small ops, which the default
+    intra-op pool slows several-fold on a shared machine (as under
+    pytest-xdist's workers); restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("name", list(PROBED))
+def test_probed_prob_and_fused_configs_match_flax(name, monkeypatch, one_torch_thread):
+    """Eval on the kernel route against flax (prob: applied unjitted, JAX's
+    ``index_sample`` draws injected in call order): atol 1e-5 (all within
+    3.2e-6 when probed), the attention maps too with ``output_attention``."""
+    rng = np.random.default_rng(36)
+    cfg = PROBED[name]
+    prob = cfg.get("attn") == "prob"
+    fmod, tmod, params, stats, x_enc, x_dec = _model_pair(rng, 2, port_pallas=True, **cfg)
+    draws = _Draws(monkeypatch)
+    want = (fmod.apply if prob else jax.jit(fmod.apply))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x_enc), jnp.asarray(x_dec),
+        rngs={"sample": jax.random.key(3)})
+    left = draws.inject()
+    assert bool(left) == prob
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x_enc), torch.from_numpy(x_dec))
+    assert left == []
+    if cfg.get("output_attention"):
+        (got, got_maps), (want, want_maps) = got, want
+        got_maps, want_maps = _maps(got_maps), _maps(want_maps)
+        # ProbSparse layers return no map (as JAX's); the fused full ones do.
+        assert len(got_maps) == len(want_maps) and bool(got_maps) == ("fused" in name)
+        for g, w in zip(got_maps, want_maps):
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=1e-5)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
