@@ -1,7 +1,8 @@
 """What the quantization study's drivers share (``ptq_sweep``,
 ``qat_incremental``, ``prune``): the flagship model restored from a
 ``cli.train_informer`` checkpoint, the window datasets keyed as the JAX
-drivers key theirs, and the n-batch validation."""
+drivers key theirs, and the n-batch validation; ``--device``, which every
+port driver adds."""
 
 from __future__ import annotations
 
@@ -17,14 +18,19 @@ from ..train.checkpoint import load_checkpoint
 from ..train.trainer import create_train_state, eval_step
 
 
-def add_port_args(p) -> None:
-    """The two flags the port's drivers add to the JAX package's."""
-    p.add_argument("--use-pallas", action="store_true",
-                   help="the bd attention kernels in training and eval, instead of the plain "
-                        "torch path (quantization takes its kernels on the card either way)")
+def add_device_arg(p) -> None:
+    """``--device``, which every port driver adds to the JAX package's flags."""
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card, and raise without one; "
                         "'cpu' runs the plain CPU path)")
+
+
+def add_port_args(p) -> None:
+    """The two flags the quantization study's drivers add to the JAX package's."""
+    p.add_argument("--use-pallas", action="store_true",
+                   help="the bd attention kernels in training and eval, instead of the plain "
+                        "torch path (quantization takes its kernels on the card either way)")
+    add_device_arg(p)
 
 
 def flagship_state(cfg: InformerConfig, tc: TrainConfig, device, checkpoint=None):

@@ -97,6 +97,52 @@ class InformerConfig:
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
+class TransformerConfig:
+    """Vanilla encoder-decoder transformer baseline (reference
+    ``models/Transformer/model.py:90-174`` ``build_transformer``; JAX
+    ``core/config.py:86-105``). ``dtype`` goes through :func:`activation_dtype`
+    when the model is built."""
+
+    enc_in: int = 16
+    c_out: int = 16
+    seq_len: int = 90
+    label_len: int = 10
+    pred_len: int = 5
+    d_model: int = 128
+    n_heads: int = 8
+    num_encoder_layers: int = 4
+    num_decoder_layers: int = 3
+    d_ff: int = 64
+    dropout: float = 0.05
+    dtype: str = "float32"
+
+    @property
+    def dec_len(self) -> int:
+        return self.label_len + self.pred_len
+
+
+RECURRENT_CELLS = ("rnn", "gru", "lstm")
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class RecurrentConfig:
+    """RNN/GRU/LSTM baselines (reference ``models/{RNN,GRU,LSTM}/model.py``;
+    JAX ``core/config.py:108-120``): Linear encoder -> recurrent core ->
+    Linear decoder, teacher-forced train, closed-loop eval rollout."""
+
+    features: int = 16
+    input_size: int = 128
+    hidden_size: int = 256
+    num_layers: int = 2
+    cell: str = "lstm"  # "rnn" | "gru" | "lstm"
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.cell not in RECURRENT_CELLS:
+            raise ValueError(f"cell must be 'rnn', 'gru' or 'lstm', got {self.cell!r}")
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
 class DataConfig:
     """Dataset geometry + noise model (reference ``Utils/dataset.py`` SeqData)."""
 
@@ -141,3 +187,9 @@ class TrainConfig:
     prng_impl: str = "threefry2x32"
     checkpoint_dir: str = "weights"
     experiment_name: str = "runs/tmodel"
+
+
+def full_precision_config() -> tuple[InformerConfig, DataConfig, TrainConfig]:
+    """The FullPrecision experiment's effective configuration
+    (reference ``FullPrecision/config.py:4-33`` + SURVEY §7.4 quirk 1)."""
+    return InformerConfig(), DataConfig(), TrainConfig()

@@ -16,6 +16,10 @@ from torch import nn
 from .dropout import dropout
 from .init import variance_scaling_
 
+# Positions past the window that ``DataEmbedding``'s ``position_offset``
+# may reach (JAX ``embed.py:97``).
+POSITION_SPAN = 8192
+
 
 def sinusoid_position_encoding(length: int, d_model: int, dtype=torch.float32,
                                device=None) -> torch.Tensor:
@@ -82,7 +86,18 @@ class DataEmbedding(nn.Module):
                                                            device=device)
         return self._tables[key]
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | None = None, position_offset=None):
+        """``position_offset`` (an int or a 0-d tensor; JAX
+        ``embed.py:90-102``): positions start there, a window of a
+        ``length + 8192`` table. As ``lax.dynamic_slice`` does, the start is
+        clamped into ``[0, 8192]``: an offset past the table reads its last
+        ``length`` rows."""
         tok = self.token(x)
-        out = tok + self.position_table(x.shape[-2], tok.dtype, x.device)
-        return dropout(out, self.dropout, generator, self.training)
+        length = x.shape[-2]
+        if position_offset is None:
+            pe = self.position_table(length, tok.dtype, x.device)
+        else:
+            start = min(max(int(position_offset), 0), POSITION_SPAN)
+            pe = self.position_table(length + POSITION_SPAN, tok.dtype,
+                                     x.device)[start:start + length]
+        return dropout(tok + pe, self.dropout, generator, self.training)

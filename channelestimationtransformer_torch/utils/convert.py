@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's Informer variables -> a port ``state_dict``.
+"""Weight bridge: the JAX package's Informer, Transformer and recurrent
+baseline variables -> a port ``state_dict``.
 
 Input is the flax variable tree as nested dicts of numpy arrays (the caller
 converts device arrays with ``np.asarray``, so this module never sees a JAX
@@ -13,10 +14,12 @@ the key of the same path, with these conversions:
   ``batch_stats``) -> ``running_mean``/``running_var``.
 
 A ProbSparse model (``attn="prob"``) has the parameters of a full one.
-The walk knows the Informer architecture: it raises on any flax leaf it did
-not consume and on any leaf it needs that is missing. :func:`load_flax`
-then loads with ``strict=True``, which raises on any torch parameter or
-buffer left unfilled.
+The recurrent cells' per-gate kernels and biases are stacked in torch's
+gate order (``models/recurrent.py``). Each walk knows its architecture: it
+raises on any flax leaf it did not consume and on any leaf it needs that is
+missing. :func:`load_flax` and the other ``load_`` functions then load with
+``strict=True``, which raises on any torch parameter or buffer left
+unfilled.
 """
 
 from __future__ import annotations
@@ -158,6 +161,58 @@ class FlaxBridge:
         self.dense("projection")
 
 
+    def pre_norm_block(self, path, cross):
+        """A Transformer ``PreNormBlock``."""
+        names = ("self_attention", "cross_attention") if cross else ("self_attention",)
+        for name in names:
+            self.attention(_join(path, name))
+        for norm in ("norm_attn", "norm_cross", "norm_ffn") if cross else ("norm_attn",
+                                                                           "norm_ffn"):
+            self.norm(_join(path, norm))
+        self.dense(_join(path, "ffn1"))
+        self.dense(_join(path, "ffn2"))
+
+    def transformer(self):
+        self.embedding("src_embed")
+        self.embedding("tgt_embed")
+        for block in self._numbered("", "encoder"):
+            self.pre_norm_block(block, cross=False)
+        for block in self._numbered("", "decoder"):
+            self.pre_norm_block(block, cross=True)
+        self.norm("encoder_norm")
+        self.norm("decoder_norm")
+        self.dense("projection")
+
+    def _gates(self, path, names, leaf):
+        """The ``leaf`` of each gate in ``names``, stacked on dim 0 (kernels
+        transposed to ``[out, in]`` first)."""
+        parts = [self.param(_join(_join(path, n), leaf)) for n in names]
+        return torch.cat([p.T for p in parts] if leaf == "kernel" else parts, dim=0)
+
+    def recurrent_cell(self, path):
+        """One flax cell (OptimizedLSTMCell, GRUCell or SimpleCell, told
+        apart by their kernels' names) in torch's stacked gate layout."""
+        if self.has(_join(path, "ii")):
+            i_names, h_names = ("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho")
+            biases = {"bias_hh": h_names}
+        elif self.has(_join(path, "ir")):
+            i_names, h_names = ("ir", "iz", "in"), ("hr", "hz", "hn")
+            biases = {"bias_ih": i_names, "bias_hn": ("hn",)}
+        else:
+            i_names, h_names = ("i",), ("h",)
+            biases = {"bias_ih": i_names}
+        self._set(path, "weight_ih", self._gates(path, i_names, "kernel").contiguous())
+        self._set(path, "weight_hh", self._gates(path, h_names, "kernel").contiguous())
+        for name, gates in biases.items():
+            self._set(path, name, self._gates(path, gates, "bias"))
+
+    def recurrent(self):
+        self.dense("encoder")
+        for cell in self._numbered("", "cells"):
+            self.recurrent_cell(cell)
+        self.dense("decoder")
+
+
 def from_flax(params, batch_stats=None) -> dict:
     """The port ``state_dict`` of an Informer/InformerStack flax tree.
     Raises on a flax leaf it does not consume or a needed leaf that is missing."""
@@ -171,4 +226,38 @@ def load_flax(model: torch.nn.Module, params, batch_stats=None) -> torch.nn.Modu
     """Load :func:`from_flax`'s ``state_dict`` into ``model`` strictly:
     raises on any parameter or buffer it does not fill."""
     model.load_state_dict(from_flax(params, batch_stats), strict=True)
+    return model
+
+
+def _bridged(walk: str, params) -> dict:
+    bridge = FlaxBridge(params)
+    getattr(bridge, walk)()
+    bridge.check_consumed()
+    return bridge.state_dict
+
+
+def from_flax_transformer(params) -> dict:
+    """The port ``state_dict`` of a flax ``Transformer`` baseline's params
+    (``models/transformer.py``). Raises on a flax leaf it does not consume
+    or a needed leaf that is missing."""
+    return _bridged("transformer", params)
+
+
+def load_flax_transformer(model: torch.nn.Module, params) -> torch.nn.Module:
+    """Load :func:`from_flax_transformer`'s ``state_dict`` strictly."""
+    model.load_state_dict(from_flax_transformer(params), strict=True)
+    return model
+
+
+def from_flax_recurrent(params) -> dict:
+    """The port ``state_dict`` of a flax ``RecurrentPredictor``'s params
+    (``models/recurrent.py``), each cell's gates stacked in torch's order.
+    Raises on a flax leaf it does not consume or a needed leaf that is
+    missing."""
+    return _bridged("recurrent", params)
+
+
+def load_flax_recurrent(model: torch.nn.Module, params) -> torch.nn.Module:
+    """Load :func:`from_flax_recurrent`'s ``state_dict`` strictly."""
+    model.load_state_dict(from_flax_recurrent(params), strict=True)
     return model

@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving, quantized serving and training paths
 on one NVIDIA card, in float32 and in bfloat16 activations, its channel
 generator and training drivers, ProbSparse attention, fused QKV projections,
-LSQ training and the quantization study (QAT, pruning and their drivers).
+LSQ training, the quantization study (QAT, pruning and their drivers), int8
+serving, blockwise streaming and the baseline models with their drivers.
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
@@ -152,9 +153,39 @@ Phases, each printing its own lines; any failure exits non-zero:
    (fibbinary, one epoch of 10 steps a fraction, 1,024 samples) and
    ``cli.prune`` (2 epochs of 10 steps) in this process from phase 18's
    checkpoint, the kernels on: their launch counts, finite validation NMSEs
-   and files.
+   and files;
+26. int8 eval path: the flagship (kernels on, seed 0) served by
+   ``ops/quant/serving.py``: its 77-entry int8 table built on the card
+   equal to the CPU's bit for bit; ``eval_chunk`` of 8 x 256 in f32, W8A8
+   and weight-only (in ``serving_intercept``) with 77 entries hit, 104 bd
+   launches each and 616 GEMMs a served chunk (``torch._int_mm`` in W8A8,
+   ``torch.mm(..., out_dtype=float32)`` of bf16 in weight-only); one layer
+   of each GEMM shape against the CPU (W8A8's GEMM and output bit for bit,
+   weight-only within ``INT8_LAYER_TOL``); one batch against the plain attention
+   path inside the intercept and against the same model served on the CPU
+   (an NMSE limit a mode, ``INT8_VS_PLAIN_NMSE``); samples/s of the three
+   modes in turns;
+27. streaming path: ``streaming_rollout`` of the flagship over 128 streams
+   of 100 slots in blocks of 5 (20 blocks, 260 bd launches), every block's
+   prediction against the plain path's rollout (``MAIN_TOL``), the last
+   one against the offline forward of its window (``STREAM_TOL``), blocks/s
+   of the kernel and plain paths in turns;
+28. baselines: ``TransformerConfig()`` eval and training chunks (8 x 256),
+   and lstm, gru and rnn (``cli/comparison.py``'s sizes) in 8 Adam steps x
+   64 and a 5-step rollout x 256, each against the same model on the CPU on
+   one batch (``BASELINE_TOL``), with samples/s;
+29. the comparison's Informer (``InformerConfig(seq_len=25, label_len=10,
+   pred_len=5)``, kernels on: encoder lengths 25 / 13 / 7 / 4 and 12 / 6 /
+   3, a 15 x 7 cross-attention): one eval batch and one training step
+   against the plain path (as phases 8 and 12 hold the flagship), its 8-step
+   chunks in turns;
+30. their drivers: ``cli.int8_serving`` and ``cli.train_streaming`` from
+   phase 18's checkpoint and ``cli.comparison`` cut to a few steps, 1,024
+   samples and two SNRs: their launch counts, finite results and files.
 
-Each attention kernel's entry in the kernels line carries its bf16 instance
+The bd forward's entry in the kernels line also carries the launches of
+the later paths and drivers (``int8_eval_launches``,
+``streaming_launches``, ...). Each attention kernel's entry carries its bf16 instance
 (time, launches, bound at bf16 bytes or tensor-core FLOPs, SDPA) under
 ``bfloat16``.
 
@@ -168,6 +199,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -539,24 +571,31 @@ def phase_kernel_train(torch, F, ops):
     return fwd_rows, bwd_rows
 
 
+def _card_data(torch, seq_len, pred_len, samples=65536, slots=None):
+    """A random window dataset resident on the card (seed 0), by default
+    65,536 x 100 x 16 samples (as ``bench.py``)."""
+    from channelestimationtransformer_torch.core.config import DataConfig
+    from channelestimationtransformer_torch.data.windows import WindowDataset
+
+    data = DataConfig()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.randn(samples, slots or data.slots, data.features, generator=gen, device="cuda")
+    return WindowDataset(h=h, seq_len=seq_len, pred_len=pred_len, snr_db=data.snr_db,
+                         device="cuda")
+
+
 def _models_and_data(torch, cfg=None, samples=65536, slots=None):
     """The kernel-path model (seed 0), the plain-path model with the same
-    weights, and a random dataset resident on the card; by default the
-    flagship config on 65,536 x 100 x 16 samples (as ``bench.py``)."""
-    from channelestimationtransformer_torch.core.config import DataConfig, InformerConfig
-    from channelestimationtransformer_torch.data.windows import WindowDataset
+    weights, and :func:`_card_data` for ``cfg`` (by default the flagship
+    config)."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
     from channelestimationtransformer_torch.models.informer import build_informer
 
     cfg = cfg or InformerConfig(use_pallas=True)
-    data = DataConfig()
     model = build_informer(cfg, device="cuda", seed=0)
     plain = build_informer(dataclasses.replace(cfg, use_pallas=False), device="cuda", seed=0)
     plain.load_state_dict(model.state_dict())
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    h = torch.randn(samples, slots or data.slots, data.features, generator=gen, device="cuda")
-    ds = WindowDataset(h=h, seq_len=cfg.seq_len, pred_len=cfg.pred_len,
-                       snr_db=data.snr_db, device="cuda")
-    return cfg, model, plain, ds
+    return cfg, model, plain, _card_data(torch, cfg.seq_len, cfg.pred_len, samples, slots)
 
 
 def _f32_twin(model, cfg):
@@ -1918,6 +1957,402 @@ def phase_study_drivers(torch, wrappers, checkpoint):
     return out
 
 
+# int8 serving, streaming, the baselines and their drivers.
+INT8_MODES = ("w8a8", "weight_only")
+# Kernel path against plain path inside the intercept, one batch: an NMSE
+# between the two predictions, not an elementwise limit. ~1e-6 between the
+# attention paths moves an activation across a rounding boundary now and then
+# (W8A8: one code, 1/127 of the layer's max; weight-only: one bf16 step), and
+# the moved value moves the next layers' roundings too. A limit a mode, from
+# the card's readings at seed 0 with room above them: W8A8 8.0e-4 apart (its
+# rounding noise against f32 is 9.5e-4: per-tensor codes cascade), weight-only
+# 1.4e-5 (noise 3.5e-4). The same limits hold the card's kernel path against
+# the same model served on the CPU, one batch (read: 7.8e-4 and 1.6e-5).
+INT8_VS_PLAIN_NMSE = {"w8a8": 2e-3, "weight_only": 1e-4}
+# One served layer, card against CPU on the same input: W8A8 (int32 GEMM,
+# rescale, bias) bit for bit; weight-only, which sums its bf16 products in
+# another order, within this fraction of its max (read: up to 3.4e-7).
+INT8_LAYER_TOL = 1e-6
+STREAM_BLOCK, STREAM_SLOTS, STREAM_BATCH = 5, 100, 128
+STREAM_TOL = 1e-5  # the last block's prediction against the offline forward, max abs
+BASELINE_TOL = 1e-4  # card against CPU, one batch, max|diff| / max|CPU| (TF32 off)
+RECURRENT_STEPS = 8
+
+
+def phase_int8_path(torch, wrappers, gemms, card):
+    """The flagship (kernels on, seed 0) served in int8: the table built on
+    the card against the one built on the CPU from the same weights, bit
+    for bit; ``eval_chunk`` of 8 batches of 256 in each mode inside
+    ``serving_intercept`` (and f32 without it), with 77 table entries hit,
+    13 bd launches a batch and one GEMM a served layer (W8A8:
+    ``int8_matmul``, cuBLAS int8; weight-only: ``bf16_matmul_f32``); one
+    layer of each GEMM shape against the CPU (W8A8 bit for bit, weight-only
+    ``INT8_LAYER_TOL``); one batch
+    against the plain attention path inside the intercept and against the
+    same model served on the CPU (``INT8_VS_PLAIN_NMSE``); samples/s of the
+    three modes in turns."""
+    from channelestimationtransformer_torch.data.windows import make_batch
+    from channelestimationtransformer_torch.ops.quant import serving
+    from channelestimationtransformer_torch.train.trainer import eval_chunk
+
+    cfg, model, plain, ds = _models_and_data(torch)
+    cpu = copy.deepcopy(model).cpu()
+    table = serving.build_int8_table(model)
+    cpu_table = serving.build_int8_table(cpu)
+    equal = (set(table) == set(cpu_table) and all(
+        torch.equal(table[k][f].cpu(), cpu_table[k][f]) for k in table
+        for f in ("w_q", "w_scale", "bias")))
+    print(f"int8 table: {len(table)} entries ({sum('distil' in k for k in table)} distil "
+          f"convs), card equal to CPU bit for bit {equal}", flush=True)
+    if len(table) != 77 or not equal:
+        fail("the int8 table is not 77 entries equal to the CPU's")
+    n_batches, batch = 8, 256
+
+    # One served layer of each GEMM shape (k, n), card against CPU, on
+    # 256 x 90 rows (the first encoder layer's).
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    layers = {}
+    for key, entry in table.items():
+        layers.setdefault(tuple(entry["w_q"].shape), key)
+    layer_errs = {}
+    for (k, n), key in sorted(layers.items()):
+        x = torch.randn(batch * cfg.seq_len, k, generator=gen, device="cuda")
+        x_q = torch.randint(-127, 128, (batch * cfg.seq_len, k), generator=gen,
+                            device="cuda", dtype=torch.int8)
+        gemm_equal = torch.equal(serving.int8_matmul(x_q, table[key]["w_q"]).cpu(),
+                                 torch._int_mm(x_q.cpu(), cpu_table[key]["w_q"]))
+        errs = {}
+        for mode, apply in (("w8a8", serving.int8_dense_apply),
+                            ("weight_only", serving.int8_dense_weight_only_apply)):
+            want = apply(x.cpu(), cpu_table[key])
+            errs[mode] = ((apply(x, table[key]).cpu() - want).abs().max()
+                          / want.abs().max()).item()
+        ok = gemm_equal and errs["w8a8"] == 0 and errs["weight_only"] <= INT8_LAYER_TOL
+        print(f"int8 layer {key} ({k} x {n}, {batch * cfg.seq_len} rows), card vs CPU: int32 "
+              f"GEMM equal bit for bit {gemm_equal}; max_abs/max W8A8 {errs['w8a8']:.3e} "
+              f"(limit 0), weight-only {errs['weight_only']:.3e} (limit {INT8_LAYER_TOL}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the int8 layer {key} on the card disagrees with the CPU")
+        layer_errs[f"{k}x{n}"] = dict(layer=key, gemm_equal=gemm_equal, **errs)
+
+    def run(mode, seed, m=model, hits=None):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        with (serving.serving_intercept(m, table, hits, mode=mode) if mode != "f32"
+              else contextlib.nullcontext()):
+            return eval_chunk(m, ds, num_batches=n_batches, batch_size=batch,
+                              label_len=cfg.label_len, generator=gen)
+
+    out = {"entries": len(table), "layers_vs_cpu": layer_errs}
+    for mode in ("f32",) + INT8_MODES:
+        hits = set()
+        torch.cuda.synchronize()
+        _zero_counts(wrappers)
+        _zero_counts(gemms)
+        res = run(mode, 1, hits=hits)
+        torch.cuda.synchronize()
+        launches, gemm = _counts(wrappers), _counts(gemms)
+        expected = {key: 13 * n_batches if key == "bd_fwd" else 0 for key in launches}
+        want_gemm = {key: 0 for key in gemms}
+        if mode != "f32":
+            want_gemm["int8" if mode == "w8a8" else "bf16_f32"] = 77 * n_batches
+        nmse = res["nmse"].item()
+        print(f"int8 eval path, {mode}: eval_chunk {n_batches} x {batch}: nmse {nmse:.6f}, "
+              f"{len(hits)} entries hit (expected {77 if mode != 'f32' else 0}), launches "
+              f"{_launch_report(launches, expected)}; GEMMs int8 {gemm['int8']}, bf16 -> f32 "
+              f"{gemm['bf16_f32']} (expected {want_gemm['int8']}, {want_gemm['bf16_f32']})",
+              flush=True)
+        if launches != expected or gemm != want_gemm:
+            fail(f"the int8 eval path ({mode}) launched {launches}, {gemm}")
+        if len(hits) != (77 if mode != "f32" else 0) or not math.isfinite(nmse):
+            fail(f"the int8 eval path ({mode}) hit {len(hits)} entries, nmse {nmse}")
+        out[mode] = dict(nmse=nmse, launches=launches, gemm_launches=gemm, hits=len(hits))
+
+    x_enc, x_dec, _ = make_batch(ds, batch, cfg.label_len,
+                                 generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.no_grad():
+        f32 = {"kernel": model(x_enc, x_dec), "plain": plain(x_enc, x_dec)}
+        for mode in INT8_MODES:
+            preds = {}
+            for path, m, tab, xs in (("kernel", model, table, (x_enc, x_dec)),
+                                     ("plain", plain, table, (x_enc, x_dec)),
+                                     ("cpu", cpu, cpu_table, (x_enc.cpu(), x_dec.cpu()))):
+                with serving.serving_intercept(m, tab, mode=mode):
+                    preds[path] = m(*xs)
+            rel, nm = _rel_nmse(preds["kernel"], preds["plain"])
+            cpu_rel, cpu_nm = _rel_nmse(preds["kernel"].cpu(), preds["cpu"])
+            noise = {path: _rel_nmse(preds[path], f32[path])[1] for path in f32}
+            limit = INT8_VS_PLAIN_NMSE[mode]
+            ok = bool(torch.isfinite(preds["kernel"]).all()) and max(nm, cpu_nm) <= limit
+            print(f"int8 eval path, {mode}, one batch inside the intercept: kernel path vs "
+                  f"plain attention path max_abs/max {rel:.3e}, nmse {nm:.3e}; vs the CPU "
+                  f"max_abs/max {cpu_rel:.3e}, nmse {cpu_nm:.3e} (limit {limit:.1e}) "
+                  f"{'ok' if ok else 'MISMATCH'}; nmse against the f32 prediction: kernel "
+                  f"path {noise['kernel']:.3e}, plain path {noise['plain']:.3e}", flush=True)
+            if not ok:
+                fail(f"int8 {mode}: the kernel path disagrees with the plain path or the CPU")
+            out[mode].update(vs_plain_max_rel=rel, vs_plain_nmse=nm, vs_plain_limit=limit,
+                             vs_cpu_max_rel=cpu_rel, vs_cpu_nmse=cpu_nm,
+                             vs_f32_nmse=noise["kernel"], plain_vs_f32_nmse=noise["plain"])
+
+    times = _alternate(torch, lambda mode, i: run(mode, 100 + i), rounds=8,
+                       names=("f32",) + INT8_MODES)
+    rates = {mode: n_batches * batch / statistics.median(ts[2:]) for mode, ts in times.items()}
+    for mode, rate in rates.items():
+        out[mode].update(samples_per_s=rate, chunk_ms=[t * 1e3 for t in times[mode][2:]],
+                         vs_f32=rate / rates["f32"])
+        print(f"int8 eval {mode:11s}: {rate:.1f} samples/s, {rate / rates['f32']:.3f}x f32 "
+              f"(median of {len(times[mode]) - 2} chunks of {n_batches * batch}, in turns) on "
+              f"{card}", flush=True)
+    return out
+
+
+def phase_streaming(torch, wrappers, card):
+    """``streaming_rollout`` of the flagship (kernels on, seed 0) over a
+    stream of 128 x 100 slots in blocks of 5: 20 blocks, 13 bd launches a
+    block; every block's prediction against the plain path's rollout of the
+    same stream (``MAIN_TOL``), the last one against the offline forward of
+    the same window (``STREAM_TOL``); blocks/s of the kernel and plain paths
+    in turns."""
+    from channelestimationtransformer_torch.models.streaming import streaming_rollout
+
+    cfg, model, plain, _ = _models_and_data(torch, samples=16)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    stream = torch.randn(STREAM_BATCH, STREAM_SLOTS, cfg.enc_in, generator=gen, device="cuda")
+    n_blocks = STREAM_SLOTS // STREAM_BLOCK
+    torch.cuda.synchronize()
+    _zero_counts(wrappers)
+    with torch.no_grad():
+        preds = streaming_rollout(model, cfg, stream, STREAM_BLOCK)
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    expected = {key: 13 * n_blocks if key == "bd_fwd" else 0 for key in launches}
+    window = stream[:, STREAM_SLOTS - cfg.seq_len:]
+    x_dec = torch.cat([window[:, -cfg.label_len:],
+                       window.new_zeros(STREAM_BATCH, cfg.pred_len, cfg.enc_in)], dim=1)
+    with torch.no_grad():
+        offline = model(window.contiguous(), x_dec)
+        plain_preds = streaming_rollout(plain, cfg, stream, STREAM_BLOCK)
+    err = (preds[-1] - offline).abs().max().item()
+    plain_err = (preds - plain_preds).abs().max().item()
+    ok = (tuple(preds.shape) == (n_blocks, STREAM_BATCH, cfg.pred_len, cfg.enc_in)
+          and bool(torch.isfinite(preds).all()) and err <= STREAM_TOL
+          and torch.allclose(preds, plain_preds, rtol=MAIN_TOL[0], atol=MAIN_TOL[1]))
+    print(f"streaming path: {STREAM_BATCH} streams x {STREAM_SLOTS} slots in blocks of "
+          f"{STREAM_BLOCK}: {n_blocks} blocks, launches {_launch_report(launches, expected)}; "
+          f"every block vs the plain path's rollout: max_abs {plain_err:.3e} (rtol "
+          f"{MAIN_TOL[0]}, atol {MAIN_TOL[1]}); last block vs the offline forward of its "
+          f"window: max_abs {err:.3e} (limit {STREAM_TOL}) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if launches != expected or not ok:
+        fail("the streaming path's launches, its plain rollout or its full-window prediction "
+             "are off")
+    models = {"kernel": model, "plain": plain}
+
+    def rollout(path, _):
+        with torch.no_grad():
+            streaming_rollout(models[path], cfg, stream, STREAM_BLOCK)
+    times = _alternate(torch, rollout, rounds=6)
+    out = dict(launches=launches, full_window_max_abs=err, vs_plain_max_abs=plain_err,
+               blocks=n_blocks)
+    for path, ts in times.items():
+        rate = n_blocks / statistics.median(ts[2:])
+        out[f"{path}_blocks_per_s"] = rate
+        print(f"streaming {path:6s} path: {rate:.1f} blocks/s of {STREAM_BATCH} streams "
+              f"(median of {len(ts) - 2} rollouts of {n_blocks}, in turns) on {card}",
+              flush=True)
+    return out
+
+
+def _vs_cpu(torch, model, fn, *inputs):
+    """max|card - CPU| / max|CPU| of ``fn(model, *inputs)`` with the same
+    weights on the CPU, float32, TF32 off on the card."""
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        got = fn(model, *inputs)
+        want = fn(cpu, *(x.cpu() for x in inputs))
+    return ((got.cpu() - want).abs().max() / want.abs().max()).item()
+
+
+def phase_baselines(torch, wrappers, card):
+    """``TransformerConfig()`` (no kernel route, as in JAX) in eval and
+    training chunks of 8 x 256 on the flagship's data; each of lstm, gru and
+    rnn (``cli/comparison.py``'s ``RecurrentConfig``) in a chunk of 8
+    teacher-forced Adam steps at batch 64 and one 5-step rollout at batch 256
+    on windows of 25 + 5 slots; each against the same model on the CPU on
+    one batch (``BASELINE_TOL``); no attention or quant kernel launched."""
+    from channelestimationtransformer_torch.core.config import (
+        RecurrentConfig,
+        TrainConfig,
+        TransformerConfig,
+    )
+    from channelestimationtransformer_torch.core.metrics import nmse
+    from channelestimationtransformer_torch.data.windows import (
+        WindowDataset,
+        make_batch,
+        sample_windows,
+    )
+    from channelestimationtransformer_torch.models import build_recurrent, build_transformer
+    from channelestimationtransformer_torch.train.trainer import (
+        create_train_state,
+        eval_chunk,
+        train_chunk,
+    )
+
+    tcfg = TransformerConfig()
+    ds = _card_data(torch, tcfg.seq_len, tcfg.pred_len, samples=16384)
+    out = {}
+    model = build_transformer(tcfg, device="cuda", seed=0)
+    x_enc, x_dec, _ = make_batch(ds, 256, tcfg.label_len,
+                                 generator=torch.Generator(device="cuda").manual_seed(2))
+    rel = _vs_cpu(torch, model, lambda m, a, b: m(a, b), x_enc, x_dec)
+    state = create_train_state(model, TrainConfig())
+    _zero_counts(wrappers)
+
+    def chunk(kind, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        if kind == "eval":
+            return eval_chunk(model, ds, num_batches=8, batch_size=256,
+                              label_len=tcfg.label_len, generator=gen)["nmse"]
+        return train_chunk(state, ds, num_steps=8, batch_size=256, label_len=tcfg.label_len,
+                           generator=gen)["loss_sum"] / 8
+    values = {kind: chunk(kind, 1).item() for kind in ("eval", "train")}
+    times = _alternate(torch, lambda kind, i: chunk(kind, 100 + i), rounds=6,
+                       names=("eval", "train"))
+    rates = {kind: 8 * 256 / statistics.median(ts[2:]) for kind, ts in times.items()}
+    launches = _counts(wrappers)
+    ok = rel <= BASELINE_TOL and all(math.isfinite(v) for v in values.values())
+    print(f"baseline transformer (TransformerConfig(), no kernel route): one batch card vs "
+          f"CPU max_abs/max {rel:.3e} (limit {BASELINE_TOL}) {'ok' if ok else 'MISMATCH'}; "
+          f"eval nmse {values['eval']:.6f}, train loss {values['train']:.6f}; eval "
+          f"{rates['eval']:.1f}, train {rates['train']:.1f} samples/s (chunks of 8 x 256, in "
+          f"turns); kernel launches {launches} on {card}", flush=True)
+    if not ok or any(launches.values()):
+        fail("the Transformer baseline disagrees with the CPU or launched a kernel")
+    out["transformer"] = dict(vs_cpu=rel, **values, eval_samples_per_s=rates["eval"],
+                              train_samples_per_s=rates["train"])
+
+    windows = WindowDataset(h=ds.h, seq_len=25, pred_len=5, snr_db=ds.snr_db, device="cuda")
+    for cell in ("lstm", "gru", "rnn"):
+        rcfg = RecurrentConfig(features=16, input_size=128, hidden_size=256, num_layers=2,
+                               cell=cell)
+        model = build_recurrent(rcfg, device="cuda", seed=0)
+        clean, noisy, h_seq, h_pred = sample_windows(
+            windows, 256, generator=torch.Generator(device="cuda").manual_seed(3))
+        rel_fwd = _vs_cpu(torch, model, lambda m, x: m(x), noisy)
+        rel_roll = _vs_cpu(torch, model, lambda m, x: m.rollout(x, 5), h_seq)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def steps(seed):
+            model.train()
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            for _ in range(RECURRENT_STEPS):
+                c, n, _, _ = sample_windows(windows, 64, generator=gen)
+                loss = nmse(model(n)[:, -10:], c[:, -10:])
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+            return loss
+
+        def rollout(seed):
+            model.eval()
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            _, _, x, y = sample_windows(windows, 256, generator=gen)
+            with torch.no_grad():
+                return nmse(model.rollout(x, 5), y)
+        loss, roll = steps(1).item(), rollout(2).item()
+        times = _alternate(torch, lambda kind, i: (steps if kind == "train" else rollout)(
+            100 + i), rounds=6, names=("train", "rollout"))
+        rates = {"train": RECURRENT_STEPS * 64 / statistics.median(times["train"][2:]),
+                 "rollout": 256 / statistics.median(times["rollout"][2:])}
+        ok = (max(rel_fwd, rel_roll) <= BASELINE_TOL and math.isfinite(loss)
+              and math.isfinite(roll))
+        print(f"baseline {cell}: card vs CPU max_abs/max forward {rel_fwd:.3e}, rollout "
+              f"{rel_roll:.3e} (limit {BASELINE_TOL}) {'ok' if ok else 'MISMATCH'}; "
+              f"{RECURRENT_STEPS} Adam steps x 64: loss {loss:.6f}, {rates['train']:.1f} "
+              f"samples/s; 5-step rollout x 256: nmse {roll:.6f}, {rates['rollout']:.1f} "
+              f"samples/s (in turns) on {card}", flush=True)
+        if not ok:
+            fail(f"the {cell} baseline disagrees with the CPU or is not finite")
+        out[cell] = dict(vs_cpu_forward=rel_fwd, vs_cpu_rollout=rel_roll, train_loss=loss,
+                         rollout_nmse=roll, train_samples_per_s=rates["train"],
+                         rollout_samples_per_s=rates["rollout"])
+    return out
+
+
+# Their drivers, cut: cli.int8_serving over 512 samples and 2 batches
+# (its latency loop, 12 x 20 forwards a mode, is the JAX driver's and not
+# cut), cli.train_streaming at its defaults, cli.comparison with 10 steps a
+# recurrent model, one epoch (100 steps, the driver's) a Trainer model, 1,024
+# samples and two SNRs.
+INT8_DRIVER_BATCHES = 2
+INT8_DRIVER = ["--snr", "20", "--calibrated", "--ue-speed-kmh", "5", "--val-samples", "512",
+               "--batches", str(INT8_DRIVER_BATCHES)]
+STREAM_DRIVER = ["--snr", "20", "--calibrated", "--ue-speed-kmh", "5"]
+COMPARISON_SNRS = ("12", "21")
+COMPARISON_DRIVER = ["--steps", "10", "--epochs", "1", "--train-samples", "1024",
+                     "--snr-sweep", *COMPARISON_SNRS, "--calibrated", "--ue-speed-kmh", "5"]
+
+
+def phase_serving_drivers(torch, wrappers, gemms, checkpoint):
+    """``cli.int8_serving``, ``cli.train_streaming`` and ``cli.comparison``
+    in this process, the first two from ``checkpoint``: their launch counts
+    (bd 13 a forward; one GEMM a served layer; the comparison's Informer 13
+    forward and backward a step), finite results and files."""
+    from channelestimationtransformer_torch.cli import comparison, int8_serving, train_streaming
+
+    folder = OUT / "serving_drivers"
+    forwards = 3 * INT8_DRIVER_BATCHES + 3 * (2 + 10) * 20  # accuracy + latency, 3 modes
+    served = INT8_DRIVER_BATCHES + (2 + 10) * 20  # a mode's forwards
+    n_snr = len(COMPARISON_SNRS)
+    runs = [
+        ("int8_serving", int8_serving,
+         [*INT8_DRIVER, "--checkpoint", str(checkpoint), "--out",
+          str(folder / "int8_serving.json")],
+         dict(bd_fwd=13 * forwards), dict(int8=77 * served, bf16_f32=77 * served),
+         lambda r: [r["nmse_f32"], r["nmse_int8"], r["nmse_int8_wo"], r["nmse_delta_db"]]),
+        ("train_streaming", train_streaming,
+         [*STREAM_DRIVER, "--checkpoint", str(checkpoint), "--out",
+          str(folder / "streaming_results.json")],
+         dict(bd_fwd=13 * STREAM_SLOTS // STREAM_BLOCK), {},
+         lambda r: r["per_block_nmse"] + [r["warm_window_nmse"]]),
+        ("comparison", comparison, [*COMPARISON_DRIVER, "--out", str(folder / "comparison")],
+         dict(bd_fwd=13 * (100 + 8 + 8 * n_snr), bd_bwd=13 * 100), {},
+         lambda r: [v for sweep in r.values() for row in sweep.values() for v in row]),
+    ]
+    out = {}
+    for name, cli, argv, counts, gemm_counts, values in runs:
+        expected = {key: counts.get(key, 0) for key in wrappers}
+        want_gemm = {key: gemm_counts.get(key, 0) for key in gemms}
+        log = io.StringIO()
+        _zero_counts(wrappers)
+        _zero_counts(gemms)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            result = cli.main(argv)
+        secs = time.perf_counter() - t0
+        print(log.getvalue(), end="", flush=True)
+        launches, gemm = _counts(wrappers), _counts(gemms)
+        vals = values(result)
+        finite = bool(vals) and all(math.isfinite(v) for v in vals)
+        print(f"driver phase: cli.{name} {' '.join(argv)}: {secs:.1f} s; launches "
+              f"{_launch_report(launches, expected)}; GEMMs {gemm} (expected {want_gemm}); "
+              f"{len(vals)} values, finite {finite}", flush=True)
+        if launches != expected or gemm != want_gemm:
+            fail(f"cli.{name} launched {launches}, {gemm}; expected {expected}, {want_gemm}")
+        if not finite:
+            fail(f"cli.{name}'s results are not finite")
+        out[name] = dict(argv=argv, seconds=secs, launches=launches, gemm_launches=gemm,
+                         result=result)
+    written = [folder / "int8_serving.json", folder / "streaming_results.json",
+               folder / "comparison" / "comparison.json",
+               *(folder / "comparison" / f"loss_{m}.pkl"
+                 for m in ("rnn", "gru", "lstm", "transformer", "informer"))]
+    if not all(f.exists() for f in written):
+        fail("a serving, streaming or comparison driver's file is missing")
+    return out
+
+
 def _per_path(rows, key, weight):
     """Sum of ``key`` weighted by each row's count on the path (``weight``)."""
     return sum(r[key] * r[weight] for r in rows if r[weight])
@@ -2078,6 +2513,22 @@ def main(argv):
     drivers = phase_study_drivers(
         torch, wrappers, OUT / "cli" / f"tmodel_{cli['result']['name']}_{CLI_EPOCHS}.pt")
 
+    # int8 serving, streaming, the baselines, and their three drivers
+    # (the first two from the cli phase's checkpoint).
+    from channelestimationtransformer_torch.ops.quant import serving
+
+    gemms = dict(int8=serving.int8_matmul, bf16_f32=serving.bf16_matmul_f32)
+    int8_path = phase_int8_path(torch, wrappers, gemms, card)
+    streaming = phase_streaming(torch, wrappers, card)
+    baselines = phase_baselines(torch, wrappers, card)
+    cmp_cfg = InformerConfig(seq_len=25, label_len=10, pred_len=5, use_pallas=True)
+    cmp_batch = phase_one_batch(torch, wrappers, "comparison informer eval batch", cmp_cfg,
+                                {"bd_fwd": 13})
+    cmp_train_path = phase_train_path(torch, wrappers, card, profile, cfg=cmp_cfg,
+                                      name="comparison informer train")
+    serving_drivers = phase_serving_drivers(
+        torch, wrappers, gemms, OUT / "cli" / f"tmodel_{cli['result']['name']}_{CLI_EPOCHS}.pt")
+
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
     bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]  # noqa: E731
     kernels = [
@@ -2149,6 +2600,18 @@ def main(argv):
                       ptq_driver_launches=drivers["ptq_sweep"]["launches"]["fixed"])
     kernels[4].update(qat_train_launches=qat_prune["qat fibbinary"]["launches"]["codeword"],
                       qat_driver_launches=drivers["qat_incremental"]["launches"]["codeword"])
+    # The int8, streaming and driver paths' launches.
+    driver_launches = {name: run["launches"] for name, run in serving_drivers.items()}
+    kernels[0].update(int8_eval_launches=int8_path["w8a8"]["launches"]["bd_fwd"],
+                      int8_wo_eval_launches=int8_path["weight_only"]["launches"]["bd_fwd"],
+                      streaming_launches=streaming["launches"]["bd_fwd"],
+                      int8_driver_launches=driver_launches["int8_serving"]["bd_fwd"],
+                      streaming_driver_launches=driver_launches["train_streaming"]["bd_fwd"],
+                      comparison_driver_launches=driver_launches["comparison"]["bd_fwd"])
+    kernels[1].update(comparison_driver_launches=driver_launches["comparison"]["bd_bwd"],
+                      comparison_train_launches=cmp_train_path["launches"]["bd_bwd"])
+    kernels[0].update(comparison_train_launches=cmp_train_path["launches"]["bd_fwd"],
+                      comparison_eval_launches=cmp_batch["launches"]["bd_fwd"])
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
         mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, fixed_grouped_rows=grouped_rows,
@@ -2161,7 +2624,10 @@ def main(argv):
         cli=cli, prob_eval_path=prob_eval_path, prob_train_path=prob_train_path,
         fused_eval_path=fused_eval_path, fused_train_path=fused_train_path,
         fused_vs_unfused=fused_vs_unfused, lsq_train=lsq_train, lsq_train_path=lsq_train_path,
-        qat_prune=qat_prune, drivers=drivers, kernels=kernels),
+        qat_prune=qat_prune, drivers=drivers, int8_path=int8_path, streaming=streaming,
+        baselines=baselines, comparison_informer_batch=cmp_batch,
+        comparison_informer_train_path=cmp_train_path, serving_drivers=serving_drivers,
+        kernels=kernels),
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

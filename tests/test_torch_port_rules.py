@@ -13,8 +13,23 @@ torch = pytest.importorskip("torch")
 
 from channelestimationtransformer_torch.channel.cdl import CDLModel, generate_cdl_channel
 from channelestimationtransformer_torch.channel.dataset import generate_beamformed_dataset
-from channelestimationtransformer_torch.cli import generate_dataset, train_informer
-from channelestimationtransformer_torch.core.config import InformerConfig
+from channelestimationtransformer_torch.cli import (
+    comparison,
+    generate_dataset,
+    int8_serving,
+    train_informer,
+    train_streaming,
+)
+from channelestimationtransformer_torch.core.config import (
+    InformerConfig,
+    RecurrentConfig,
+    TransformerConfig,
+)
+from channelestimationtransformer_torch.models import (
+    build_recurrent,
+    build_transformer,
+    init_stream,
+)
 from channelestimationtransformer_torch.data.windows import WindowDataset
 from channelestimationtransformer_torch.models.informer import build_informer
 
@@ -49,7 +64,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "channel/beamforming.py", "channel/dataset.py", "channel/interpolate.py",
                    "data/packing.py", "cli/ptq_sweep.py", "cli/qat_incremental.py",
                    "cli/prune.py", "cli/_study.py", "ops/prune.py", "ops/quant/auto_low.py",
-                   "ops/quant/functional.py", "ops/quant/optim.py"):
+                   "ops/quant/functional.py", "ops/quant/optim.py", "ops/quant/serving.py",
+                   "ops/quant/rate.py", "models/transformer.py", "models/recurrent.py",
+                   "models/streaming.py", "cli/int8_serving.py", "cli/comparison.py",
+                   "cli/train_streaming.py"):
         assert f"channelestimationtransformer_torch/{module}" in names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
@@ -83,6 +101,19 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate_dataset.main(["--num-samples", "2", "--num-slots", "10", "--out-dir",
                                str(tmp_path)])
+    # The baselines, the stream state, int8 serving's and the comparison's drivers.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_transformer(TransformerConfig(d_model=16, n_heads=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_recurrent(RecurrentConfig(input_size=8, hidden_size=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_stream(2, InformerConfig())
+    for cli, argv in ((int8_serving, ["--out", str(tmp_path / "int8.json")]),
+                      (train_streaming, ["--checkpoint", "x.pt",
+                                         "--out", str(tmp_path / "stream.json")]),
+                      (comparison, ["--out", str(tmp_path / "cmp")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(argv)
     assert not any(tmp_path.iterdir())
     h = generate_beamformed_dataset(0, model=model, num_samples=2, num_slots=10, device="cpu")
     assert h.device.type == "cpu" and h.shape == (2, 10, 2, 4, 2)
