@@ -267,6 +267,11 @@ class AttentionLayer(nn.Module):
         h = self.n_heads
         q, k, v = self._project(queries, keys, values)
         q, k, v = q.unflatten(-1, (h, -1)), k.unflatten(-1, (h, -1)), v.unflatten(-1, (h, -1))
+        # q, k and v meet in their common dtype, as jnp.einsum promotes: int8
+        # weight-only serving of a bf16 model returns a projection in its
+        # input's dtype, which may be f32 (JAX serving.py:132).
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
         drop = self.dropout if self.training else 0.0
         if drop > 0.0 and generator is None:
             raise ValueError("attention dropout in train mode needs a torch.Generator")

@@ -2,7 +2,9 @@
 on one NVIDIA card, in float32 and in bfloat16 activations, its channel
 generator and training drivers, ProbSparse attention, fused QKV projections,
 LSQ training, the quantization study (QAT, pruning and their drivers), int8
-serving, blockwise streaming and the baseline models with their drivers.
+serving, blockwise streaming and the baseline models with their drivers,
+the end-to-end link simulation with its drivers, and the scale demo with its
+int8 A/B.
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
@@ -51,7 +53,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    (exact), and the backward kernel's dQ/dK/dV against
    ``bd_attention_bwd_reference`` on the kernel forward's output and lse,
    and against the plain backward on the plain forward's, each timed beside
-   its bound and the SDPA yardstick;
+   its bound and the SDPA yardstick; then the checks of 3, 4 and 7 (the
+   kernels' own times alone) at the scale demo's and the int8 A/B's shapes
+   that those lists leave out (``scale_kernel_shapes``: the bd kernels at
+   E 32 and 64, mha at L 256, E 64), so that every kernel instance the
+   scale phases launch is held against its plain version;
 8. eval path: ``build_informer(InformerConfig(use_pallas=True))`` at full
    width and ``eval_chunk`` over 8 batches of 256 from a 65,536-sample
    dataset resident on the card, with the kernels' launch counts (all 104
@@ -182,12 +188,29 @@ Phases, each printing its own lines; any failure exits non-zero:
 30. their drivers: ``cli.int8_serving`` and ``cli.train_streaming`` from
    phase 18's checkpoint and ``cli.comparison`` cut to a few steps, 1,024
    samples and two SNRs: their launch counts, finite results and files.
+31. link: ``sim/``'s ``simulate_ber`` and ``simulate_coded_ber`` on the card
+   against the CPU in the e2e driver's five variants (uncoded, LS CSI, time
+   domain, conv, LDPC) at its eight Eb/N0 points on 256 channels, the same
+   draws injected on both: uncoded BER (``LINK_BER_TOL``), the decoders'
+   LLRs (``LINK_LLR_TOL``), the Viterbi and LDPC decoders on identical LLRs
+   (``LINK_BITS_TOL``), SE (``LINK_SE_TOL``), the card's seconds and bits/s;
+32. e2e drivers: ``cli.end_to_end_sim`` in the five variants of
+   ``experiments/round2_queue.sh:30-38`` at its defaults from phase 18's
+   checkpoint (13 bd forward launches a run, no other kernel), finite rows,
+   files, seconds and Monte-Carlo bits/s; ``cli.collect_e2e`` merges them;
+33. scale demo: ``cli.scale_demo`` at its six sizes in bf16, steps cut: the
+   parameters against JAX's column, bd forward and backward launches against
+   the routing's counts (``attention_calls``), FLOPs a step and the share of
+   the card's peak;
+34. int8 A/B: ``cli.int8_scale_ab`` at its four sizes, repetitions cut: bd,
+   mha and GEMM launches against the routing's counts, finite timings.
 
 The bd forward's entry in the kernels line also carries the launches of
 the later paths and drivers (``int8_eval_launches``,
-``streaming_launches``, ...). Each attention kernel's entry carries its bf16 instance
-(time, launches, bound at bf16 bytes or tensor-core FLOPs, SDPA) under
-``bfloat16``.
+``streaming_launches``, ``e2e_driver_launches``, ``scale_demo_launches``,
+...), as the bd backward's and the mha kernel's entries do theirs. Each
+attention kernel's entry carries its bf16 instance (time, launches, bound at
+bf16 bytes or tensor-core FLOPs, SDPA) under ``bfloat16``.
 
 With ``--profile`` each path's line also gives its device kernel launches
 per chunk. The last three lines are the card's name and power limit, the kernels' JSON
@@ -396,13 +419,13 @@ def fwd_bound(l_q, l_k, causal, dtype, *, b, h, e, d=None, with_lse=False):
                   ATTN_PEAK_FLOPS)
 
 
-def bwd_bound(l_q, l_k, causal, dtype):
+def bwd_bound(l_q, l_k, causal, dtype, *, b=B, h=H, e=E):
     """Least time for one backward: Q, K, V, O, dO and lse read once, dQ,
     dK, dV written once; or 10*E FLOPs per unmasked pair (QK^T and dO V^T
     once each, dQ, dK, dV) at the tensor-core rate, whichever is larger."""
     size = 4 if dtype == "float32" else 2
-    nbytes = size * B * H * E * (4 * l_q + 4 * l_k) + 4 * B * H * l_q
-    return _bound(nbytes, 10 * B * H * E * _pairs(l_q, l_k, causal), dtype, ATTN_PEAK_FLOPS)
+    nbytes = size * b * h * e * (4 * l_q + 4 * l_k) + 4 * b * h * l_q
+    return _bound(nbytes, 10 * b * h * e * _pairs(l_q, l_k, causal), dtype, ATTN_PEAK_FLOPS)
 
 
 def _compare(torch, got, want, tol):
@@ -418,11 +441,12 @@ def _inputs(torch, gen, dtype, l_q, l_k, *, b=B, h=H, e=E, d=None):
                  for l, w in ((l_q, e), (l_k, e), (l_k, e if d is None else d)))
 
 
-def phase_kernel(torch, F, kernel_fn, reference, shapes, prefix="kernel", seed=0):
+def phase_kernel(torch, F, kernel_fn, reference, shapes, prefix="kernel", seed=0,
+                 timed=True):
     """An eval forward kernel against its plain version at ``shapes``
     ((label, l_q, l_k, causal, calls per eval batch, b, h, e, d)) in float32
     and bfloat16, with kernel, plain and ``F.scaled_dot_product_attention``
-    times."""
+    times (``timed=False``: the kernel's graph time alone)."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -437,22 +461,23 @@ def phase_kernel(torch, F, kernel_fn, reference, shapes, prefix="kernel", seed=0
 
             def kernel():
                 return kernel_fn(q, k, v, causal=causal)
-            ms = time_ms(torch, kernel)
-            kernel_eager_ms = eager_ms(torch, kernel)
-            plain_ms = time_ms(torch, lambda: reference(q, k, v, causal=causal))
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))
             row = dict(shape=label, dtype=dtype_name, b=b, h=h, e=e, d=d, l_q=l_q, l_k=l_k,
                        causal=causal, calls_per_batch=calls, max_abs_err=abs_err,
-                       max_rel_err=rel_err, rtol=rtol, atol=atol, ms=ms,
-                       eager_ms=kernel_eager_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       max_rel_err=rel_err, rtol=rtol, atol=atol, ms=time_ms(torch, kernel),
                        **fwd_bound(l_q, l_k, causal, dtype_name, b=b, h=h, e=e, d=d))
+            times = f"kernel {row['ms'] * 1e3:.1f} us"
+            if timed:
+                row.update(eager_ms=eager_ms(torch, kernel),
+                           plain_ms=time_ms(torch, lambda: reference(q, k, v, causal=causal)),
+                           library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=causal)))
+                times += (f" (eager {row['eager_ms'] * 1e3:.1f}), plain "
+                          f"{row['plain_ms'] * 1e3:.1f} us, sdpa {row['library_ms'] * 1e3:.1f} us")
             rows.append(row)
             print(f"{prefix} {label:24s} {dtype_name:8s} max_abs {abs_err:.3e} max_rel "
                   f"{rel_err:.3e} (rtol {rtol}, atol {atol}) {'ok' if ok else 'MISMATCH'} | "
-                  f"kernel {ms * 1e3:.1f} us (eager {kernel_eager_ms * 1e3:.1f}), plain "
-                  f"{plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.1f} us, bound "
-                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']})", flush=True)
+                  f"{times}, bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']})",
+                  flush=True)
             if not ok:
                 fail(f"{prefix} disagrees with its plain version at {label} {dtype_name}")
     return rows
@@ -462,29 +487,35 @@ def kernel_keep_mask(torch, ops, q, k, causal, seed):
     """The forward kernel's dropout mask, read back through one-hot values:
     with V's row j the unit vector of column j - E*g, output column c of
     pass g is P_drop[:, E*g + c], nonzero exactly where the key is kept
-    (every unmasked probability is > 0 at these inputs)."""
-    l_k = k.shape[1]
-    kept = torch.zeros(B, H, q.shape[1], l_k, dtype=torch.bool, device="cuda")
-    for g in range(0, l_k, E):
-        cols = torch.arange(g, min(g + E, l_k), device="cuda")
+    (every unmasked probability is > 0 at these inputs). E stands for the
+    head width."""
+    b, l_k, h, e = k.shape
+    kept = torch.zeros(b, h, q.shape[1], l_k, dtype=torch.bool, device="cuda")
+    for g in range(0, l_k, e):
+        cols = torch.arange(g, min(g + e, l_k), device="cuda")
         v = torch.zeros_like(k)
         v[:, cols, :, cols - g] = 1.0
         out = ops.bd_attention(q, k, v, causal=causal, dropout=DROPOUT, seed=seed)
-        kept[..., g:g + E] = (out.permute(0, 2, 1, 3) != 0)[..., :len(cols)]
+        kept[..., g:g + e] = (out.permute(0, 2, 1, 3) != 0)[..., :len(cols)]
     return kept
 
 
-def phase_kernel_train(torch, F, ops):
-    """The training kernels at the flagship shapes: forward with dropout
-    (and lse), its mask, and the backward."""
+def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
+    """The training kernels at ``shapes`` ((label, l_q, l_k, causal, calls
+    per step, b, h, e); the flagship's by default): forward with dropout
+    (and lse), its mask, and the backward, against their plain versions,
+    with kernel, plain and SDPA times (``timed=False``: the kernels' graph
+    times alone)."""
+    if shapes is None:
+        shapes = [s + (B, H, E) for s in SHAPES]
     fwd_rows, bwd_rows = [], []
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for label, l_q, l_k, causal, calls in SHAPES:
-            q, k, v = _inputs(torch, gen, dtype, l_q, l_k)
-            do = torch.randn(B, l_q, H, E, generator=gen, device="cuda").to(dtype)
+        for label, l_q, l_k, causal, calls, b, h, e in shapes:
+            q, k, v = _inputs(torch, gen, dtype, l_q, l_k, b=b, h=h, e=e)
+            do = torch.randn(b, l_q, h, e, generator=gen, device="cuda").to(dtype)
             seed = ops.draw_seed(gen, "cuda")
-            scale = E ** -0.5
+            scale = e ** -0.5
             kw = dict(causal=causal, scale=scale, dropout=DROPOUT)
 
             # Forward with dropout and lse, against the plain version on the same seed.
@@ -496,29 +527,32 @@ def phase_kernel_train(torch, F, ops):
             lse_err, _, lse_ok = _compare(torch, lse, plain_lse, (1e-5, 1e-5))
             mask_ok = torch.equal(
                 kernel_keep_mask(torch, ops, q, k, causal, seed),
-                ops.dropout_keep_mask(seed, B, H, l_q, l_k, 1.0 - DROPOUT)
+                ops.dropout_keep_mask(seed, b, h, l_q, l_k, 1.0 - DROPOUT)
                 & ~torch.ones(l_q, l_k, dtype=torch.bool, device="cuda").triu(1 if causal else l_k))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
             def fwd():
                 return ops.bd_attention_fwd(q, k, v, seed, with_lse=True, **kw)
-            row = dict(shape=label, dtype=dtype_name, l_q=l_q, l_k=l_k, causal=causal,
-                       calls_per_step=calls, dropout=DROPOUT, max_abs_err=abs_err,
-                       max_rel_err=rel_err, lse_max_abs_err=lse_err, mask_equal=mask_ok,
-                       ms=time_ms(torch, fwd), eager_ms=eager_ms(torch, fwd),
-                       plain_ms=time_ms(torch, lambda: ops._reference_forward(
-                           q, k, v, seed=seed, with_lse=True, **kw)),
-                       library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                           qt, kt, vt, dropout_p=DROPOUT, is_causal=causal)),
-                       **fwd_bound(l_q, l_k, causal, dtype_name, b=B, h=H, e=E,
+            row = dict(shape=label, dtype=dtype_name, b=b, h=h, e=e, l_q=l_q, l_k=l_k,
+                       causal=causal, calls_per_step=calls, dropout=DROPOUT,
+                       max_abs_err=abs_err, max_rel_err=rel_err, lse_max_abs_err=lse_err,
+                       mask_equal=mask_ok, ms=time_ms(torch, fwd),
+                       **fwd_bound(l_q, l_k, causal, dtype_name, b=b, h=h, e=e,
                                    with_lse=True))
+            times = f"kernel {row['ms'] * 1e3:.1f} us"
+            if timed:
+                row.update(eager_ms=eager_ms(torch, fwd),
+                           plain_ms=time_ms(torch, lambda: ops._reference_forward(
+                               q, k, v, seed=seed, with_lse=True, **kw)),
+                           library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                               qt, kt, vt, dropout_p=DROPOUT, is_causal=causal)))
+                times += (f" (eager {row['eager_ms'] * 1e3:.1f}), plain "
+                          f"{row['plain_ms'] * 1e3:.1f} us, sdpa {row['library_ms'] * 1e3:.1f} us")
             fwd_rows.append(row)
-            print(f"train fwd {label:22s} {dtype_name:8s} dropout {DROPOUT}: max_abs "
+            print(f"{prefix} fwd {label:22s} {dtype_name:8s} dropout {DROPOUT}: max_abs "
                   f"{abs_err:.3e} lse {lse_err:.3e} {'ok' if ok and lse_ok else 'MISMATCH'}, "
-                  f"mask {'equal' if mask_ok else 'DIFFERS'} | kernel {row['ms'] * 1e3:.1f} us "
-                  f"(eager {row['eager_ms'] * 1e3:.1f}), plain {row['plain_ms'] * 1e3:.1f} us, "
-                  f"sdpa {row['library_ms'] * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f} us "
-                  f"({row['bound_by']})", flush=True)
+                  f"mask {'equal' if mask_ok else 'DIFFERS'} | {times}, bound "
+                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']})", flush=True)
             if not (ok and lse_ok and mask_ok):
                 fail(f"forward kernel with dropout disagrees at {label} {dtype_name}")
 
@@ -535,37 +569,41 @@ def phase_kernel_train(torch, F, ops):
                                                   **kw)
             pair_errs = [_compare(torch, g, w.to(dtype), BWD_TOL[dtype_name])
                          for g, w in zip(got, pair)]
-            ok = all(e[2] for e in errs + pair_errs)
+            ok = all(err[2] for err in errs + pair_errs)
 
             def bwd():
                 return ops.bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
-            qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
-            dog = do.transpose(1, 2)
-
-            def sdpa_fwd():
-                return F.scaled_dot_product_attention(qg, kg, vg, dropout_p=DROPOUT,
-                                                      is_causal=causal)
-
-            def sdpa_fwd_bwd():
-                return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dog)
-            lib_ms = time_ms(torch, sdpa_fwd_bwd) - time_ms(torch, sdpa_fwd)
-            row = dict(shape=label, dtype=dtype_name, l_q=l_q, l_k=l_k, causal=causal,
-                       calls_per_step=calls, dropout=DROPOUT,
-                       max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
-                       pair_max_abs_err=max(e[0] for e in pair_errs),
+            row = dict(shape=label, dtype=dtype_name, b=b, h=h, e=e, l_q=l_q, l_k=l_k,
+                       causal=causal, calls_per_step=calls, dropout=DROPOUT,
+                       max_abs_err=max(err[0] for err in errs), max_rel_err=max(err[1] for err in errs),
+                       pair_max_abs_err=max(err[0] for err in pair_errs),
                        rtol=BWD_TOL[dtype_name][0], atol=BWD_TOL[dtype_name][1],
-                       ms=time_ms(torch, bwd), eager_ms=eager_ms(torch, bwd),
-                       plain_ms=time_ms(torch, lambda: ops.bd_attention_bwd_reference(
-                           q, k, v, o, do, lse, seed, **kw)),
-                       library_ms=lib_ms, **bwd_bound(l_q, l_k, causal, dtype_name))
+                       ms=time_ms(torch, bwd),
+                       **bwd_bound(l_q, l_k, causal, dtype_name, b=b, h=h, e=e))
+            times = f"kernel {row['ms'] * 1e3:.1f} us"
+            if timed:
+                qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+                dog = do.transpose(1, 2)
+
+                def sdpa_fwd():
+                    return F.scaled_dot_product_attention(qg, kg, vg, dropout_p=DROPOUT,
+                                                          is_causal=causal)
+
+                def sdpa_fwd_bwd():
+                    return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dog)
+                row.update(eager_ms=eager_ms(torch, bwd),
+                           plain_ms=time_ms(torch, lambda: ops.bd_attention_bwd_reference(
+                               q, k, v, o, do, lse, seed, **kw)),
+                           library_ms=time_ms(torch, sdpa_fwd_bwd) - time_ms(torch, sdpa_fwd))
+                times += (f" (eager {row['eager_ms'] * 1e3:.1f}), plain "
+                          f"{row['plain_ms'] * 1e3:.1f} us, sdpa bwd "
+                          f"{row['library_ms'] * 1e3:.1f} us")
             bwd_rows.append(row)
-            print(f"train bwd {label:22s} {dtype_name:8s} dQ/dK/dV max_abs "
-                  f"{' '.join(f'{e[0]:.2e}' for e in errs)}, vs the plain pair "
-                  f"{' '.join(f'{e[0]:.2e}' for e in pair_errs)} (rtol {row['rtol']}, atol "
-                  f"{row['atol']}) {'ok' if ok else 'MISMATCH'} | kernel {row['ms'] * 1e3:.1f} us "
-                  f"(eager {row['eager_ms'] * 1e3:.1f}), plain {row['plain_ms'] * 1e3:.1f} us, "
-                  f"sdpa bwd {lib_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f} us "
-                  f"({row['bound_by']})", flush=True)
+            print(f"{prefix} bwd {label:22s} {dtype_name:8s} dQ/dK/dV max_abs "
+                  f"{' '.join(f'{err[0]:.2e}' for err in errs)}, vs the plain pair "
+                  f"{' '.join(f'{err[0]:.2e}' for err in pair_errs)} (rtol {row['rtol']}, atol "
+                  f"{row['atol']}) {'ok' if ok else 'MISMATCH'} | {times}, bound "
+                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']})", flush=True)
             if not ok:
                 fail(f"backward kernel disagrees with its plain version at {label} {dtype_name}")
     return fwd_rows, bwd_rows
@@ -2353,6 +2391,361 @@ def phase_serving_drivers(torch, wrappers, gemms, checkpoint):
     return out
 
 
+# The link simulation (sim/), card against CPU on the same channels and
+# injected draws. Limits set from two runs' card readings (chiprun_out/
+# chip_smoke.json, "link"), about 4x over them: the decoders' LLRs within
+# LINK_LLR_TOL of their max (read 9.7e-7 conv, 1.16e-6 LDPC), SE within
+# LINK_SE_TOL relative (read 4.6e-7); uncoded BER within LINK_BER_TOL
+# absolute at every Eb/N0, 2 bits of a call's 131,072 (read 0); the Viterbi
+# and LDPC bits from identical LLRs bit for bit (read 0: the same IEEE
+# operations in the same order on both devices).
+LINK_B = 256
+LINK_EBNO = (-4.0, -2.0, 0.0, 2.0, 4.0, 6.0, 8.0, 10.0)
+LINK_BER_TOL = 2 / (LINK_B * 512)
+LINK_SE_TOL = 2e-6
+LINK_LLR_TOL = 5e-6
+LINK_BITS_TOL = 0
+# (name, fec, csi, domain, symbols a stream): the e2e driver's five runs.
+LINK_VARIANTS = [("uncoded", None, "perfect", "freq", 128), ("ls csi", None, "ls", "freq", 128),
+                 ("time domain", None, "perfect", "time", 128),
+                 ("conv", "conv", "perfect", "freq", 128), ("ldpc", "ldpc", "perfect", "freq", 162)]
+
+
+def _link_draws(torch, fec, csi, domain, n_sym, seed):
+    """The payload and unit complex noise of one link call, drawn on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    if fec == "ldpc":
+        payload = torch.rand((LINK_B, 1, 324), generator=gen) < 0.5
+    elif fec == "conv":
+        payload = torch.rand((LINK_B, n_sym * 2 * 2 // 2 - 6), generator=gen) < 0.5
+    else:
+        payload = torch.rand((LINK_B, n_sym * 2 * 2), generator=gen) < 0.5
+    f = n_sym if domain == "freq" else n_sym + n_sym // 4
+    shape = (LINK_B, 2, 1 + (2 if csi == "ls" else 0), f)
+    noise = torch.complex(torch.randn(shape, generator=gen), torch.randn(shape, generator=gen))
+    return {"info" if fec else "bits": payload, "noise": noise}
+
+
+def phase_link(torch, card):
+    """``sim/``'s link on the card against the CPU: the e2e driver's five
+    variants at its eight Eb/N0 points on 256 channels (2 x 4, precoded on a
+    perturbed copy), the same draws injected on both; the decoders' LLRs; the
+    Viterbi and LDPC decoders on the CPU's LLRs; SE; the card's seconds."""
+    from channelestimationtransformer_torch.sim import coding, ldpc, link, precoding
+
+    gen = torch.Generator().manual_seed(21)
+    shape = (LINK_B, 2, 4)
+    h = torch.complex(torch.randn(shape, generator=gen), torch.randn(shape, generator=gen))
+    h = h / math.sqrt(2.0)
+    h_pre = h + 0.1 * torch.complex(torch.randn(shape, generator=gen),
+                                    torch.randn(shape, generator=gen))
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            llr = args[1] if name == "ldpc" else args[0]
+            seen.setdefault(name, []).append(llr)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    rows = {}
+    for v, (name, fec, csi, domain, n_sym) in enumerate(LINK_VARIANTS):
+        out = {}
+        for device in ("cpu", "cuda"):
+            seen.clear()
+            link.viterbi_decode = spy("conv", coding.viterbi_decode)
+            link.ldpc_decode = spy("ldpc", ldpc.ldpc_decode)
+            bers, blers = [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, ebno in enumerate(LINK_EBNO):
+                draws = _link_draws(torch, fec, csi, domain, n_sym, 100 * v + i)
+                if fec:
+                    ber, bler, total = link.simulate_coded_ber(
+                        None, h, h_pre, ebno, link.LinkConfig(), n_sym, fec, csi, domain,
+                        device=device, **draws)
+                    blers.append(float(bler))
+                else:
+                    ber, total = link.simulate_ber(None, h, h_pre, ebno, link.LinkConfig(),
+                                                   n_sym, csi, domain, device=device, **draws)
+                bers.append(float(ber))
+            torch.cuda.synchronize()
+            out[device] = dict(ber=bers, bler=blers, seconds=time.perf_counter() - t0,
+                               total=total, llr=list(seen.get(fec, [])))
+            link.viterbi_decode, link.ldpc_decode = coding.viterbi_decode, ldpc.ldpc_decode
+        cpu, gpu = out["cpu"], out["cuda"]
+        ber_diff = max(abs(a - b) for a, b in zip(cpu["ber"], gpu["ber"]))
+        row = dict(ber_cpu=cpu["ber"], ber_cuda=gpu["ber"], bler_cpu=cpu["bler"],
+                   bler_cuda=gpu["bler"], ber_max_abs_diff=ber_diff,
+                   seconds_cuda=gpu["seconds"], seconds_cpu=cpu["seconds"],
+                   bits_per_s_cuda=len(LINK_EBNO) * gpu["total"] / gpu["seconds"])
+        if fec:
+            llr_err = max(float((g.cpu() - c).abs().max() / c.abs().max())
+                          for c, g in zip(cpu["llr"], gpu["llr"]))
+            # The decoders on identical LLRs (the CPU's), card against CPU.
+            flipped = n_bits = 0
+            for c in cpu["llr"]:
+                if fec == "conv":
+                    n = c.shape[-1] // 2 - (coding.K - 1)
+                    a, b = coding.viterbi_decode(c, n), coding.viterbi_decode(c.cuda(), n)
+                else:
+                    code = ldpc.make_qc_ldpc()
+                    a, b = ldpc.ldpc_decode(code, c), ldpc.ldpc_decode(code, c.cuda())
+                flipped += int((a != b.cpu()).sum())
+                n_bits += a.numel()
+            row.update(llr_max_abs_over_max=llr_err, decoded_bits=n_bits,
+                       decoded_bits_differing=flipped)
+            print(f"link {name} (B {LINK_B}, {n_sym} symbols x 2 streams, {fec}), card vs cpu: "
+                  f"coded BER max |diff| {ber_diff:.3e}, BLER {gpu['bler']} vs {cpu['bler']}; "
+                  f"LLRs max_abs/max {llr_err:.3e} (limit {LINK_LLR_TOL}); {fec} decoder on "
+                  f"identical LLRs: {flipped} of {n_bits} bits differ (limit "
+                  f"{LINK_BITS_TOL}) | card {gpu['seconds']:.3f} s for "
+                  f"{len(LINK_EBNO)} calls, {row['bits_per_s_cuda']:,.0f} bits/s; cpu "
+                  f"{cpu['seconds']:.3f} s | {card}", flush=True)
+            if not llr_err <= LINK_LLR_TOL:
+                fail(f"link {name}: LLRs card vs cpu {llr_err:.3e} > {LINK_LLR_TOL}")
+            if flipped > LINK_BITS_TOL * n_bits:
+                fail(f"link {name}: {flipped} of {n_bits} decoded bits differ on identical LLRs")
+        else:
+            print(f"link {name} (B {LINK_B}, {n_sym} symbols x 2 streams, {csi} csi, {domain}), "
+                  f"card vs cpu: BER max |diff| {ber_diff:.3e} (limit {LINK_BER_TOL:.3e}) | card "
+                  f"{gpu['seconds']:.3f} s for {len(LINK_EBNO)} calls, "
+                  f"{row['bits_per_s_cuda']:,.0f} bits/s; cpu {cpu['seconds']:.3f} s | {card}",
+                  flush=True)
+            if not ber_diff <= LINK_BER_TOL:
+                fail(f"link {name}: BER card vs cpu differs by {ber_diff:.3e}")
+        if not all(math.isfinite(x) for x in gpu["ber"] + gpu["bler"]):
+            fail(f"link {name}: a BER is not finite on the card")
+        rows[name] = row
+    se = {dev: precoding.precoded_spectral_efficiency(h.to(dev), h_pre.to(dev), 100.0).cpu()
+          for dev in ("cpu", "cuda")}
+    se_err = float(((se["cuda"] - se["cpu"]).abs() / se["cpu"].abs()).max())
+    print(f"link SE (B {LINK_B}, precoded on the perturbed copy, SNR 100), card vs cpu: "
+          f"max relative |diff| {se_err:.3e} (limit {LINK_SE_TOL}); mean {float(se['cuda'].mean()):.4f} "
+          f"vs {float(se['cpu'].mean()):.4f} b/s/Hz", flush=True)
+    if not se_err <= LINK_SE_TOL:
+        fail(f"link SE card vs cpu {se_err:.3e} > {LINK_SE_TOL}")
+    rows["se_max_rel_diff"] = se_err
+    return rows
+
+
+# The e2e driver in the five variants of experiments/round2_queue.sh:30-38 at
+# its defaults (batch 256, eight Eb/N0, three CSI sources) from the cli phase's
+# checkpoint: the predictor's one forward is 13 bd forward launches a run.
+E2E_COMMON = ["--calibrated", "--ue-speed-kmh", "5"]
+E2E_RUNS = [("uncoded", "e2e_results.json", []),
+            ("coded_conv", "e2e_coded_conv.json", ["--coded", "--fec", "conv"]),
+            ("coded_ldpc", "e2e_coded_ldpc.json", ["--coded", "--fec", "ldpc"]),
+            ("ls_csi", "e2e_ls.json", ["--csi", "ls"]),
+            ("time_domain", "e2e_time.json", ["--domain", "time"])]
+
+
+def phase_e2e_drivers(torch, wrappers, card, checkpoint):
+    """``cli.end_to_end_sim`` five times and ``cli.collect_e2e`` over them, in
+    this process: 13 bd forward launches a run and none of the other
+    kernels, finite rows, files written, seconds and Monte-Carlo bits/s."""
+    from channelestimationtransformer_torch.cli import collect_e2e, end_to_end_sim
+
+    folder = OUT / "e2e"
+    expected = {key: 0 for key in wrappers}
+    expected["bd_fwd"] = 13
+    out = {}
+    for branch, fname, flags in E2E_RUNS:
+        argv = [*E2E_COMMON, *flags, "--checkpoint", str(checkpoint), "--out",
+                str(folder / fname)]
+        log = io.StringIO()
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            result = end_to_end_sim.main(argv)
+        secs = time.perf_counter() - t0
+        print(log.getvalue(), end="", flush=True)
+        launches = _counts(wrappers)
+        per_call = 256 * (324 if "ldpc" in flags else 250 if "--coded" in flags else 512)
+        bits = 3 * 8 * per_call
+        vals = ([result["prediction_nmse"]] + list(result["se"].values())
+                + [x for row in result["ber"].values() for x in row]
+                + [x for row in result.get("bler", {}).values() for x in row])
+        finite = len(vals) == 1 + 3 + 24 * (2 if "--coded" in flags else 1) and all(
+            math.isfinite(x) for x in vals)
+        written = (folder / fname).exists()
+        print(f"e2e driver: cli.end_to_end_sim {' '.join(flags) or '(uncoded)'}: {secs:.1f} s, "
+              f"{bits / secs:,.0f} Monte-Carlo bits/s ({bits:,} payload bits); launches "
+              f"{_launch_report(launches, expected)}; prediction NMSE "
+              f"{result['prediction_nmse']:.5f}; SE {result['se']}; finite {finite}, written "
+              f"{written} | {card}", flush=True)
+        if launches != expected:
+            fail(f"cli.end_to_end_sim {flags} launched {launches}, not {expected}")
+        if not (finite and written):
+            fail(f"cli.end_to_end_sim {flags}: rows not finite or file missing")
+        out[branch] = dict(argv=argv, seconds=secs, bits=bits, launches=launches, result=result)
+    merged_path = folder / "e2e_branches.json"
+    merged = collect_e2e.main(["--extra", *(f"{b}={folder / f}" for b, f, _ in E2E_RUNS),
+                               "--out", str(merged_path)])
+    if not (merged_path.exists() and all(merged[b] == out[b]["result"] for b, _, _ in E2E_RUNS)):
+        fail("cli.collect_e2e did not merge the five runs")
+    print(f"e2e collect: cli.collect_e2e merged {sorted(merged)} into {merged_path}", flush=True)
+    return out
+
+
+def attention_calls(cfg):
+    """``(l_q, l_k, E)`` of each attention call of ``cfg``'s InformerStack
+    (``models/encoder.py``: encoder i reads the last L // 2^i slots, a
+    distilling conv between its layers; the decoder's self and cross calls)."""
+    from channelestimationtransformer_torch.models.encoder import (
+        distilled_length,
+        encoder_stack_output_length,
+    )
+
+    e = cfg.d_model // cfg.n_heads
+    calls = []
+    for i, n_layers in enumerate(cfg.e_layers):
+        length = cfg.seq_len // 2**i
+        for j in range(n_layers):
+            calls.append((length, length, e))
+            if cfg.distil and j < n_layers - 1:
+                length = distilled_length(length)
+    l_dec = cfg.label_len + cfg.pred_len
+    l_enc = encoder_stack_output_length(cfg.seq_len, cfg.e_layers, cfg.distil)
+    return calls + [(l_dec, l_dec, e), (l_dec, l_enc, e)] * cfg.d_layers
+
+
+def routed_calls(cfg, training):
+    """Attention calls a forward sends to (bd, mha), by the routing of
+    ``models/attention.py``: bd where it takes the shape; else, in eval, mha."""
+    from channelestimationtransformer_torch.ops.cuda.bd_attention import MAX_E, MAX_LK, MAX_LQ
+    from channelestimationtransformer_torch.ops.cuda.mha_attention import MAX_WIDTH
+
+    calls = attention_calls(cfg)
+    bd = sum(l_k <= MAX_LK and l_q <= MAX_LQ and e <= MAX_E for l_q, l_k, e in calls)
+    mha = 0 if training else sum(e <= MAX_WIDTH for _, _, e in calls) - bd
+    return bd, mha
+
+
+def scale_kernel_shapes():
+    """The attention calls of the scale demo's and the int8 A/B's sizes that
+    ``SHAPES`` and ``XL_SHAPES`` leave out, each distinct (l_q, l_k, causal,
+    E) once at the batch of the first size that makes it: ``(bd, mha)``
+    lists of (label, l_q, l_k, causal, 0, b, h, e, d), split by the routing
+    of :func:`routed_calls` (in training the calls bd does not take run the
+    plain path). The decoder's self calls are causal."""
+    from channelestimationtransformer_torch.cli import scale_demo
+    from channelestimationtransformer_torch.ops.cuda.bd_attention import MAX_E, MAX_LK, MAX_LQ
+
+    seen = {(l_q, l_k, causal, E) for _, l_q, l_k, causal, _ in SHAPES}
+    seen |= {(l_q, l_k, causal, XL_E) for _, l_q, l_k, causal, _ in XL_SHAPES}
+    bd, mha = [], []
+    for name, d_model, d_ff, seq_len, batch in scale_demo.SIZES:
+        cfg = scale_demo.size_config(d_model, d_ff, seq_len, "float32")
+        calls = attention_calls(cfg)
+        n_enc = len(calls) - 2 * cfg.d_layers
+        for i, (l_q, l_k, e) in enumerate(calls):
+            causal = i >= n_enc and (i - n_enc) % 2 == 0
+            if (l_q, l_k, causal, e) in seen:
+                continue
+            seen.add((l_q, l_k, causal, e))
+            label = f"{name} E{e} {l_q}x{l_k}{' causal' if causal else ''}"
+            on_bd = l_k <= MAX_LK and l_q <= MAX_LQ and e <= MAX_E
+            (bd if on_bd else mha).append((label, l_q, l_k, causal, 0, batch, cfg.n_heads, e, e))
+    return bd, mha
+
+
+SCALE_STEPS, SCALE_CHUNKS = 2, 1
+
+
+def phase_scale_demo(torch, wrappers, card):
+    """``cli.scale_demo`` at its six sizes in bf16 (``SCALE_STEPS`` steps a
+    chunk, one warm and ``SCALE_CHUNKS`` timed chunks), one size a call: the
+    parameters against JAX's column (``experiments/artifacts/scale_demo.json``),
+    bd forward and backward launches against the routing's counts (the FLOP
+    count's step runs the plain path), FLOPs and the share of peak."""
+    from channelestimationtransformer_torch.cli import scale_demo
+
+    jax_rows = {r["config"]: r for r in json.loads(
+        pathlib.Path("experiments/artifacts/scale_demo.json").read_text())}
+    folder = OUT / "scale_demo"
+    rows = {}
+    for name, d_model, d_ff, seq_len, batch in scale_demo.SIZES:
+        bd, _ = routed_calls(scale_demo.size_config(d_model, d_ff, seq_len, "bfloat16"), True)
+        steps = SCALE_STEPS * (1 + SCALE_CHUNKS)
+        expected = {key: 0 for key in wrappers}
+        expected.update(bd_fwd=bd * steps, bd_bwd=bd * steps)
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            (row,) = scale_demo.main(["--sizes", name, "--steps", str(SCALE_STEPS),
+                                      "--chunks", str(SCALE_CHUNKS), "--out",
+                                      str(folder / f"scale_demo_{name}.json")])
+        secs = time.perf_counter() - t0
+        launches = _counts(wrappers)
+        print(f"scale demo {name} (d_model {d_model}, d_ff {d_ff}, seq_len {seq_len}, batch "
+              f"{batch}, bf16): {secs:.1f} s; params {row['params']:,} (JAX "
+              f"{jax_rows[name]['params']:,}); launches {_launch_report(launches, expected)} "
+              f"({bd} of 13 calls on bd a step); {row['ms_per_step']} ms a step, "
+              f"{row['samples_per_s']} samples/s, {row['gflops_per_step']} GFLOP a step "
+              f"(FlopCounterMode, plain path; JAX's XLA count "
+              f"{jax_rows[name]['gflops_per_step']}), {row['achieved_tflops']} TFLOP/s, "
+              f"{row['mxu_fraction']:.4f} of {row['peak_tflops']} | {card}", flush=True)
+        if row["params"] != jax_rows[name]["params"]:
+            fail(f"scale demo {name}: {row['params']} parameters, JAX has "
+                 f"{jax_rows[name]['params']}")
+        if launches != expected:
+            fail(f"scale demo {name} launched {launches}, not {expected}")
+        if not (row["gflops_per_step"] > 0 and math.isfinite(row["ms_per_step"])):
+            fail(f"scale demo {name}: no FLOPs or no time")
+        rows[name] = dict(row=row, seconds=secs, launches=launches)
+    return rows
+
+
+INT8_AB_SCAN, INT8_AB_REPS = 2, 2
+
+
+def phase_int8_scale_ab(torch, wrappers, gemms, card):
+    """``cli.int8_scale_ab`` at its four sizes (``--scan`` and ``--reps``
+    cut), one size a call: bd and mha launches against the routing's eval
+    counts for all four variants, int8 GEMMs (W8A8) and bf16 -> f32 GEMMs
+    (weight-only) one a served layer a forward, finite timings."""
+    from channelestimationtransformer_torch.cli import int8_scale_ab
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.models.informer import InformerStack
+    from channelestimationtransformer_torch.ops.quant.serving import build_int8_table
+
+    folder = OUT / "int8_scale_ab"
+    forwards = (2 + INT8_AB_REPS) * INT8_AB_SCAN  # two warm-ups, then the timed reps
+    rows = {}
+    for name, d_model, d_ff, seq_len, batch in int8_scale_ab.SIZES:
+        cfg = InformerConfig(d_model=d_model, d_ff=d_ff, seq_len=seq_len)
+        bd, mha = routed_calls(cfg, False)
+        with torch.device("meta"):
+            served = len(build_int8_table(InformerStack(cfg)))
+        expected = {key: 0 for key in wrappers}
+        expected.update(bd_fwd=4 * forwards * bd, mha=4 * forwards * mha)
+        want_gemm = dict(int8=forwards * served, bf16_f32=forwards * served)
+        _zero_counts(wrappers)
+        _zero_counts(gemms)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            (row,) = int8_scale_ab.main(["--sizes", name, "--scan", str(INT8_AB_SCAN),
+                                         "--reps", str(INT8_AB_REPS), "--out",
+                                         str(folder / f"int8_scale_ab_{name}.json")])
+        secs = time.perf_counter() - t0
+        launches, gemm = _counts(wrappers), _counts(gemms)
+        ms = {v: row[f"ms_{v}"] for v in ("float32", "bfloat16", "int8", "int8_wo")}
+        print(f"int8 A/B {name} (d_model {d_model}, seq_len {seq_len}, batch {batch}): "
+              f"{secs:.1f} s; launches {_launch_report(launches, expected)}; GEMMs {gemm} "
+              f"(expected {want_gemm}, {served} served layers); ms a forward {ms}; "
+              f"int8 {row['int8_speedup_vs_f32']}x f32, weight-only "
+              f"{row['int8_wo_speedup_vs_bf16']}x bf16 | {card}", flush=True)
+        if launches != expected or gemm != want_gemm:
+            fail(f"int8 A/B {name} launched {launches}, {gemm}; expected {expected}, "
+                 f"{want_gemm}")
+        if not all(math.isfinite(t) and t > 0 for t in ms.values()):
+            fail(f"int8 A/B {name}: a timing is not finite")
+        rows[name] = dict(row=row, seconds=secs, launches=launches, gemm_launches=gemm)
+    return rows
+
+
 def _per_path(rows, key, weight):
     """Sum of ``key`` weighted by each row's count on the path (``weight``)."""
     return sum(r[key] * r[weight] for r in rows if r[weight])
@@ -2445,6 +2838,19 @@ def main(argv):
     codeword_rows = phase_codeword_kernel(torch, quant, codebooks)
     lsq_rows = phase_lsq_codeword(torch, quant, lsq, codebooks)
     fwd_rows, bwd_rows = phase_kernel_train(torch, F, ops)
+    # The scale demo's and the int8 A/B's attention shapes beyond the lists above (E 32
+    # and 64; L 256 at E 64 on mha), checked in eval and in training.
+    scale_bd, scale_mha = scale_kernel_shapes()
+    scale_rows = dict(
+        eval=phase_kernel(torch, F, ops.bd_attention, ops.bd_attention_reference, scale_bd,
+                          prefix="scale kernel", seed=3, timed=False),
+        mha=phase_kernel(torch, F, mha.mha_attention, mha.mha_attention_reference, scale_mha,
+                         prefix="scale mha kernel", seed=4, timed=False))
+    scale_rows["train_fwd"], scale_rows["train_bwd"] = phase_kernel_train(
+        torch, F, ops, [s[:-1] for s in scale_bd], prefix="scale train", timed=False)
+    print(f"scale kernels: {len(scale_bd)} bd shapes (eval, train forward and backward) and "
+          f"{len(scale_mha)} mha shapes, float32 and bfloat16, each against its plain version",
+          flush=True)
     eval_path = phase_eval_path(torch, wrappers, card, profile)
     xl_cfg = InformerConfig(d_model=1024, d_ff=4096, seq_len=256, use_pallas=True)
     xl_eval_path = phase_eval_path(torch, wrappers, card, profile, name="xl eval path",
@@ -2529,6 +2935,14 @@ def main(argv):
     serving_drivers = phase_serving_drivers(
         torch, wrappers, gemms, OUT / "cli" / f"tmodel_{cli['result']['name']}_{CLI_EPOCHS}.pt")
 
+    # The link simulation and its drivers (from the cli phase's checkpoint),
+    # then the scale demo and its int8 A/B.
+    link = phase_link(torch, card)
+    e2e = phase_e2e_drivers(
+        torch, wrappers, card, OUT / "cli" / f"tmodel_{cli['result']['name']}_{CLI_EPOCHS}.pt")
+    scale = phase_scale_demo(torch, wrappers, card)
+    int8_ab = phase_int8_scale_ab(torch, wrappers, gemms, card)
+
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
     bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]  # noqa: E731
     kernels = [
@@ -2612,12 +3026,20 @@ def main(argv):
                       comparison_train_launches=cmp_train_path["launches"]["bd_bwd"])
     kernels[0].update(comparison_train_launches=cmp_train_path["launches"]["bd_fwd"],
                       comparison_eval_launches=cmp_batch["launches"]["bd_fwd"])
+    # The e2e drivers', the scale demo's and the int8 A/B's launches.
+    kernels[0].update(
+        e2e_driver_launches=sum(run["launches"]["bd_fwd"] for run in e2e.values()),
+        scale_demo_launches=sum(run["launches"]["bd_fwd"] for run in scale.values()),
+        int8_scale_ab_launches=sum(run["launches"]["bd_fwd"] for run in int8_ab.values()))
+    kernels[1].update(scale_demo_launches=sum(run["launches"]["bd_bwd"] for run in scale.values()))
+    kernels[2].update(int8_scale_ab_launches=sum(run["launches"]["mha"]
+                                                 for run in int8_ab.values()))
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
         mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, fixed_grouped_rows=grouped_rows,
         codeword_rows=codeword_rows,
         lsq_codeword_rows=lsq_rows, train_fwd_rows=fwd_rows,
-        train_bwd_rows=bwd_rows, eval_path=eval_path, xl_eval_path=xl_eval_path,
+        train_bwd_rows=bwd_rows, scale_kernel_rows=scale_rows, eval_path=eval_path, xl_eval_path=xl_eval_path,
         ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path,
         bf16_eval_path=bf16_eval_path, bf16_xl_eval_path=bf16_xl_eval_path,
         bf16_lsq_batch=bf16_lsq_batch, bf16_train_path=bf16_train_path, datagen=datagen,
@@ -2627,7 +3049,7 @@ def main(argv):
         qat_prune=qat_prune, drivers=drivers, int8_path=int8_path, streaming=streaming,
         baselines=baselines, comparison_informer_batch=cmp_batch,
         comparison_informer_train_path=cmp_train_path, serving_drivers=serving_drivers,
-        kernels=kernels),
+        link=link, e2e_drivers=e2e, scale_demo=scale, int8_scale_ab=int8_ab, kernels=kernels),
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,9 +14,13 @@ torch = pytest.importorskip("torch")
 from channelestimationtransformer_torch.channel.cdl import CDLModel, generate_cdl_channel
 from channelestimationtransformer_torch.channel.dataset import generate_beamformed_dataset
 from channelestimationtransformer_torch.cli import (
+    collect_e2e,
     comparison,
+    end_to_end_sim,
     generate_dataset,
+    int8_scale_ab,
     int8_serving,
+    scale_demo,
     train_informer,
     train_streaming,
 )
@@ -32,6 +36,7 @@ from channelestimationtransformer_torch.models import (
 )
 from channelestimationtransformer_torch.data.windows import WindowDataset
 from channelestimationtransformer_torch.models.informer import build_informer
+from channelestimationtransformer_torch.sim import simulate_ber, simulate_coded_ber
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "channelestimationtransformer_tpu",
@@ -67,7 +72,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "ops/quant/functional.py", "ops/quant/optim.py", "ops/quant/serving.py",
                    "ops/quant/rate.py", "models/transformer.py", "models/recurrent.py",
                    "models/streaming.py", "cli/int8_serving.py", "cli/comparison.py",
-                   "cli/train_streaming.py"):
+                   "cli/train_streaming.py", "sim/__init__.py", "sim/qam.py",
+                   "sim/precoding.py", "sim/estimation.py", "sim/ofdm.py", "sim/coding.py",
+                   "sim/ldpc.py", "sim/link.py", "cli/end_to_end_sim.py", "cli/collect_e2e.py",
+                   "cli/scale_demo.py", "cli/int8_scale_ab.py"):
         assert f"channelestimationtransformer_torch/{module}" in names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
@@ -76,10 +84,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     """With no CUDA device and no ``device``, the entry points raise (the
-    model builder, the dataset, the channel generator and the two command-line
-    drivers, before they write anything); the batch and eval functions run
-    where the dataset and model were placed, so they cannot reach the CPU
-    unless the caller asked for it."""
+    model builder, the dataset, the channel generator, the link simulation
+    and the command-line drivers, before they write anything); the batch
+    and eval functions run where the dataset and model were placed, so they
+    cannot reach the CPU unless the caller asked for it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_informer(InformerConfig(d_model=16, n_heads=2, e_layers=(1,), d_layers=1))
@@ -111,10 +119,26 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     for cli, argv in ((int8_serving, ["--out", str(tmp_path / "int8.json")]),
                       (train_streaming, ["--checkpoint", "x.pt",
                                          "--out", str(tmp_path / "stream.json")]),
-                      (comparison, ["--out", str(tmp_path / "cmp")])):
+                      (comparison, ["--out", str(tmp_path / "cmp")]),
+                      # the link and scale drivers
+                      (end_to_end_sim, ["--checkpoint", "x.pt",
+                                        "--out", str(tmp_path / "e2e.json")]),
+                      (scale_demo, ["--sizes", "reference", "--out", str(tmp_path / "s.json")]),
+                      (int8_scale_ab, ["--sizes", "reference",
+                                       "--out", str(tmp_path / "ab.json")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(argv)
+    # The link functions run where ``device`` says, the card by default.
+    h = torch.eye(2, dtype=torch.complex64)[None]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_ber(torch.Generator(), h, h, 6.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_coded_ber(torch.Generator(), h, h, 6.0)
     assert not any(tmp_path.iterdir())
+    # The log collector computes on no device: it runs without a card.
+    assert collect_e2e.main(["--out", str(tmp_path / "e2e_branches.json")])
+    ber, total = simulate_ber(torch.Generator(), h, h, 30.0, device="cpu")
+    assert float(ber) == 0.0 and total == 256
     h = generate_beamformed_dataset(0, model=model, num_samples=2, num_slots=10, device="cpu")
     assert h.device.type == "cpu" and h.shape == (2, 10, 2, 4, 2)
 
