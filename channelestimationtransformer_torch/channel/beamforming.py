@@ -20,8 +20,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.runtime import full_f32_matmul, resolve_device
+from ..parallel.collectives import all_reduce_sum
 
 
 def dft_codebook(num_elements: int) -> np.ndarray:
@@ -69,22 +71,30 @@ def beam_sweep_project(h: torch.Tensor, codebook: torch.Tensor, num_selected: in
     often each beam appears across slots; keep the ``num_selected`` most
     frequent (``Beamforming.m:68-104``), ties to the lowest index.
     """
-    num_beams = codebook.shape[1]
+    return _select_and_gather(*_project(h, codebook), num_selected)
 
-    # Complex projection on real pairs, as the JAX package forms it:
-    # (hr + j hi)(cr + j ci) = (hr cr - hi ci) + j (hr ci + hi cr).
+
+def _project(h: torch.Tensor, codebook: torch.Tensor):
+    """Real and imaginary parts ``[B, T, U, beams]`` of ``h``'s projection
+    onto every beam, on real pairs as the JAX package forms it:
+    (hr + j hi)(cr + j ci) = (hr cr - hi ci) + j (hr ci + hi cr)."""
     hr, hi = h[..., 0], h[..., 1]
     cr, ci = codebook[..., 0], codebook[..., 1]
     with full_f32_matmul():
-        pr = torch.matmul(hr, cr) - torch.matmul(hi, ci)  # [B, T, U, beams]
-        pi = torch.matmul(hr, ci) + torch.matmul(hi, cr)
+        return (torch.matmul(hr, cr) - torch.matmul(hi, ci),
+                torch.matmul(hr, ci) + torch.matmul(hi, cr))
 
+
+def _select_and_gather(pr: torch.Tensor, pi: torch.Tensor, num_selected: int):
+    """Rank the beams per slot by power, keep the ``num_selected`` most
+    frequent winners and gather their projections (``Beamforming.m:68-118``)."""
+    batch, num_beams = pr.shape[0], pr.shape[-1]
     power = torch.sum(pr**2 + pi**2, dim=2)  # [B, T, beams]
     top_per_slot = _top_k_indices(power, num_selected)  # [B, T, num_selected]
 
     # Histogram of per-slot winners over (slots x rank).
-    flat = top_per_slot.reshape(h.shape[0], -1)  # [B, T*num_selected]
-    counts = torch.zeros((h.shape[0], num_beams), dtype=torch.int32, device=h.device)
+    flat = top_per_slot.reshape(batch, -1)  # [B, T*num_selected]
+    counts = torch.zeros((batch, num_beams), dtype=torch.int32, device=pr.device)
     counts.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
     selected = _top_k_indices(counts, num_selected)  # [B, num_selected]
 
@@ -92,6 +102,26 @@ def beam_sweep_project(h: torch.Tensor, codebook: torch.Tensor, num_selected: in
     index = selected[:, None, None, :].expand(*pr.shape[:3], num_selected)
     h_eff = torch.stack([torch.gather(pr, 3, index), torch.gather(pi, 3, index)], dim=-1)
     return h_eff.transpose(2, 3), selected  # [B, T, sel, U, 2]
+
+
+def beam_sweep_project_sharded(h: torch.Tensor, codebook: torch.Tensor, num_selected: int,
+                               mesh, *, axis_name: str = "model"):
+    """:func:`beam_sweep_project` with the TX-antenna axis ``S`` sharded over
+    ``mesh``'s ``axis_name`` axis (JAX ``beam_sweep_project_sharded``).
+
+    Every rank holds the whole ``h`` and ``codebook``; it projects its
+    contiguous shard of the antennas, and one all-reduce of the two partial
+    projections completes them. The ranking, histogram and gather then run
+    replicated (they are tiny). Equal to the unsharded sweep up to the
+    order of the antenna sums; returns the same on every rank."""
+    group = mesh.get_group(axis_name)
+    p, r = dist.get_world_size(group), dist.get_rank(group)
+    s = h.shape[3]
+    if s % p:
+        raise ValueError(f"{s} antennas not divisible by the {axis_name!r} axis size {p}")
+    mine = slice(r * s // p, (r + 1) * s // p)
+    pr, pi = all_reduce_sum(torch.stack(_project(h[..., mine, :], codebook[mine])), group)
+    return _select_and_gather(pr, pi, num_selected)
 
 
 def standardize_time_series(h_eff: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.runtime import resolve_device, stream_generator
 from ..data.windows import WindowDataset, pack_features
@@ -98,6 +99,38 @@ def make_window_dataset(
                                     num_slots=num_slots, device=device)
     return WindowDataset(h=pack_features(h), seq_len=seq_len, pred_len=pred_len,
                          snr_db=snr_db, device=device)
+
+
+def generate_beamformed_dataset_sharded(
+    key: int | Sequence[int],
+    mesh,
+    *,
+    model: CDLModel = CDLModel(),
+    num_samples: int = 512,
+    num_slots: int = 150,
+    num_beams_selected: int = 4,
+    batch_size: int = 128,
+    standardize: bool = True,
+    axis_name: str = "data",
+    device=None,
+):
+    """This rank's shard of a sample-sharded dataset over ``mesh``'s
+    ``axis_name`` axis (JAX ``generate_beamformed_dataset_sharded``): rank
+    ``r`` of ``P`` generates ``num_samples / P`` samples with
+    :func:`generate_beamformed_dataset` from the key path ``(*key, r)``, as
+    JAX folds the device index into the key, and keeps them. The global
+    dataset is the shards in rank order; it depends on the key and ``P``,
+    and it never leaves the ranks that hold it."""
+    group = mesh.get_group(axis_name)
+    n_shards = dist.get_world_size(group)
+    if num_samples % n_shards:
+        raise ValueError(f"num_samples {num_samples} not divisible by "
+                         f"{axis_name} axis size {n_shards}")
+    rank = dist.get_rank(group)
+    return generate_beamformed_dataset(
+        (*_key_path(key), rank), model=model, num_samples=num_samples // n_shards,
+        num_slots=num_slots, num_beams_selected=num_beams_selected, batch_size=batch_size,
+        standardize=standardize, device=device)
 
 
 def save_reference_format(path: str, h) -> None:

@@ -56,7 +56,7 @@ class InformerConfig:
     d_layers: int = 3
     d_ff: int = 64
     dropout: float = 0.05
-    attn: str = "full"  # "full" | "prob" | "ring" ("ring" is not ported and raises)
+    attn: str = "full"  # "full" | "prob" | "ring" (the encoder's self-attention, parallel/ring.py)
     activation: str = "gelu"  # "gelu" | "relu"
     distil: bool = True
     mix: bool = True  # transpose heads<->seq on decoder self-attn output
@@ -84,10 +84,6 @@ class InformerConfig:
                 "attn='ring' shards the encoder sequence axis; the distilling "
                 "conv pyramid produces shard-indivisible lengths — use "
                 "distil=False for sequence-parallel configs")
-        if self.attn == "ring":
-            raise NotImplementedError(
-                "attn='ring' (sequence-parallel ring attention) is not ported yet "
-                "(ROADMAP Queue 1 item 13, parallelism)")
         if self.activation not in ("gelu", "relu"):
             raise ValueError(f"activation must be 'gelu' or 'relu', got {self.activation!r}")
 

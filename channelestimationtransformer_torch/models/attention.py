@@ -8,6 +8,11 @@ JAX). It draws its ``index_sample`` from the ``generator`` passed to
 no generator it takes the fixed draw of a generator seeded 0 (JAX's
 ``jax.random.key(0)`` fallback). Cross-attention is always ``attn="full"``.
 
+With ``attn="ring"`` an ``AttentionLayer`` runs ``parallel/ring.py``'s
+:func:`ring_attention` over its ``mesh``'s ``seq_axis`` (the encoder's
+self-attention; JAX ``models/attention.py:268-278``): plain torch blocks, no
+kernel and no attention dropout, forward only.
+
 Routing of ``AttentionLayer`` with ``attn="full"`` (the counterpart of JAX
 ``models/attention.py:291-345``), first match wins:
 
@@ -50,6 +55,7 @@ from torch import nn
 from ..ops.cuda.bd_attention import bd_attention, draw_seed, dropout_keep_mask, supported_shape
 from ..ops.cuda.mha_attention import mha_attention
 from ..ops.quant.lsq import DenseLSQ
+from ..parallel.ring import ring_attention
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -202,8 +208,10 @@ def prob_sparse_attention(q, k, v, *, mask_flag: bool, factor: int,
 
 class AttentionLayer(nn.Module):
     """Q/K/V/output projections around the inner attention (reference
-    ``AttentionLayer``, ``attn.py:190-221``). ``attn``: "full" or "prob"
-    (:func:`prob_sparse_attention` with ``factor``). ``mix=True`` keeps the
+    ``AttentionLayer``, ``attn.py:190-221``). ``attn``: "full", "prob"
+    (:func:`prob_sparse_attention` with ``factor``) or "ring"
+    (:func:`ring_attention` over ``mesh``'s ``seq_axis``, which the call
+    requires). ``mix=True`` keeps the
     reference's head/sequence transpose before the output projection.
     ``fuse_qkv`` (off under LSQ; JAX ``models/attention.py:252-262``): one
     ``qkv`` projection to 3·d for self-attention, which must be called with
@@ -218,12 +226,13 @@ class AttentionLayer(nn.Module):
                  output_attention: bool = False, use_pallas: bool = False,
                  fuse_qkv: bool = False, cross: bool = False, lsq_nbits: int | None = None,
                  lsq_fibbinary: bool = False, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None, seq_axis: str = "seq"):
         super().__init__()
-        if attn not in ("full", "prob"):
-            raise NotImplementedError(
-                f"attn={attn!r} is not ported yet (ROADMAP Queue 1 item 13, parallelism)")
+        if attn not in ("full", "prob", "ring"):
+            raise ValueError(f"attn must be 'full', 'prob' or 'ring', got {attn!r}")
         self.attn = attn
+        self.mesh = mesh
+        self.seq_axis = seq_axis
         self.n_heads = n_heads
         self.mask_flag = mask_flag
         self.factor = factor
@@ -276,7 +285,12 @@ class AttentionLayer(nn.Module):
         if drop > 0.0 and generator is None:
             raise ValueError("attention dropout in train mode needs a torch.Generator")
         kernel = self.use_pallas and not self.output_attention
-        if self.attn == "prob":
+        if self.attn == "ring":
+            if self.mesh is None:
+                raise ValueError(f"attn='ring' requires a mesh with a '{self.seq_axis}' axis")
+            out, attn = ring_attention(q, k, v, self.mesh, axis_name=self.seq_axis,
+                                       causal=self.mask_flag), None
+        elif self.attn == "prob":
             index_sample = draw_index_sample(l, s, self.factor, generator, q.device)
             out, attn = prob_sparse_attention(q, k, v, mask_flag=self.mask_flag,
                                               factor=self.factor, index_sample=index_sample)

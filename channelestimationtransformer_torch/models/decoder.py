@@ -12,7 +12,8 @@ from .encoder import LN_EPS, FeedForward, LayerNorm
 
 
 class DecoderLayer(nn.Module):
-    """Causal self-attention (``mix``, the configured ``attn``) ->
+    """Causal self-attention (``mix``, the configured ``attn``: "full" or
+    "prob"; an ``attn="ring"`` model's decoder takes "full") ->
     cross-attention (``mix=False``, always ``attn="full"``, JAX
     ``decoder.py:42, 66``) -> FFN, each with a residual (dropout on the two
     attention outputs, JAX ``decoder.py:58, 78``); post-norm after each

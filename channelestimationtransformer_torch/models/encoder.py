@@ -15,12 +15,15 @@ f32 scale and bias, and round the result to the input's dtype (flax
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_sum
 from .attention import AttentionLayer, dense_layer
 from .dropout import dropout
 from .embed import circular_conv1d
@@ -59,20 +62,47 @@ class BatchNorm(nn.BatchNorm1d):
     takes a bf16 input with the f32 statistics and parameters, computes in
     f32 and returns bf16. In train mode a bf16 input is reduced and
     normalised in f32 and the result rounded to bf16; the statistics stay
-    f32."""
+    f32.
+
+    With ``group`` set (:func:`batch_stats_group`), the batch is split over
+    that data-parallel group in equal parts, and the train-mode mean and
+    ``E[x^2]`` are the whole batch's: the mean over the group of each
+    rank's, summed by an all-reduce that autograd sees, as flax's BatchNorm
+    reduces a batch-sharded input under one global jit. With no group there
+    is no collective."""
+
+    group = None
 
     def forward(self, y):
         if not self.training:
             return super().forward(y)
         yf = y.float()
-        mean = yf.mean(dim=(0, 2))
-        var = torch.clamp_min(torch.square(yf).mean(dim=(0, 2)) - torch.square(mean), 0.0)
+        mean, mean2 = yf.mean(dim=(0, 2)), torch.square(yf).mean(dim=(0, 2))
+        if self.group is not None:
+            both = all_reduce_sum(torch.stack([mean, mean2]), self.group)
+            mean, mean2 = both / dist.get_world_size(self.group)
+        var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((yf - mean[:, None]) * mul[:, None] + self.bias[:, None]).to(y.dtype)
+
+
+@contextlib.contextmanager
+def batch_stats_group(model: nn.Module, group):
+    """Inside this block every :class:`BatchNorm` of ``model`` takes its
+    train-mode statistics over the data-parallel ``group`` (``None``: each
+    its own batch's, the default)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 class ConvLayer(nn.Module):

@@ -12,6 +12,12 @@ statistics; in ``eval()`` mode the forward is deterministic.
 state) and BatchNorm statistics are f32 whatever it is; with "bfloat16"
 every activation is bf16, the inputs are cast by the embeddings, and the
 prediction comes out bf16, as the JAX package's does.
+
+``attn="ring"`` shards the encoder's self-attention over the ``seq`` axis
+of the ``mesh`` passed to the model (``parallel/ring.py``); the decoder's
+self-attention is then full attention, as its cross-attention always is
+(JAX ``models/decoder.py:41-42``). Ring attention is forward-only: training
+such a model raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from .init import dense_
 class InformerBase(nn.Module):
     """Embeddings, decoder and projection; subclasses supply the encoder."""
 
-    def __init__(self, config: InformerConfig):
+    def __init__(self, config: InformerConfig, *, mesh=None, seq_axis: str = "seq"):
         super().__init__()
         cfg = config
         dtype = activation_dtype(cfg.dtype)
@@ -45,10 +51,11 @@ class InformerBase(nn.Module):
             output_attention=cfg.output_attention,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
             lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout,
-            dtype=dtype))
+            dtype=dtype, mesh=mesh, seq_axis=seq_axis))
         self.decoder = Decoder(
             cfg.d_layers, cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
-            activation=cfg.activation, attn=cfg.attn, factor=cfg.factor, mix=cfg.mix,
+            activation=cfg.activation, attn="full" if cfg.attn == "ring" else cfg.attn,
+            factor=cfg.factor, mix=cfg.mix,
             use_pallas=cfg.use_pallas, pre_norm=cfg.pre_norm, fuse_qkv=cfg.fuse_qkv,
             lsq_nbits=cfg.lsq_nbits, lsq_fibbinary=cfg.lsq_fibbinary, dropout=cfg.dropout,
             dtype=dtype)
@@ -108,12 +115,15 @@ def init_weights(model: nn.Module, generator: torch.Generator | None = None) -> 
             m.reset_parameters()
 
 
-def build_informer(config: InformerConfig, *, device=None, seed: int = 0) -> InformerBase:
+def build_informer(config: InformerConfig, *, device=None, seed: int = 0, mesh=None,
+                   seq_axis: str = "seq") -> InformerBase:
     """An :class:`InformerStack` (or :class:`Informer` for one encoder) in
     ``eval()`` mode on ``device`` (default: the card; raises without one),
-    with weights drawn from a ``torch.Generator`` seeded by ``seed``."""
+    with weights drawn from a ``torch.Generator`` seeded by ``seed``.
+    ``mesh`` / ``seq_axis``: the device mesh of an ``attn="ring"`` model,
+    whose encoder shards its sequence axis over that axis."""
     device = resolve_device(device)
     single = isinstance(config.e_layers, int) or len(config.e_layers) == 1
-    model = (Informer if single else InformerStack)(config)
+    model = (Informer if single else InformerStack)(config, mesh=mesh, seq_axis=seq_axis)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -8,6 +8,7 @@ from .trainer import (
     eval_step,
     make_schedule,
     train_chunk,
+    train_chunk_dp,
     train_step,
 )
 
@@ -23,5 +24,6 @@ __all__ = [
     "make_schedule",
     "save_checkpoint",
     "train_chunk",
+    "train_chunk_dp",
     "train_step",
 ]

@@ -11,8 +11,14 @@ A step draws its windows, AWGN and every dropout mask from one
 optimizer is torch's Adam (AdamW with weight decay), as the JAX package
 leaves the optimizer to XLA. Everything stays on the dataset's device;
 metrics come back as tensors, and ``Trainer`` fetches them once per chunk.
-The data-parallel path (``train_chunk_dp``) is not ported yet (ROADMAP
-Queue 1: parallelism).
+
+Data parallelism (``train_chunk_dp``, ``Trainer(mesh=...)``): each rank of
+the mesh's ``data`` group draws its sub-batch from its own contiguous shard
+of the training set with its own generator, and ``_update`` with a
+``group`` takes the step JAX takes of the global batch under one jit: the
+BatchNorm statistics and the loss's denominator are the global batch's
+(all-reduced under autograd), and the gradients are summed over the ranks
+in one all-reduce before the same Adam update on every rank.
 """
 
 from __future__ import annotations
@@ -23,12 +29,15 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.config import InformerConfig, TrainConfig
-from ..core.metrics import nmse, nmse_split
+from ..core.metrics import nmse, nmse_share, nmse_split, nmse_split_global
 from ..core.runtime import stream_generator
 from ..data.windows import WindowDataset, make_batch
+from ..models.encoder import batch_stats_group
+from ..parallel.collectives import all_reduce_grads, all_reduce_sum
 
 
 def _cosine_decay(init_value: float, decay_steps: int, alpha: float = 0.0):
@@ -117,25 +126,40 @@ def _predict(model, x_enc, x_dec, generator=None):
     return out[0] if isinstance(out, tuple) else out  # output_attention configs
 
 
-def _update(state: TrainState, x_enc, x_dec, target, generator: torch.Generator) -> dict:
+def _update(state: TrainState, x_enc, x_dec, target, generator: torch.Generator,
+            group=None) -> dict:
     """Forward in train mode, backward, one optimizer update on an
-    already-sampled batch (JAX ``_update``). Metrics stay on the device."""
+    already-sampled batch (JAX ``_update``). Metrics stay on the device.
+
+    With a data-parallel ``group`` the batch is this rank's part of a global
+    batch split in equal parts: BatchNorm takes the global statistics, the
+    loss is this rank's share of the global NMSE (:func:`nmse_share`), and
+    the gradients are summed over the group before the update, so every
+    rank takes the step of the global batch. The metrics are the global
+    batch's."""
     model = state.model
     model.train()
-    pred = _predict(model, x_enc, x_dec, generator)
-    loss = nmse(pred, target)
+    with batch_stats_group(model, group):
+        pred = _predict(model, x_enc, x_dec, generator)
+    loss = nmse(pred, target) if group is None else nmse_share(pred, target, group)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if group is None:
+        apply_gradients(state)
+        return {"loss": loss.detach(), "loss_split": nmse_split(pred.detach(), target)}
+    all_reduce_grads(model.parameters(), group)
     apply_gradients(state)
-    return {"loss": loss.detach(), "loss_split": nmse_split(pred.detach(), target)}
+    return {"loss": all_reduce_sum(loss.detach(), group),
+            "loss_split": nmse_split_global(pred.detach(), target, group)}
 
 
 def train_step(state: TrainState, dataset: WindowDataset, *, batch_size: int, label_len: int,
-               generator: torch.Generator) -> dict:
+               generator: torch.Generator, group=None) -> dict:
     """One step: sample windows -> AWGN -> forward/backward -> Adam, every
-    draw from ``generator`` (on the dataset's device)."""
+    draw from ``generator`` (on the dataset's device); ``group`` as in
+    :func:`_update`."""
     x_enc, x_dec, target = make_batch(dataset, batch_size, label_len, generator=generator)
-    return _update(state, x_enc, x_dec, target, generator)
+    return _update(state, x_enc, x_dec, target, generator, group)
 
 
 def train_chunk(state: TrainState, dataset: WindowDataset, *, num_steps: int, batch_size: int,
@@ -146,6 +170,26 @@ def train_chunk(state: TrainState, dataset: WindowDataset, *, num_steps: int, ba
     for _ in range(num_steps):
         m = train_step(state, dataset, batch_size=batch_size, label_len=label_len,
                        generator=generator)
+        losses.append(m["loss"])
+        splits.append(m["loss_split"])
+    return {"loss_sum": torch.stack(losses).sum(), "split_sum": torch.stack(splits).sum(dim=0)}
+
+
+def train_chunk_dp(state: TrainState, dataset_shard: WindowDataset, *, num_steps: int,
+                   per_device_batch: int, label_len: int, generator: torch.Generator,
+                   group) -> dict:
+    """Data-parallel train chunk (JAX ``train_chunk_dp``): ``num_steps``
+    steps of the global batch ``per_device_batch`` x the size of the
+    data-parallel ``group``. This rank draws its ``per_device_batch``
+    windows from its own shard of the dataset (``dataset_shard``, never the
+    whole set) with ``generator``, which the caller keys by rank, as JAX
+    folds the device index into the step's key; the update is
+    :func:`_update` with ``group``. The summed global loss and split come
+    back as device tensors, the same on every rank."""
+    losses, splits = [], []
+    for _ in range(num_steps):
+        m = train_step(state, dataset_shard, batch_size=per_device_batch, label_len=label_len,
+                       generator=generator, group=group)
         losses.append(m["loss"])
         splits.append(m["loss_split"])
     return {"loss_sum": torch.stack(losses).sum(), "split_sum": torch.stack(splits).sum(dim=0)}
@@ -183,13 +227,22 @@ def eval_chunk(model, dataset: WindowDataset, *, num_batches: int, batch_size: i
 @dataclasses.dataclass
 class Trainer:
     """Epoch-driven trainer with reference-format logging. ``model`` is a
-    port model with its weights, on the datasets' device."""
+    port model with its weights, on the datasets' device.
+
+    ``mesh`` (``parallel.make_mesh``): data-parallel training over its
+    ``data`` axis. The training set is shuffled on the host, then each rank
+    keeps its contiguous shard; every rank takes rank 0's weights and runs
+    :func:`train_chunk_dp` at ``batch_size`` / the axis size a rank, drawing
+    from generators keyed by (seed, epoch, batch, rank). Validation runs
+    the whole validation set on every rank, so it gives the numbers of a
+    single process. Only global rank 0 writes checkpoints."""
 
     model: nn.Module
     cfg: InformerConfig
     train_cfg: TrainConfig
     train_data: WindowDataset
     val_data: WindowDataset
+    mesh: Any = None
     log: Callable[[str], None] = lambda msg: print(msg, flush=True)
     metrics_writer: Any = None  # an object with log_epoch(epoch, train, val, split), or None
     checkpoint_tag: str = "tmodel_"
@@ -197,6 +250,33 @@ class Trainer:
     def __post_init__(self):
         self.state = create_train_state(self.model, self.train_cfg)
         self._schedule = self.state.schedule
+        self._train, self._group, self._rank_key = self.train_data, None, ()
+        if self.mesh is not None:
+            self._shard_data()
+
+    def _shard_data(self):
+        tc = self.train_cfg
+        group = self.mesh.get_group("data")
+        n_data = dist.get_world_size(group)
+        if tc.batch_size % n_data != 0:
+            raise ValueError(f"batch_size {tc.batch_size} not divisible by data-axis size "
+                             f"{n_data}")
+        h = self.train_data.h
+        if h.shape[0] % n_data != 0:
+            raise ValueError(f"{h.shape[0]} training samples not divisible by data-axis size "
+                             f"{n_data}")
+        # Each rank draws its windows from its contiguous shard; a sorted
+        # dataset (scenario / SNR / time ordered pickles) would bias each
+        # rank's sub-batches for good, so shuffle the sample order first.
+        perm = torch.randperm(h.shape[0], generator=torch.Generator().manual_seed(
+            tc.seed ^ 0x5EED))
+        rank, per = dist.get_rank(group), h.shape[0] // n_data
+        self._train = dataclasses.replace(
+            self.train_data, h=h[perm[rank * per:(rank + 1) * per].to(h.device)])
+        src = dist.get_global_rank(group, 0)
+        for t in self.model.state_dict().values():
+            dist.broadcast(t, src, group=group)
+        self._group, self._rank_key = group, (rank,)
 
     def run_validation(self, generator: torch.Generator, num_batches: int = 8) -> dict:
         """Per-horizon split loss (reference ``run_validation`` semantics, incl.
@@ -207,9 +287,14 @@ class Trainer:
                           generator=generator)
 
     def _run_chunk(self, generator: torch.Generator, num_steps: int) -> dict:
-        return train_chunk(self.state, self.train_data, num_steps=num_steps,
-                           batch_size=self.train_cfg.batch_size, label_len=self.cfg.label_len,
-                           generator=generator)
+        """One chunk of train steps, data-parallel when there is a mesh."""
+        kwargs = dict(num_steps=num_steps, label_len=self.cfg.label_len, generator=generator)
+        batch = self.train_cfg.batch_size
+        if self._group is None:
+            return train_chunk(self.state, self._train, batch_size=batch, **kwargs)
+        return train_chunk_dp(self.state, self._train, group=self._group,
+                              per_device_batch=batch // dist.get_world_size(self._group),
+                              **kwargs)
 
     def fit(self, num_epochs: Optional[int] = None, start_epoch: int = 0):
         """Train; ``start_epoch`` resumes mid-schedule (the generators are
@@ -229,8 +314,8 @@ class Trainer:
             while batch_idx < steps:
                 n = min(chunk, steps - batch_idx)
                 t0 = time.time()
-                m = self._run_chunk(
-                    stream_generator(self.train_data.device, tc.seed + 1, epoch, batch_idx), n)
+                m = self._run_chunk(stream_generator(self.train_data.device, tc.seed + 1,
+                                                     epoch, batch_idx, *self._rank_key), n)
                 batch_idx += n
                 stats = torch.cat([m["loss_sum"].reshape(1), m["split_sum"]]).cpu().numpy()
                 total_loss += float(stats[0])
@@ -270,5 +355,9 @@ class Trainer:
             if tc.checkpoint_every_epochs and (epoch + 1) % tc.checkpoint_every_epochs == 0:
                 from .checkpoint import save_checkpoint
 
-                save_checkpoint(self.state, tc.checkpoint_dir, self.checkpoint_tag, epoch + 1)
+                if not dist.is_initialized() or dist.get_rank() == 0:
+                    save_checkpoint(self.state, tc.checkpoint_dir, self.checkpoint_tag,
+                                    epoch + 1)
+                if self._group is not None:
+                    dist.barrier(group=self._group)  # the file exists for every rank after
         return history

@@ -3,8 +3,8 @@ on one NVIDIA card, in float32 and in bfloat16 activations, its channel
 generator and training drivers, ProbSparse attention, fused QKV projections,
 LSQ training, the quantization study (QAT, pruning and their drivers), int8
 serving, blockwise streaming and the baseline models with their drivers,
-the end-to-end link simulation with its drivers, and the scale demo with its
-int8 A/B.
+the end-to-end link simulation with its drivers, the scale demo with its
+int8 A/B, and data-parallel training and ring attention over NCCL.
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
@@ -204,11 +204,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    the card's peak;
 34. int8 A/B: ``cli.int8_scale_ab`` at its four sizes, repetitions cut: bd,
    mha and GEMM launches against the routing's counts, finite timings.
+35. parallel: subprocesses of this script (``--parallel-rank``), each group
+   killed and failed past ``PARALLEL_TIMEOUT``. Always NCCL at world 1:
+   ``train_chunk_dp`` at the flagship (batch 256, f32 and bf16) against
+   ``train_chunk`` from the same weights and generator (loss, state,
+   last-step gradients at the kernel path's limits), 13 + 13 bd launches a
+   step, samples/s of both in turns; the ring Informer (xl widths, distil
+   off, eval x 64) against the full model, ms a batch. Where the machine
+   has 2 or more cards, the same across 2 or 4 ranks: one DP ``_update``
+   against one card's on the concatenated batch, and the ring with its
+   sequence sharded over the ranks. One line says which ran.
 
 The bd forward's entry in the kernels line also carries the launches of
 the later paths and drivers (``int8_eval_launches``,
 ``streaming_launches``, ``e2e_driver_launches``, ``scale_demo_launches``,
-...), as the bd backward's and the mha kernel's entries do theirs. Each
+``dp_train_launches_world1``, ...), as the bd backward's and the mha
+kernel's entries do theirs (``ring_eval_launches_world1``). Each
 attention kernel's entry carries its bf16 instance (time, launches, bound at
 bf16 bytes or tensor-core FLOPs, SDPA) under ``bfloat16``.
 
@@ -2746,6 +2757,379 @@ def phase_int8_scale_ab(torch, wrappers, gemms, card):
     return rows
 
 
+# The parallel phase: each group of ranks is a subprocess of this script
+# (``--parallel-rank``), joined under PARALLEL_TIMEOUT seconds.
+PARALLEL_TIMEOUT = 300
+PARALLEL_ROUNDS = 6  # chunks (or batches) of each path in turns; the first is dropped
+# The ring's model: the xl widths (E 128) with the distilling convs off.
+RING_CFG = dict(d_model=1024, d_ff=4096, seq_len=256, distil=False)
+RING_BATCH = 64
+
+
+def phase_parallel(torch, card):
+    """NCCL at world 1 always, and across 2 or 4 ranks (4 where the machine
+    has 4 cards; the ring's lengths 256 and 128 take no 3) where it has two
+    or more: each group is :func:`parallel_rank` in subprocesses of this
+    script, killed and failed past ``PARALLEL_TIMEOUT``."""
+    from channelestimationtransformer_torch.parallel.launch import run_local
+
+    cards = torch.cuda.device_count()
+    worlds = [1] + ([4 if cards >= 4 else 2] if cards >= 2 else [])
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    folder = OUT / "parallel"
+    folder.mkdir(exist_ok=True)
+    runs = {}
+    for world in worlds:
+        path = folder / f"world_{world}.json"
+        t0 = time.perf_counter()
+        try:
+            outs = run_local([sys.executable, str(pathlib.Path(__file__).resolve()),
+                              "--parallel-rank", str(path)], world, timeout=PARALLEL_TIMEOUT)
+        except RuntimeError as e:
+            fail(f"parallel phase, {world} rank(s): {e}")
+        print(outs[0], end="", flush=True)
+        runs[world] = dict(json.loads(path.read_text()), seconds=time.perf_counter() - t0)
+    multi = (f"and across {worlds[1]} ranks" if worlds[1:]
+             else "and no multi-rank run (fewer than 2 cards)")
+    secs = ", ".join(f"{runs[w]['seconds']:.1f} s" for w in worlds)
+    print(f"parallel: ran NCCL at world 1 {multi}; {cards} card(s) here; {secs} | {card}",
+          flush=True)
+    return runs
+
+
+def _state_errors(torch, got, want, dtype):
+    """Worst difference over the floating tensors of two ``state_dict``s:
+    max abs in f32, max abs over the tensor's max abs in bf16."""
+    worst = 0.0
+    for name, w in want.items():
+        if not w.is_floating_point():
+            continue
+        diff = (got[name].float() - w.float()).abs().max().item()
+        worst = max(worst, diff if dtype == "float32"
+                    else diff / max(w.float().abs().max().item(), 1e-30))
+    return worst
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _dp_world1(torch, wrappers, device, dtype, log):
+    """``train_chunk_dp`` at world 1 against ``train_chunk`` at the flagship
+    (batch 256, dropout 0.05) from the same weights, batch and generator
+    seeds, so the same draws and masks. First one step (``_update`` with and
+    without the group) with max pooling routed as the DP step's, as the
+    train phase pins it: loss, every gradient, the BatchNorm statistics.
+    Then a chunk of each from there: 13 + 13 bd launches a DP step, the
+    chunk's loss and the whole state (f32: ``MAIN_TOL`` and ``GRAD_TOL``;
+    bf16: ``BF16_TOL[0]`` of the max and ``BF16_GRAD_CAP``), beside
+    ``train_chunk`` run twice (the f32 path is not bit-reproducible: a
+    max-pooling window near a tie routes its gradient either way); samples/s
+    of both in turns."""
+    from channelestimationtransformer_torch.core.config import InformerConfig, TrainConfig
+    from channelestimationtransformer_torch.data.windows import make_batch
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.parallel.mesh import make_mesh
+    from channelestimationtransformer_torch.train.trainer import (
+        _update,
+        create_train_state,
+        train_chunk,
+        train_chunk_dp,
+    )
+
+    cfg = InformerConfig(use_pallas=True, dtype=dtype)
+    group = make_mesh().get_group("data")
+    ds = _card_data(torch, cfg.seq_len, cfg.pred_len)
+    tc = TrainConfig(batch_size=256, lr=1e-4)
+    states = {path: create_train_state(build_informer(cfg, device=device, seed=0), tc)
+              for path in ("dp", "single", "again")}
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    # (a) One step, routing pinned.
+    batch = make_batch(ds, 256, cfg.label_len, generator=gen(3))
+    routing, steps, flips = [], {}, {}
+    for path in states:
+        with _maxpool_routing(torch, routing, replay=path != "dp") as flips[path]:
+            steps[path] = _update(states[path], *batch, gen(4), group if path == "dp" else None)
+    models = {path: s.model for path, s in states.items()}
+    grads = {path: _grads(m) for path, m in models.items()}
+    floor = (1e-3 if dtype == "float32" else BF16_GRAD_FLOOR) * max(
+        g.abs().max().item() for g in grads["single"].values())
+    step_loss = {path: m["loss"].item() for path, m in steps.items()}
+    grad_err = max(_grad_errors(grads["dp"], grads["single"], floor).values())
+    stats = {k: v for k, v in models["single"].state_dict().items() if "running" in k}
+    stat_err = _state_errors(torch, models["dp"].state_dict(), stats, "float32")
+
+    # (b) A chunk of each from there, the same generator seed.
+    def run(path, seed):
+        if path == "dp":
+            return train_chunk_dp(states[path], ds, num_steps=TRAIN_STEPS, per_device_batch=256,
+                                  label_len=cfg.label_len, generator=gen(seed), group=group)
+        return train_chunk(states[path], ds, num_steps=TRAIN_STEPS, batch_size=256,
+                           label_len=cfg.label_len, generator=gen(seed))
+
+    torch.cuda.synchronize()
+    _zero_counts(wrappers)
+    m_dp = run("dp", 5)
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    m_one = run("single", 5)
+    run("again", 5)
+    expected = dict(bd_fwd=13 * TRAIN_STEPS, bd_bwd=13 * TRAIN_STEPS, mha=0)
+    loss_dp, loss_one = (m["loss_sum"].item() / TRAIN_STEPS for m in (m_dp, m_one))
+    state_err, state_spread = (
+        _state_errors(torch, models[path].state_dict(), models["single"].state_dict(), dtype)
+        for path in ("dp", "again"))
+    if dtype == "float32":
+        loss_tol, cap, stat_cap = MAIN_TOL[0], GRAD_TOL, MAIN_TOL[1]
+        state_ok = all(torch.allclose(a, b, rtol=MAIN_TOL[0], atol=MAIN_TOL[1])
+                       for a, b in zip(models["dp"].state_dict().values(),
+                                       models["single"].state_dict().values())
+                       if a.is_floating_point())
+        limits = f"rtol {MAIN_TOL[0]}, atol {MAIN_TOL[1]}"
+    else:
+        loss_tol, cap, stat_cap = 1e-2, BF16_GRAD_CAP, BF16_TOL[0]
+        state_ok = state_err <= BF16_TOL[0]
+        limits = f"{BF16_TOL[0]} of the max"
+    ok = (abs(step_loss["dp"] - step_loss["single"]) <= loss_tol * abs(step_loss["single"])
+          and grad_err <= cap and stat_err <= stat_cap and state_ok and launches == expected
+          and abs(loss_dp - loss_one) <= loss_tol * abs(loss_one) and math.isfinite(loss_dp))
+    log(f"parallel world 1 (NCCL) {dtype}: one step, _update with the group vs without (same "
+        f"weights, batch, masks; max pooling routed as the DP step's, {sum(flips['single'])} "
+        f"windows differ from the other's own argmax): loss {step_loss['dp']:.6f} vs "
+        f"{step_loss['single']:.6f}, gradients worst {grad_err:.3e} (limit {cap}), BatchNorm "
+        f"statistics worst {stat_err:.3e} (limit {stat_cap}); then train_chunk_dp "
+        f"{TRAIN_STEPS} x 256 vs train_chunk: loss {loss_dp:.6f} vs {loss_one:.6f}, state worst "
+        f"{state_err:.3e} ({limits}; train_chunk run twice: {state_spread:.3e}); launches "
+        f"{_launch_report(launches, expected)} {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"train_chunk_dp at world 1 ({dtype}) disagrees with train_chunk or launched "
+             f"{launches}")
+    times = _alternate(torch, lambda path, i: run(path, 100 + i), rounds=PARALLEL_ROUNDS,
+                       names=("dp", "single"))
+    rate = {path: TRAIN_STEPS * 256 / statistics.median(ts[1:]) for path, ts in times.items()}
+    log(f"parallel world 1 {dtype}: train_chunk_dp {rate['dp']:.1f} samples/s, train_chunk "
+        f"{rate['single']:.1f} (median of {PARALLEL_ROUNDS - 1} chunks of {TRAIN_STEPS} x 256, "
+        f"in turns)", flush=True)
+    return dict(launches=launches, step_loss=step_loss, grad_err=grad_err, stat_err=stat_err,
+                loss=(loss_dp, loss_one), state_err=state_err, state_spread=state_spread,
+                samples_per_s=rate,
+                chunk_ms={path: [t * 1e3 for t in ts] for path, ts in times.items()})
+
+
+def _gather_batch(torch, t, group):
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=0)
+
+
+def _dp_ranks(torch, wrappers, device, dtype, log):
+    """One DP ``_update`` at the flagship widths (dropout 0: each rank's
+    masks would be its own), global batch 256 split over the ranks, each
+    part drawn from the rank's shard, against one card's ``_update`` on the
+    concatenated batch on rank 0 (max pooling routed as the ranks'): loss,
+    gradients, BatchNorm statistics; then a DP chunk's launches on every
+    rank and its samples/s beside one card's chunk of the same global batch."""
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.core.config import InformerConfig, TrainConfig
+    from channelestimationtransformer_torch.data.windows import WindowDataset, make_batch
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.parallel.mesh import make_mesh
+    from channelestimationtransformer_torch.train.trainer import (
+        _update,
+        create_train_state,
+        train_chunk,
+        train_chunk_dp,
+    )
+
+    cfg = InformerConfig(use_pallas=True, dtype=dtype, dropout=0.0)
+    group = make_mesh().get_group("data")
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    per, tc = 256 // n, TrainConfig(batch_size=256, lr=1e-4)
+    full = _card_data(torch, cfg.seq_len, cfg.pred_len)
+    rows = full.num_samples // n
+    shard = WindowDataset(h=full.h[r * rows:(r + 1) * rows], seq_len=cfg.seq_len,
+                          pred_len=cfg.pred_len, snr_db=full.snr_db, device=device)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    state = create_train_state(build_informer(cfg, device=device, seed=0), tc)
+    batch = make_batch(shard, per, cfg.label_len, generator=gen(10 + r))
+    routing = []
+    with _maxpool_routing(torch, routing):
+        m_dp = _update(state, *batch, gen(20), group)
+    whole = [_gather_batch(torch, t, group) for t in batch]
+    routes = [_gather_batch(torch, idx, group) for idx in routing]
+    out = {}
+    if r == 0:
+        single = create_train_state(build_informer(cfg, device=device, seed=0), tc)
+        with _maxpool_routing(torch, routes, replay=True) as flips:
+            m_one = _update(single, *whole, gen(20))
+        g_dp, g_one = _grads(state.model), _grads(single.model)
+        floor = (1e-3 if dtype == "float32" else BF16_GRAD_FLOOR) * max(
+            g.abs().max().item() for g in g_one.values())
+        grad_err = max(_grad_errors(g_dp, g_one, floor).values())
+        stats = {k: v for k, v in single.model.state_dict().items() if "running" in k}
+        stat_err = _state_errors(torch, state.model.state_dict(), stats, dtype)
+        loss_dp, loss_one = m_dp["loss"].item(), m_one["loss"].item()
+        tol = MAIN_TOL[0] if dtype == "float32" else 1e-2
+        cap = GRAD_TOL if dtype == "float32" else BF16_GRAD_CAP
+        stat_cap = MAIN_TOL[1] if dtype == "float32" else BF16_TOL[0]
+        ok = (abs(loss_dp - loss_one) <= tol * abs(loss_one) and grad_err <= cap
+              and stat_err <= stat_cap)
+        log(f"parallel world {n} (NCCL) {dtype}: one DP _update ({per} windows a rank from its "
+            f"shard) vs one card's _update on the concatenated 256: loss {loss_dp:.6f} vs "
+            f"{loss_one:.6f} (rtol {tol}), gradients worst {grad_err:.3e} (limit {cap}), "
+            f"BatchNorm statistics worst {stat_err:.3e} (limit {stat_cap}); max pooling routed "
+            f"as the ranks' ({sum(flips)} windows differ from one card's own argmax) "
+            f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the DP step on {n} ranks ({dtype}) disagrees with one card's")
+        out.update(loss=(loss_dp, loss_one), grad_err=grad_err, stat_err=stat_err)
+    dist.barrier(group)
+    torch.cuda.synchronize()
+    _zero_counts(wrappers)
+    train_chunk_dp(state, shard, num_steps=TRAIN_STEPS, per_device_batch=per,
+                   label_len=cfg.label_len, generator=gen(30 + r), group=group)
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    expected = dict(bd_fwd=13 * TRAIN_STEPS, bd_bwd=13 * TRAIN_STEPS, mha=0)
+    if launches != expected:
+        fail(f"train_chunk_dp on rank {r} of {n} launched {launches}, not {expected}")
+    times = {"dp": [], "single": []}
+    single = create_train_state(build_informer(cfg, device=device, seed=0), tc) if r == 0 else None
+    for i in range(PARALLEL_ROUNDS):
+        dist.barrier(group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_chunk_dp(state, shard, num_steps=TRAIN_STEPS, per_device_batch=per,
+                       label_len=cfg.label_len, generator=gen(100 + i), group=group)
+        torch.cuda.synchronize()
+        times["dp"].append(time.perf_counter() - t0)
+        if r == 0:
+            t0 = time.perf_counter()
+            train_chunk(single, full, num_steps=TRAIN_STEPS, batch_size=256,
+                        label_len=cfg.label_len, generator=gen(200 + i))
+            torch.cuda.synchronize()
+            times["single"].append(time.perf_counter() - t0)
+    rate = {path: TRAIN_STEPS * 256 / statistics.median(ts[1:]) for path, ts in times.items()
+            if ts}
+    if r == 0:
+        log(f"parallel world {n} {dtype}: launches on rank 0 "
+            f"{_launch_report(launches, expected)}; "
+            f"train_chunk_dp {rate['dp']:.1f} samples/s across {n} cards, one card's "
+            f"train_chunk {rate['single']:.1f} (global batch 256, median of "
+            f"{PARALLEL_ROUNDS - 1} chunks)", flush=True)
+    return dict(out, launches=launches, samples_per_s=rate)
+
+
+def _ring_vs_full(torch, wrappers, device, log):
+    """The ring Informer (``RING_CFG``, eval, batch 64) with its sequence on
+    every rank's ``seq`` axis against the full model with the same weights
+    on the same batch (``MAIN_TOL``); its launches (the decoder's 6 calls on
+    mha, the encoder's 7 ring calls on none) and ms a batch beside the full
+    model's, in turns."""
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.data.windows import make_batch
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.parallel.mesh import make_mesh
+
+    n = dist.get_world_size()
+    cfg = InformerConfig(use_pallas=True, attn="ring", **RING_CFG)
+    models = {"ring": build_informer(cfg, device=device, seed=0,
+                                     mesh=make_mesh(data=1, model=1, seq=n)),
+              "full": build_informer(dataclasses.replace(cfg, attn="full"), device=device,
+                                     seed=0)}
+    ds = _card_data(torch, cfg.seq_len, cfg.pred_len, samples=4096, slots=cfg.seq_len + 10)
+    x_enc, x_dec, _ = make_batch(ds, RING_BATCH, cfg.label_len,
+                                 generator=torch.Generator(device=device).manual_seed(2))
+    torch.cuda.synchronize()
+    _zero_counts(wrappers)
+    with torch.no_grad():
+        out_ring = models["ring"](x_enc, x_dec)
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    with torch.no_grad():
+        out_full = models["full"](x_enc, x_dec)
+    expected = dict(bd_fwd=0, bd_bwd=0, mha=2 * cfg.d_layers)
+    text, ok, err = _close(torch, out_ring, out_full, "float32")
+    ok = ok and launches == expected
+    log(f"parallel ring (world {n}, seq axis {n}; d_model {cfg.d_model}, E "
+        f"{cfg.d_model // cfg.n_heads}, seq_len {cfg.seq_len}, distil off, eval x {RING_BATCH}) "
+        f"vs the full model: {text}; launches {_launch_report(launches, expected)} "
+        f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"the ring Informer on {n} rank(s) disagrees with the full model or launched "
+             f"{launches}")
+
+    def run(path, i):
+        with torch.no_grad():
+            models[path](x_enc, x_dec)
+    times = _alternate(torch, run, rounds=PARALLEL_ROUNDS + 2, names=("ring", "full"))
+    ms = {path: statistics.median(ts[1:]) * 1e3 for path, ts in times.items()}
+    log(f"parallel ring (world {n}): {ms['ring']:.3f} ms a batch of {RING_BATCH}, full model "
+        f"{ms['full']:.3f} (median of {PARALLEL_ROUNDS + 1}, in turns)", flush=True)
+    return dict(launches=launches, max_abs=err, ms=ms)
+
+
+def parallel_rank(out_path):
+    """One rank of :func:`phase_parallel`'s group: joins it (NCCL, one card a
+    rank), runs the DP checks in f32 and bf16 (:func:`_dp_world1` at world
+    1, :func:`_dp_ranks` across ranks) and the ring (:func:`_ring_vs_full`),
+    and rank 0 writes the results to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.ops.cuda import bd_attention as ops
+    from channelestimationtransformer_torch.ops.cuda import mha_attention as mha
+    from channelestimationtransformer_torch.parallel.launch import join_local
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check runs on a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    device = join_local()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    wrappers = dict(bd_fwd=ops.bd_attention_fwd, bd_bwd=ops.bd_attention_bwd,
+                    mha=mha.mha_attention_fwd)
+
+    def log(*args, **kwargs):
+        if rank == 0:
+            print(*args, **kwargs)
+
+    result = dict(world=world, backend=dist.get_backend(), card=torch.cuda.get_device_name())
+    x = torch.zeros(1, device=device)
+    for _ in range(10):
+        dist.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(x)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    result["all_reduce_us"] = (host / 200 * 1e6, (time.perf_counter() - t0) / 200 * 1e6)
+    log(f"parallel world {world}: a 4-byte NCCL all-reduce takes {result['all_reduce_us'][0]:.1f} "
+        f"us of host time ({result['all_reduce_us'][1]:.1f} us to the device's end; 200 calls)",
+        flush=True)
+    for dtype in ("float32", "bfloat16"):
+        result[dtype] = (_dp_world1 if world == 1 else _dp_ranks)(torch, wrappers, device, dtype,
+                                                                   log)
+    result["ring"] = _ring_vs_full(torch, wrappers, device, log)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps(result, indent=1))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def _per_path(rows, key, weight):
     """Sum of ``key`` weighted by each row's count on the path (``weight``)."""
     return sum(r[key] * r[weight] for r in rows if r[weight])
@@ -2775,6 +3159,8 @@ def main(argv):
     import torch
     import torch.nn.functional as F
 
+    if "--parallel-rank" in argv:
+        return parallel_rank(argv[argv.index("--parallel-rank") + 1])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs on a CUDA card")
     from channelestimationtransformer_torch.ops.cuda import _build
@@ -2943,6 +3329,9 @@ def main(argv):
     scale = phase_scale_demo(torch, wrappers, card)
     int8_ab = phase_int8_scale_ab(torch, wrappers, gemms, card)
 
+    # Data parallelism over NCCL and the ring, in subprocesses of this script.
+    parallel = phase_parallel(torch, card)
+
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
     bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]  # noqa: E731
     kernels = [
@@ -3034,6 +3423,14 @@ def main(argv):
     kernels[1].update(scale_demo_launches=sum(run["launches"]["bd_bwd"] for run in scale.values()))
     kernels[2].update(int8_scale_ab_launches=sum(run["launches"]["mha"]
                                                  for run in int8_ab.values()))
+    # The parallel phase's: train_chunk_dp (8 steps) at each world size, rank 0's
+    # count, and the ring Informer's batch (its decoder on mha).
+    for world, run in parallel.items():
+        for kernel, key in ((kernels[0], "bd_fwd"), (kernels[1], "bd_bwd")):
+            kernel[f"dp_train_launches_world{world}"] = run["float32"]["launches"][key]
+            kernel["bfloat16"][f"dp_train_launches_world{world}"] = (
+                run["bfloat16"]["launches"][key])
+        kernels[2][f"ring_eval_launches_world{world}"] = run["ring"]["launches"]["mha"]
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
         mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, fixed_grouped_rows=grouped_rows,
@@ -3049,7 +3446,8 @@ def main(argv):
         qat_prune=qat_prune, drivers=drivers, int8_path=int8_path, streaming=streaming,
         baselines=baselines, comparison_informer_batch=cmp_batch,
         comparison_informer_train_path=cmp_train_path, serving_drivers=serving_drivers,
-        link=link, e2e_drivers=e2e, scale_demo=scale, int8_scale_ab=int8_ab, kernels=kernels),
+        link=link, e2e_drivers=e2e, scale_demo=scale, int8_scale_ab=int8_ab, parallel=parallel,
+        kernels=kernels),
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

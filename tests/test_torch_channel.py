@@ -34,6 +34,7 @@ from channelestimationtransformer_tpu.channel import interpolate as jinterp
 from channelestimationtransformer_tpu.data import packing as jpack
 from channelestimationtransformer_tpu.data.windows import WindowDataset as JaxWindowDataset
 from channelestimationtransformer_tpu.data.windows import pack_features as jax_pack_features
+from channelestimationtransformer_tpu.parallel.mesh import make_mesh as jax_make_mesh
 
 from channelestimationtransformer_torch.channel import beamforming as bf
 from channelestimationtransformer_torch.channel import cdl
@@ -41,6 +42,8 @@ from channelestimationtransformer_torch.channel import dataset as ds
 from channelestimationtransformer_torch.channel import interpolate
 from channelestimationtransformer_torch.data import packing
 from channelestimationtransformer_torch.data.windows import WindowDataset, pack_features
+
+from torch_parallel_worker import spawn
 
 CHANNEL_TOL = 1e-4
 
@@ -470,3 +473,51 @@ def test_interpolate_slots_matches_jax(factor, axis):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     np.testing.assert_allclose(jinterp._catmull_rom_basis(factor),
                                interpolate._catmull_rom_basis(factor), rtol=0, atol=0)
+
+
+# --- the sharded variants (4 gloo ranks) ------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sharded_channel(tmp_path_factory):
+    """One group of 4 gloo ranks (``tests/torch_parallel_worker.py``): the
+    antenna-sharded sweep of a JAX CDL channel and the sample-sharded
+    dataset."""
+    h = np.array(jcdl.generate_cdl_channel(jax.random.key(6), MODELS["default_16x2"][1], 4, 20))
+    outs = spawn(tmp_path_factory.mktemp("sharded_channel"), ["beam_sweep", "sharded_dataset"],
+                 4, {"sweep_h": torch.from_numpy(h)})
+    return h, outs
+
+
+def test_antenna_sharded_sweep_matches_jax(sharded_channel):
+    """``beam_sweep_project_sharded`` on a model=4 mesh of 4 ranks (16
+    antennas, 4 a rank) against JAX's on a model=4 sub-mesh of the virtual
+    devices: the selected beams equal, ``h_eff`` within the sweep's
+    tolerance, on every rank, and within it of the unsharded sweep."""
+    h, outs = sharded_channel
+    mesh = jax_make_mesh(data=1, model=4, devices=jax.devices()[:4])
+    he_j, sel_j = jbf.beam_sweep_project_sharded(jnp.asarray(h), jbf.dft_codebook_ri(16), 4,
+                                                 mesh)
+    he_t, sel_t = bf.beam_sweep_project(torch.from_numpy(h), bf.dft_codebook_ri(16, device="cpu"))
+    for out in outs:
+        np.testing.assert_array_equal(out["beam_sweep"]["selected"].numpy(), np.asarray(sel_j))
+        np.testing.assert_array_equal(out["beam_sweep"]["selected"].numpy(), sel_t.numpy())
+        got = out["beam_sweep"]["h_eff"].numpy()
+        assert np.abs(got - np.asarray(he_j)).max() <= CHANNEL_TOL
+        assert np.abs(got - he_t.numpy()).max() <= CHANNEL_TOL
+
+
+def test_sample_sharded_dataset_shards_are_the_keyed_streams(sharded_channel):
+    """``generate_beamformed_dataset_sharded`` on a data=4 mesh: rank r's
+    shard is the unsharded generator's output on the key path
+    ``(*key, r)``, bit for bit, and a sample count the axis does not divide
+    is refused with JAX's message."""
+    _, outs = sharded_channel
+    for r, out in enumerate(outs):
+        want = ds.generate_beamformed_dataset((5, 1, r), model=cdl.CDLModel(num_bs_ant=16),
+                                              num_samples=2, num_slots=10, device="cpu")
+        assert torch.equal(out["sharded_dataset"]["shard"], want)
+        assert out["sharded_dataset"]["refused"] == (
+            "num_samples 9 not divisible by data axis size 4")
+    shards = [out["sharded_dataset"]["shard"] for out in outs]
+    assert not torch.equal(shards[0], shards[1])

@@ -75,7 +75,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "cli/train_streaming.py", "sim/__init__.py", "sim/qam.py",
                    "sim/precoding.py", "sim/estimation.py", "sim/ofdm.py", "sim/coding.py",
                    "sim/ldpc.py", "sim/link.py", "cli/end_to_end_sim.py", "cli/collect_e2e.py",
-                   "cli/scale_demo.py", "cli/int8_scale_ab.py"):
+                   "cli/scale_demo.py", "cli/int8_scale_ab.py", "parallel/launch.py",
+                   "parallel/mesh.py", "parallel/sharding.py", "parallel/ring.py",
+                   "parallel/collectives.py", "cli/scaling_study.py"):
         assert f"channelestimationtransformer_torch/{module}" in names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
@@ -144,8 +146,19 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
 
 
 def test_unported_options_raise():
+    """``attn="ring"`` builds with distil off and refuses distil on; a ring
+    model under autograd raises before its ring touches the mesh (the
+    ring's backward is not ported); float16 is not ported."""
+    small = dict(seq_len=16, label_len=4, pred_len=2, d_model=16, n_heads=2, e_layers=(1,),
+                 d_layers=1, dropout=0.0)
+    with pytest.raises(ValueError, match="distil=False"):
+        InformerConfig(attn="ring", **small)
+    model = build_informer(InformerConfig(attn="ring", distil=False, **small), device="cpu",
+                           mesh=object()).train()
+    assert model.encoder.layer_0.attention.attn == "ring"
+    assert model.decoder.layer_0.self_attention.attn == "full"
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        InformerConfig(attn="ring", distil=False)
+        model(torch.randn(2, 16, 16), torch.randn(2, 6, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_informer(InformerConfig(dtype="float16"), device="cpu")
 
