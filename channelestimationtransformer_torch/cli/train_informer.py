@@ -31,6 +31,7 @@ from ..core.runtime import resolve_device
 from ..models.informer import build_informer
 from ..train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ..train.trainer import Trainer, create_train_state
+from ..utils.tensorboard import MetricsWriter
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,7 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pre-LayerNorm residual blocks (from-scratch stability)")
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--tensorboard", action="store_true",
-                   help="not ported yet: raises (ROADMAP Queue 1 item 14)")
+                   help="log the reference's scalars (Loss/train, Loss/val, Loss/val1..5) "
+                        "under runs/<name>: TensorBoard events, or events.jsonl where the "
+                        "tensorboard package is missing")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--lr", type=float, default=1e-3)
@@ -128,10 +131,6 @@ def run_name(args, cfg: InformerConfig, ue_speed: float) -> str:
 def main(argv=None) -> dict:
     """Run the driver; returns the result written to ``result_<name>.json``."""
     args = parse_args(argv)
-    if args.tensorboard:
-        raise NotImplementedError(
-            "--tensorboard: the port has no TensorBoard writer yet (ROADMAP Queue 1 "
-            "item 14, utilities)")
     device = resolve_device(args.device)
     ue_speed = (args.ue_speed_kmh if args.ue_speed_kmh is not None
                 else (5.5 if args.calibrated else 30.0))
@@ -188,7 +187,9 @@ def main(argv=None) -> dict:
     print(f"Dataset generated in {time.time() - t0:.1f}s "
           f"(train {tuple(train_ds.h.shape)}, val {tuple(val_ds.h.shape)})", flush=True)
 
-    trainer = Trainer(model=model, cfg=cfg, train_cfg=tc, train_data=train_ds, val_data=val_ds)
+    writer = MetricsWriter(os.path.join("runs", name)) if args.tensorboard else None
+    trainer = Trainer(model=model, cfg=cfg, train_cfg=tc, train_data=train_ds, val_data=val_ds,
+                      metrics_writer=writer)
     start_epoch = 0
     if args.preload or args.resume:
         path = (latest_checkpoint(args.out, f"tmodel_{name}_")
@@ -207,6 +208,8 @@ def main(argv=None) -> dict:
             print("No checkpoint found to preload", flush=True)
     trainer.checkpoint_tag = f"tmodel_{name}_"
     history = trainer.fit(start_epoch=start_epoch)
+    if writer is not None:
+        writer.close()
 
     os.makedirs(args.out, exist_ok=True)
     save_checkpoint(trainer.state, args.out, f"tmodel_{name}_", args.epochs)

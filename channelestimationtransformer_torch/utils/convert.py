@@ -1,5 +1,5 @@
 """Weight bridge: the JAX package's Informer, Transformer and recurrent
-baseline variables -> a port ``state_dict``.
+baseline variables -> a port ``state_dict``, and back (:func:`to_flax`).
 
 Input is the flax variable tree as nested dicts of numpy arrays (the caller
 converts device arrays with ``np.asarray``, so this module never sees a JAX
@@ -261,3 +261,64 @@ def load_flax_recurrent(model: torch.nn.Module, params) -> torch.nn.Module:
     """Load :func:`from_flax_recurrent`'s ``state_dict`` strictly."""
     model.load_state_dict(from_flax_recurrent(params), strict=True)
     return model
+
+
+# The recurrent cells' flax gate names, in torch's stacked order (FlaxBridge.recurrent_cell).
+_GATES = {"lstm": (("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho")),
+          "gru": (("ir", "iz", "in"), ("hr", "hz", "hn")),
+          "rnn": (("i",), ("h",))}
+
+
+def _put(tree: dict, path: str, value) -> None:
+    *parents, leaf = path.split(".")
+    for name in parents:
+        tree = tree.setdefault(name, {})
+    tree[leaf] = value
+
+
+def _cell_to_flax(params: dict, path: str, cell: dict) -> None:
+    """One recurrent cell's torch tensors (``weight_ih``, ...) -> its flax
+    gates, the inverse of :meth:`FlaxBridge.recurrent_cell`."""
+    kind = "lstm" if "bias_hh" in cell else "gru" if "bias_hn" in cell else "rnn"
+    i_names, h_names = _GATES[kind]
+    for names, weight in ((i_names, "weight_ih"), (h_names, "weight_hh")):
+        for name, w in zip(names, np.split(cell[weight], len(names))):
+            _put(params, _join(path, f"{name}.kernel"), np.ascontiguousarray(w.T))
+    biases = {"lstm": {"bias_hh": h_names}, "gru": {"bias_ih": i_names, "bias_hn": ("hn",)},
+              "rnn": {"bias_ih": i_names}}[kind]
+    for bias, names in biases.items():
+        for name, b in zip(names, np.split(cell[bias], len(names))):
+            _put(params, _join(path, f"{name}.bias"), b)
+
+
+def to_flax(state_dict) -> tuple[dict, dict]:
+    """A port ``state_dict`` (Informer, Transformer or recurrent baseline)
+    -> flax ``(params, batch_stats)`` as nested dicts of float32 numpy
+    arrays, the inverse of :func:`from_flax` and its siblings: Linear
+    ``[out, in]`` -> Dense ``kernel`` ``[in, out]``, conv ``[C_out, C_in, K]``
+    -> ``kernel`` ``[K, C_in, C_out]``, norm ``weight`` -> ``scale``,
+    ``running_mean`` / ``running_var`` -> ``batch_stats`` ``mean`` /
+    ``var``; ``num_batches_tracked`` has no flax counterpart and is dropped.
+    Raises on a key it does not know."""
+    params, stats, cells = {}, {}, {}
+    for key, value in state_dict.items():
+        path, _, name = key.rpartition(".")
+        if name == "num_batches_tracked":
+            continue
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh", "bias_hn"):
+            cells.setdefault(path, {})[name] = arr
+        elif name in ("running_mean", "running_var"):
+            _put(stats, _join(path, name.removeprefix("running_")), arr)
+        elif name == "weight" and arr.ndim in (2, 3):
+            kernel = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+            _put(params, _join(path, "kernel"), np.ascontiguousarray(kernel))
+        elif name == "weight" and arr.ndim == 1:
+            _put(params, _join(path, "scale"), arr)
+        elif name in ("bias", "step_size"):
+            _put(params, key, arr)
+        else:
+            raise KeyError(f"no flax counterpart for the port's {key!r}")
+    for path, cell in cells.items():
+        _cell_to_flax(params, path, cell)
+    return params, stats

@@ -4,7 +4,9 @@ generator and training drivers, ProbSparse attention, fused QKV projections,
 LSQ training, the quantization study (QAT, pruning and their drivers), int8
 serving, blockwise streaming and the baseline models with their drivers,
 the end-to-end link simulation with its drivers, the scale demo with its
-int8 A/B, and data-parallel training and ring attention over NCCL.
+int8 A/B, the utilities (tracing, timing, memory, complexity, the native
+host library) with the analysis drivers, and data-parallel training and
+ring attention over NCCL.
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
@@ -204,7 +206,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    the card's peak;
 34. int8 A/B: ``cli.int8_scale_ab`` at its four sizes, repetitions cut: bd,
    mha and GEMM launches against the routing's counts, finite timings.
-35. parallel: subprocesses of this script (``--parallel-rank``), each group
+35. analysis: the bd forward against its plain version at every shape of
+   ``cli.timing_analysis``'s full sweep that no phase above holds (E 8, 16,
+   32; the sweep's lengths); ``utils.profiling.trace`` over one flagship eval
+   chunk, its Chrome trace holding the bd forward kernel 104 times;
+   ``time_fn_amortized`` of one flagship forward beside ``time_ms`` and
+   ``time_fn``; ``device_memory_stats`` equal to torch.cuda's counters;
+   ``cli.complexity_report`` on the card equal to the CPU's count for all
+   five models, no kernel launched (a ``use_pallas`` model counted on its
+   plain twin); ``native`` built here with g++ against the quant kernels
+   (nearest fixed point and nearest codeword bit for bit, stochastic
+   rounding by its mean) and ``data/packing.py`` (``pack_windows`` bit for
+   bit); ``ar_oracle_nmse`` card vs CPU on the same windows
+   (``AR_CARD_RTOL``) and ``cli.ar_oracle`` at the committed artifact's
+   settings, its dB beside the artifact's (not held: another channel
+   draw); ``cli.timing_analysis`` on two axes (monotonic: true);
+   ``cli.eval_parity_ci`` from phase 18's checkpoint on 8 batches (104 bd
+   launches), its mean within ``PARITY_CI_RTOL`` of the plain path's;
+   ``cli.collect_results`` over the committed results and phase 18's; and
+   ``parse_logs`` over phase 18's log, ``MetricsWriter`` writing its scalars
+   (the JSONL branch where ``tensorboard`` is missing);
+36. parallel: subprocesses of this script (``--parallel-rank``), each group
    killed and failed past ``PARALLEL_TIMEOUT``. Always NCCL at world 1:
    ``train_chunk_dp`` at the flagship (batch 256, f32 and bf16) against
    ``train_chunk`` from the same weights and generator (loss, state,
@@ -1673,7 +1695,7 @@ def phase_cli(torch, wrappers):
     if not (finite and written):
         fail("the cli phase's losses are not finite or its result JSON is missing")
     return dict(argv=argv, seconds=secs, launches=launches, losses=losses, valid_losses=valid,
-                result=result)
+                result=result, log=log.getvalue())
 
 
 # The LSQ training phase: cli.train_lsq's short recipe from the cli phase's
@@ -2757,6 +2779,381 @@ def phase_int8_scale_ab(torch, wrappers, gemms, card):
     return rows
 
 
+# The analysis phase: utils/ and the analysis drivers on the card. The trace
+# holds one flagship eval chunk (13 bd forward launches a batch); the timing
+# sweep is cut to two axes (every point: 3 eager warm-up forwards and 20 in a
+# CUDA graph, 13 bd forward launches each); eval_parity_ci evaluates the cli
+# phase's checkpoint on 8 batches (13 bd forward launches each).
+TIMING_ARGS = ["--params", "seq_len", "batch", "--reps", "3"]
+TIMING_POINTS, TIMING_FORWARDS = 4 + 3, 3 + 20
+PARITY_CI_BATCHES = 8
+PARITY_CI_RTOL = 1e-4  # kernel path vs plain path, the mean of the per-batch values
+AR_CARD_RTOL = 1e-4  # card vs CPU: complex64 products summed in other orders
+# experiments/artifacts/ar_oracle.json: order 30, 14-symbol slots, 30 km/h (the
+# defaults), 256 windows, these SNRs.
+AR_SNRS = ["12", "14", "16", "18", "20", "21"]
+AR_ARGS = ["--slot-symbols", "14", "--order", "30", "--snr", *AR_SNRS]
+NATIVE_N = 1 << 20
+
+
+def timing_kernel_shapes():
+    """The attention calls of ``cli.timing_analysis``'s full sweep (E 8,
+    16 and 32; other lengths) that ``SHAPES`` and the scale demo's leave
+    out, each distinct (l_q, l_k, causal, E) once at batch 256, all on the bd
+    forward (every sweep point takes it): (label, l_q, l_k, causal, 0, b, h,
+    e, d)."""
+    from channelestimationtransformer_torch.cli import timing_analysis
+
+    seen = {(l_q, l_k, causal, E) for _, l_q, l_k, causal, _ in SHAPES}
+    seen |= {(l_q, l_k, causal, e) for _, l_q, l_k, causal, _, _, _, e, _ in
+             scale_kernel_shapes()[0]}
+    out = []
+    for key, cfg, batch in timing_analysis.sweep_configs(list(timing_analysis.DEFAULT_SWEEP),
+                                                         256):
+        calls = attention_calls(cfg)
+        n_enc = len(calls) - 2 * cfg.d_layers
+        for i, (l_q, l_k, e) in enumerate(calls):
+            causal = i >= n_enc and (i - n_enc) % 2 == 0
+            if (l_q, l_k, causal, e) in seen:
+                continue
+            seen.add((l_q, l_k, causal, e))
+            out.append((f"{key} E{e} {l_q}x{l_k}{' causal' if causal else ''}", l_q, l_k,
+                        causal, 0, batch, cfg.n_heads, e, e))
+    return out
+
+
+def _driver(wrappers, fn, argv):
+    """``fn(argv)`` in this process with its stdout captured: (result,
+    launches, seconds, log text)."""
+    log = io.StringIO()
+    _zero_counts(wrappers)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        result = fn(argv)
+    return result, _counts(wrappers), time.perf_counter() - t0, log.getvalue()
+
+
+def _native_vs_kernels(torch, np, quant, draw_seed, cbm):
+    """``native`` (built here with g++) against the quant kernels and
+    ``data/packing.py`` on the same inputs: nearest fixed point and nearest
+    codeword bit for bit, window packing bit for bit, stochastic rounding by
+    its mean (its stream differs: ``std::mt19937_64`` against Philox)."""
+    from channelestimationtransformer_torch import native
+    from channelestimationtransformer_torch.data.packing import complex_to_real
+
+    lib, log = native.build()
+    print(f"native: {lib.name} built with {' '.join(native.CXX_FLAGS)}"
+          f"{' (' + log.strip()[:200] + ')' if log.strip() else ''}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = _fixed_input(torch, NATIVE_N, gen)
+    x_host = x.cpu().numpy()
+    fixed = 0
+    for wl, fl in FIXED_FORMATS:
+        for symmetric in (False, True):
+            for clamp in (True, False):
+                got = native.fixed_point_quantize(x_host, wl, fl, clamp=clamp,
+                                                  symmetric=symmetric)
+                want = quant.fused_fixed_point_quantize(x, wl, fl, clamp=clamp,
+                                                        symmetric=symmetric).cpu().numpy()
+                if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+                    fail(f"native fixed point != fixed_point_quantize.cu at wl {wl} fl {fl} "
+                         f"symmetric {symmetric} clamp {clamp}")
+                fixed += 1
+    codeword = 0
+    for label, cb in _codebooks(cbm):
+        xc = _codeword_input(torch, np, NATIVE_N, cb, gen)
+        got = native.nearest_codeword(xc.cpu().numpy(), cb)
+        want = quant.fused_nearest_codeword(
+            xc, torch.tensor(cb, dtype=torch.float32, device="cuda")).cpu().numpy()
+        if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+            fail(f"native nearest codeword != nearest_codeword.cu with {label}")
+        codeword += 1
+    h = torch.randn(256, 100, 2, 4, dtype=torch.complex64, generator=gen, device="cuda")
+    starts = torch.randint(0, 6, (256,), generator=gen, device="cuda")
+    packed = complex_to_real(h)
+    pos = (starts[:, None] + torch.arange(95, device="cuda"))[:, :, None].expand(-1, -1, 16)
+    want = torch.gather(packed, 1, pos).cpu().numpy()
+    got = native.pack_windows(h.cpu().numpy(), starts.cpu().numpy(), 95)
+    if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+        fail("native pack_windows != data/packing.py's windows")
+    u = torch.rand(NATIVE_N, generator=gen, device="cuda") * 2 - 1
+    wl, fl = PTQ_WL, PTQ_FL
+    mean_native = float(native.fixed_point_quantize(u.cpu().numpy(), wl, fl,
+                                                    rounding="stochastic", seed=3)
+                        .astype(np.float64).mean())
+    mean_kernel = quant.fused_fixed_point_quantize(
+        u, wl, fl, stochastic=True, seed=draw_seed(torch.Generator(device="cuda").manual_seed(3),
+                                                   "cuda")).double().mean().item()
+    # Each rounding errs by at most one grid step 2^-fl; the means of two
+    # independent unbiased roundings differ by 4 sigma at most.
+    limit = 4 * math.sqrt(2) * 2.0 ** -fl / 2 / math.sqrt(NATIVE_N)
+    diff = abs(mean_native - mean_kernel)
+    print(f"native vs kernels ({NATIVE_N:,} elements): fixed point nearest {fixed} settings "
+          f"bit for bit with fixed_point_quantize.cu, nearest codeword {codeword} codebooks "
+          f"bit for bit with nearest_codeword.cu, pack_windows (256 x 95 of 100 slots, 2 x 4) "
+          f"bit for bit with data/packing.py; stochastic wl {wl} fl {fl}: mean {mean_native:.6e} "
+          f"vs the kernel's {mean_kernel:.6e}, |diff| {diff:.3e} (limit {limit:.3e})", flush=True)
+    if diff > limit:
+        fail("native stochastic rounding's mean is off the kernel's")
+    return dict(fixed_settings=fixed, codebooks=codeword, stochastic_mean_native=mean_native,
+                stochastic_mean_kernel=mean_kernel, stochastic_limit=limit)
+
+
+def phase_analysis(torch, wrappers, card, checkpoint_dir, cli_name, cli_log):
+    """``utils/`` and the analysis drivers on the card: a ``trace`` of one
+    flagship eval chunk holding its 104 bd forward kernels;
+    ``time_fn_amortized`` of one flagship forward beside ``time_ms``;
+    ``device_memory_stats`` against ``max_memory_allocated``;
+    ``model_complexity`` of the five models equal to the CPU's and launching
+    no kernel; ``native`` against the quant kernels and the packing;
+    ``ar_oracle_nmse`` card vs CPU and ``cli.ar_oracle`` at the committed
+    artifact's settings; ``cli.timing_analysis`` on two axes (monotonic);
+    ``cli.eval_parity_ci`` from the cli phase's checkpoint, kernel path vs
+    plain path; ``cli.complexity_report`` and ``cli.collect_results``; and
+    the host-only ``parse_logs`` over the cli phase's log and
+    ``MetricsWriter`` (its JSONL branch where ``tensorboard`` is missing)."""
+    import numpy as np
+
+    from channelestimationtransformer_torch.channel.cdl import CDLModel
+    from channelestimationtransformer_torch.channel.dataset import make_window_dataset
+    from channelestimationtransformer_torch.cli import (
+        ar_oracle,
+        collect_results,
+        complexity_report,
+        eval_parity_ci,
+        timing_analysis,
+    )
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.core.runtime import stream_generator
+    from channelestimationtransformer_torch.data.windows import sample_windows
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.ops.cuda import bd_attention as ops
+    from channelestimationtransformer_torch.ops.cuda import quant
+    from channelestimationtransformer_torch.ops.quant import codebooks
+    from channelestimationtransformer_torch.train.trainer import eval_chunk
+    from channelestimationtransformer_torch.utils import profiling
+    from channelestimationtransformer_torch.utils.complexity import model_complexity
+    from channelestimationtransformer_torch.utils.parse_logs import parse_log_text
+    from channelestimationtransformer_torch.utils.tensorboard import MetricsWriter
+
+    t_phase = time.perf_counter()
+    folder = OUT / "analysis"
+    folder.mkdir(exist_ok=True)
+    out = {}
+    none = {key: 0 for key in wrappers}
+
+    # The bd shapes of the full timing sweep that no phase holds yet.
+    shapes = timing_kernel_shapes()
+    out["timing_kernel_rows"] = phase_kernel(torch, None, ops.bd_attention,
+                                             ops.bd_attention_reference, shapes,
+                                             prefix="timing kernel", seed=5, timed=False)
+    print(f"timing kernels: {len(shapes)} bd shapes of cli.timing_analysis's sweep beyond "
+          f"the phases above, float32 and bfloat16, each against its plain version", flush=True)
+
+    # trace: one flagship eval chunk on the kernel path.
+    cfg = InformerConfig(use_pallas=True)
+    model = build_informer(cfg, device="cuda", seed=0)
+    ds = _card_data(torch, cfg.seq_len, cfg.pred_len, samples=4096)
+
+    def chunk():
+        return eval_chunk(model, ds, num_batches=8, batch_size=256, label_len=cfg.label_len,
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+    chunk()
+    torch.cuda.synchronize()
+    _zero_counts(wrappers)
+    with profiling.trace(str(folder / "trace")) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    events = json.loads(pathlib.Path(prof.trace_path).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    bd = [e for e in kernels if "bd_attention_fwd_kernel" in e.get("name", "")]
+    expected = dict(none, bd_fwd=13 * 8)
+    ok = len(bd) == 13 * 8 and launches == expected
+    print(f"trace: utils.profiling.trace over one flagship eval chunk (8 x 256, kernels on): "
+          f"{prof.trace_path} ({pathlib.Path(prof.trace_path).stat().st_size / 1e6:.1f} MB), "
+          f"{len(kernels)} device kernels, {len(bd)} named bd_attention_fwd_kernel (expected "
+          f"104; e.g. {bd[0]['name'][:60] if bd else None!r}); launches "
+          f"{_launch_report(launches, expected)} {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        fail("the trace does not hold the bd forward kernel 104 times")
+    out["trace"] = dict(path=prof.trace_path, device_kernels=len(kernels), bd_fwd=len(bd),
+                        launches=launches)
+    pathlib.Path(prof.trace_path).unlink()  # tens of MB: too large to bring back
+
+    # time_fn_amortized against this script's time_ms, one flagship forward.
+    x_enc = torch.randn(256, cfg.seq_len, cfg.enc_in, device="cuda")
+    x_dec = torch.randn(256, cfg.dec_len, cfg.dec_in, device="cuda")
+
+    @torch.no_grad()
+    def fwd(a, b):
+        return model(a, b)
+    amortized, amortized_std = profiling.time_fn_amortized(fwd, x_enc, x_dec, inner=20,
+                                                           warmup=3, reps=21)
+    graph_ms = time_ms(torch, lambda: fwd(x_enc, x_dec))
+    host_ms, _ = profiling.time_fn(fwd, x_enc, x_dec, warmup=3, reps=21)
+    print(f"time_fn_amortized: one flagship eval forward (256 windows, kernels on) "
+          f"{amortized:.4f} +- {amortized_std:.4f} ms; chip_smoke time_ms {graph_ms:.4f} ms "
+          f"(both CUDA-graph replay, 20 a graph); time_fn (eager, host clock) {host_ms:.4f} ms "
+          f"| {card}", flush=True)
+    out["forward_ms"] = dict(time_fn_amortized=amortized, std=amortized_std, time_ms=graph_ms,
+                             time_fn=host_ms)
+
+    # device_memory_stats against the allocator's own counters.
+    stats = profiling.device_memory_stats()
+    peak, live = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    total = torch.cuda.mem_get_info()[1]
+    ok = (stats["peak_bytes_in_use"] == peak and stats["bytes_in_use"] == live
+          and stats["bytes_limit"] == total)
+    print(f"device_memory_stats: {stats}; max_memory_allocated {peak:,}, memory_allocated "
+          f"{live:,}, mem_get_info total {total:,} {'equal' if ok else 'DIFFERENT'}", flush=True)
+    if not ok:
+        fail("device_memory_stats disagrees with torch.cuda's counters")
+    out["memory"] = stats
+    del model, ds
+
+    # complexity: cli.complexity_report on the card, its count against the CPU's.
+    report, launches, secs, _ = _driver(wrappers, complexity_report.main,
+                                        ["--out", str(folder / "complexity.json")])
+    cpu_report = complexity_report.report(1, torch.device("cpu"))
+    kernel_model = build_informer(InformerConfig(use_pallas=True), device="cuda", seed=0)
+    _zero_counts(wrappers)
+    kernel_twin = model_complexity(kernel_model, torch.zeros(1, 90, 16, device="cuda"),
+                                   torch.zeros(1, 15, 16, device="cuda"))
+    twin_launches = _counts(wrappers)
+    ok = (report == cpu_report and launches == none and twin_launches == none
+          and kernel_twin == report["informer_stack"])
+    for name, row in report.items():
+        print(f"complexity {name}: params {row['params']:,}, MACs/sample "
+              f"{row['macs_per_sample']:,.0f} (card), {cpu_report[name]['macs_per_sample']:,.0f} "
+              f"(CPU)", flush=True)
+    print(f"driver phase: cli.complexity_report: {secs:.1f} s; card equal to CPU "
+          f"{report == cpu_report}; the use_pallas flagship counted on its plain twin equal "
+          f"{kernel_twin == report['informer_stack']}; launches {_launch_report(launches, none)}, "
+          f"through the twin {_launch_report(twin_launches, none)} {'ok' if ok else 'FAILED'}",
+          flush=True)
+    if not ok:
+        fail("model_complexity on the card differs from the CPU's or launched a kernel")
+    out["complexity"] = dict(report=report, seconds=secs)
+    del kernel_model
+
+    out["native"] = _native_vs_kernels(torch, np, quant, ops.draw_seed, codebooks)
+
+    # ar_oracle: card vs CPU on the same windows, then cli.ar_oracle at the
+    # committed artifact's settings.
+    oracle_model = CDLModel(sampling_frequency=120e3 / 14, ue_speed_ms=30 / 3.6)
+    ds = make_window_dataset(1234, model=oracle_model, num_samples=1024, num_slots=100,
+                             snr_db=12.0, device="cuda")
+    _, _, hist, future = sample_windows(ds, 256, generator=stream_generator("cuda", 5678))
+    card_nmse, card_split = ar_oracle.ar_oracle_nmse(hist, future, 30)
+    cpu_nmse, cpu_split = ar_oracle.ar_oracle_nmse(hist.cpu(), future.cpu(), 30)
+    rel = max(abs(a - b) / abs(b) for a, b in zip([card_nmse] + card_split,
+                                                  [cpu_nmse] + cpu_split))
+    print(f"ar_oracle_nmse card vs CPU (256 windows, order 30, SNR 12, 14-symbol slots; "
+          f"{256 * 8:,} ridge solves at once): nmse {card_nmse:.6f} / {cpu_nmse:.6f}, worst "
+          f"relative |diff| {rel:.3e} (limit {AR_CARD_RTOL}) "
+          f"{'ok' if rel <= AR_CARD_RTOL else 'FAILED'}", flush=True)
+    if not rel <= AR_CARD_RTOL:
+        fail("ar_oracle_nmse on the card differs from the CPU")
+    del ds
+    oracle, launches, secs, log = _driver(wrappers, ar_oracle.main,
+                                          [*AR_ARGS, "--out", str(folder / "ar_oracle.json")])
+    committed = json.loads(pathlib.Path("experiments/artifacts/ar_oracle.json").read_text())
+    deltas = {snr: oracle["snr"][f"{float(snr)}"]["nmse_db"]
+              - committed["snr"][f"{float(snr)}"]["nmse_db"] for snr in AR_SNRS}
+    print(log, end="", flush=True)
+    print(f"driver phase: cli.ar_oracle {' '.join(AR_ARGS)}: {secs:.1f} s; launches "
+          f"{_launch_report(launches, none)}; dB against the committed "
+          f"experiments/artifacts/ar_oracle.json (JAX's channel draws; band +-1 dB, not held): "
+          + ", ".join(f"SNR {s} {d:+.2f}" for s, d in deltas.items()) + f" | {card}", flush=True)
+    if launches != none or not all(math.isfinite(d) for d in deltas.values()):
+        fail("cli.ar_oracle launched a kernel or gave a non-finite NMSE")
+    out["ar_oracle"] = dict(card_vs_cpu_rel=rel, result=oracle, delta_db=deltas, seconds=secs)
+
+    # timing_analysis on two axes.
+    results, launches, secs, log = _driver(
+        wrappers, timing_analysis.main,
+        [*TIMING_ARGS, "--out", str(folder / "runtime.json")])
+    print(log, end="", flush=True)
+    expected = dict(none, bd_fwd=13 * TIMING_FORWARDS * TIMING_POINTS)
+    ok = results["_monotonic"] is True and launches == expected
+    print(f"driver phase: cli.timing_analysis {' '.join(TIMING_ARGS)}: {secs:.1f} s; monotonic: "
+          f"{str(results['_monotonic']).lower()}; launches {_launch_report(launches, expected)} "
+          f"| {card}", flush=True)
+    if not ok:
+        fail("cli.timing_analysis is not monotonic or launched the wrong kernels")
+    out["timing_analysis"] = dict(results=results, launches=launches, seconds=secs)
+
+    # eval_parity_ci from the cli phase's checkpoint: kernel path (the
+    # driver), then the plain path on the same batches.
+    parity_path = folder / "parity.json"
+    parity_path.write_text(json.dumps({"sweeps": {"snr": {"rows": {
+        "20": {"run": cli_name, "ref": collect_results.REFERENCE["snr"][20]}}}}}))
+    ci_argv = ["--parity", str(parity_path), "--weights", str(checkpoint_dir), "--batches",
+               str(PARITY_CI_BATCHES), "--out", str(folder / "parity_ci.json")]
+    ci, launches, secs, log = _driver(wrappers, eval_parity_ci.main, ci_argv)
+    print(log, end="", flush=True)
+    row = ci["rows"]["snr:20"]
+    plain = eval_parity_ci.evaluate_row(cli_name, "snr", 20.0, weights=str(checkpoint_dir),
+                                        batches=PARITY_CI_BATCHES, val_samples=2048,
+                                        device=torch.device("cuda"), use_pallas=False,
+                                        ds_cache={})
+    rel = abs(row["mean"] - plain["mean"]) / plain["mean"]
+    expected = dict(none, bd_fwd=13 * PARITY_CI_BATCHES)
+    ok = launches == expected and rel <= PARITY_CI_RTOL and row["n"] == PARITY_CI_BATCHES
+    print(f"driver phase: cli.eval_parity_ci --batches {PARITY_CI_BATCHES} (the cli phase's "
+          f"checkpoint, epoch {row['checkpoint_epoch']}): {secs:.1f} s; mean {row['mean']:.6f}, "
+          f"CI {[round(v, 6) for v in row['ci95']]}, delta {row['delta_db']:+.2f} dB against "
+          f"the reference's SNR-20 row; plain path mean {plain['mean']:.6f}, relative |diff| "
+          f"{rel:.3e} (limit {PARITY_CI_RTOL}); launches {_launch_report(launches, expected)} "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        fail("cli.eval_parity_ci: wrong launches, or the kernel path's mean is off the plain "
+             "path's")
+    out["eval_parity_ci"] = dict(row=row, plain_mean=plain["mean"], rel=rel, launches=launches,
+                                 seconds=secs)
+
+    # collect_results over the committed results and the cli phase's.
+    results_dir = folder / "results"
+    results_dir.mkdir(exist_ok=True)
+    for path in list(pathlib.Path("experiments/artifacts").glob("result_*.json")) + [
+            checkpoint_dir / f"result_{cli_name}.json"]:
+        (results_dir / path.name).write_bytes(path.read_bytes())
+    parity, launches, secs, _ = _driver(wrappers, collect_results.main, [str(results_dir)])
+    rows = sum(len(b["rows"]) for b in parity["sweeps"].values())
+    written = all((results_dir / n).exists() for n in ("snr_table.json", "parity.json",
+                                                        "PARITY_RESULTS.md"))
+    print(f"driver phase: cli.collect_results ({len(list(results_dir.glob('result_*.json')))} "
+          f"result files): {secs:.2f} s; {rows} parity rows over {len(parity['sweeps'])} sweeps, "
+          f"files written {written}; launches {_launch_report(launches, none)}", flush=True)
+    if not (written and rows and launches == none):
+        fail("cli.collect_results wrote no table")
+    out["collect_results"] = dict(rows=rows, seconds=secs)
+
+    # The host-only utilities: the cli phase's log parsed, the reference's
+    # scalars written and read back.
+    parsed = parse_log_text(cli_log)[cli_name]
+    writer = MetricsWriter(str(folder / "runs"))
+    branch = "tensorboard" if writer._tb is not None else "jsonl"
+    for epoch, (valid, split) in enumerate(zip(parsed["valid_loss"], parsed["split"])):
+        writer.log_epoch(epoch, 1.0, valid, split)
+    writer.close()
+    tags = (sorted(json.loads(line)["tag"] for line in
+                   (folder / "runs" / "events.jsonl").read_text().splitlines())
+            if branch == "jsonl" else None)
+    ok = (parsed["epochs"] == list(range(CLI_EPOCHS)) and len(parsed["valid_loss"]) == CLI_EPOCHS
+          and (tags is None or len(tags) == 7 * CLI_EPOCHS))
+    print(f"parse_logs: the cli phase's log: epochs {parsed['epochs']}, valid loss "
+          f"{parsed['valid_loss']}, {len(parsed['ms_per_batch'])} batch lines; MetricsWriter "
+          f"({branch} branch): {len(tags) if tags else 'tensorboard'} scalars "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        fail("parse_logs or MetricsWriter failed on the cli phase's log")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"analysis phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # The parallel phase: each group of ranks is a subprocess of this script
 # (``--parallel-rank``), joined under PARALLEL_TIMEOUT seconds.
 PARALLEL_TIMEOUT = 300
@@ -3329,6 +3726,10 @@ def main(argv):
     scale = phase_scale_demo(torch, wrappers, card)
     int8_ab = phase_int8_scale_ab(torch, wrappers, gemms, card)
 
+    # The utilities and the analysis drivers (from the cli phase's checkpoint).
+    analysis = phase_analysis(torch, wrappers, card, OUT / "cli", cli["result"]["name"],
+                              cli.pop("log"))
+
     # Data parallelism over NCCL and the ring, in subprocesses of this script.
     parallel = phase_parallel(torch, card)
 
@@ -3423,6 +3824,11 @@ def main(argv):
     kernels[1].update(scale_demo_launches=sum(run["launches"]["bd_bwd"] for run in scale.values()))
     kernels[2].update(int8_scale_ab_launches=sum(run["launches"]["mha"]
                                                  for run in int8_ab.values()))
+    # The analysis phase's: the traced eval chunk, the timing sweep's two axes
+    # (eager warm-ups and captured forwards), eval_parity_ci's kernel path.
+    kernels[0].update(trace_launches=analysis["trace"]["launches"]["bd_fwd"],
+                      timing_analysis_launches=analysis["timing_analysis"]["launches"]["bd_fwd"],
+                      eval_parity_ci_launches=analysis["eval_parity_ci"]["launches"]["bd_fwd"])
     # The parallel phase's: train_chunk_dp (8 steps) at each world size, rank 0's
     # count, and the ring Informer's batch (its decoder on mha).
     for world, run in parallel.items():
@@ -3446,7 +3852,8 @@ def main(argv):
         qat_prune=qat_prune, drivers=drivers, int8_path=int8_path, streaming=streaming,
         baselines=baselines, comparison_informer_batch=cmp_batch,
         comparison_informer_train_path=cmp_train_path, serving_drivers=serving_drivers,
-        link=link, e2e_drivers=e2e, scale_demo=scale, int8_scale_ab=int8_ab, parallel=parallel,
+        link=link, e2e_drivers=e2e, scale_demo=scale, int8_scale_ab=int8_ab, analysis=analysis,
+        parallel=parallel,
         kernels=kernels),
         indent=1))
     print(card, flush=True)

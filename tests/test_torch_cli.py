@@ -204,10 +204,24 @@ def test_train_informer_resume_is_step_exact_and_preload_restarts(tmp_path, caps
     assert [END_LINE.match(x).group(1) for x in lines if END_LINE.match(x)] == ["0"]
 
 
-def test_train_informer_unported_options_raise(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_informer.main(SMALL + ["--tensorboard", "--out", str(tmp_path)])
-    assert "Dataset generated" not in capsys.readouterr().out  # refused before any work
+def test_train_informer_unported_options_raise(tmp_path, capsys, monkeypatch):
+    """``--tensorboard`` (no longer refused) logs the reference's scalar set
+    (``Loss/train``, ``Loss/val``, ``Loss/val1..5``) each epoch under
+    ``runs/<name>`` in the working directory, as the JAX driver does
+    (``experiments/train_informer.py:187-194``): ``Loss/val`` the epoch's
+    validation NMSE, ``Loss/val<i>`` its horizons' split losses."""
+    from test_torch_utils import SCALARS, read_scalars
+
+    monkeypatch.chdir(tmp_path)
+    result, _ = _run(SMALL + ["--tensorboard", "--epochs", "2", "--steps-per-epoch", "2",
+                              "--out", str(tmp_path / "w")], capsys)
+    scalars = read_scalars(tmp_path / "runs" / result["name"])
+    assert set(scalars) == SCALARS
+    assert all([step for step, _ in scalars[tag]] == [0, 1] for tag in SCALARS)
+    assert [v for _, v in scalars["Loss/val"]] == pytest.approx(result["history_nmse"])
+    assert [scalars[f"Loss/val{i}"][-1][1] for i in range(1, 6)] == pytest.approx(
+        result["final_val_split"])
+    assert all(np.isfinite(v) and v > 0 for _, v in scalars["Loss/train"])
 
 
 def _gen(tmp_path, *extra):

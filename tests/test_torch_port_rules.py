@@ -14,13 +14,19 @@ torch = pytest.importorskip("torch")
 from channelestimationtransformer_torch.channel.cdl import CDLModel, generate_cdl_channel
 from channelestimationtransformer_torch.channel.dataset import generate_beamformed_dataset
 from channelestimationtransformer_torch.cli import (
+    ar_oracle,
     collect_e2e,
+    collect_results,
     comparison,
+    complexity_report,
     end_to_end_sim,
+    eval_parity_ci,
     generate_dataset,
     int8_scale_ab,
     int8_serving,
+    make_figures,
     scale_demo,
+    timing_analysis,
     train_informer,
     train_streaming,
 )
@@ -77,7 +83,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "sim/ldpc.py", "sim/link.py", "cli/end_to_end_sim.py", "cli/collect_e2e.py",
                    "cli/scale_demo.py", "cli/int8_scale_ab.py", "parallel/launch.py",
                    "parallel/mesh.py", "parallel/sharding.py", "parallel/ring.py",
-                   "parallel/collectives.py", "cli/scaling_study.py"):
+                   "parallel/collectives.py", "cli/scaling_study.py", "utils/complexity.py",
+                   "utils/profiling.py", "utils/export.py", "utils/tensorboard.py",
+                   "utils/figures.py", "utils/parse_logs.py", "native.py",
+                   "cli/complexity_report.py", "cli/timing_analysis.py", "cli/ar_oracle.py",
+                   "cli/collect_results.py", "cli/eval_parity_ci.py", "cli/make_figures.py"):
         assert f"channelestimationtransformer_torch/{module}" in names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
@@ -127,7 +137,13 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
                                         "--out", str(tmp_path / "e2e.json")]),
                       (scale_demo, ["--sizes", "reference", "--out", str(tmp_path / "s.json")]),
                       (int8_scale_ab, ["--sizes", "reference",
-                                       "--out", str(tmp_path / "ab.json")])):
+                                       "--out", str(tmp_path / "ab.json")]),
+                      # the analysis drivers that compute
+                      (complexity_report, ["--out", str(tmp_path / "cx.json")]),
+                      (timing_analysis, ["--params", "seq_len", "--out", str(tmp_path / "t.json")]),
+                      (ar_oracle, ["--out", str(tmp_path / "ar.json")]),
+                      (eval_parity_ci, ["--parity", "missing.json",
+                                        "--out", str(tmp_path / "ci.json")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(argv)
     # The link functions run where ``device`` says, the card by default.
@@ -137,8 +153,13 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simulate_coded_ber(torch.Generator(), h, h, 6.0)
     assert not any(tmp_path.iterdir())
-    # The log collector computes on no device: it runs without a card.
+    # The log and result collectors and the figures compute on no device: they
+    # run without a card.
     assert collect_e2e.main(["--out", str(tmp_path / "e2e_branches.json")])
+    monkeypatch.chdir(tmp_path)
+    assert make_figures.main(["--weights-dir", str(tmp_path), "--out",
+                              str(tmp_path / "figures")]) == []
+    assert collect_results.main([str(tmp_path)])["sweeps"]["snr"]["rows"] == {}
     ber, total = simulate_ber(torch.Generator(), h, h, 30.0, device="cpu")
     assert float(ber) == 0.0 and total == 256
     h = generate_beamformed_dataset(0, model=model, num_samples=2, num_slots=10, device="cpu")
