@@ -90,6 +90,28 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def oracle_rows(args, device, *, dataset_key: int = 1234, log=print):
+    """``{snr: {"nmse", "nmse_db", "split"}}`` for ``args``' SNRs on the
+    dataset keyed ``dataset_key`` (the windows keyed 5678)."""
+    rows = {}
+    for snr in args.snr:
+        ds = make_window_dataset(dataset_key, model=cdl_from_args(args), num_samples=1024,
+                                 num_slots=100, seq_len=args.seq_len, pred_len=args.pred_len,
+                                 snr_db=snr, device=device)
+        _, _, hist, future = sample_windows(ds, args.windows,
+                                            generator=stream_generator(device, 5678))
+        scalar, split = ar_oracle_nmse(hist, future, args.order)
+        rows[str(snr)] = {
+            "nmse": scalar,
+            "nmse_db": float(10 * np.log10(scalar)),
+            "split": split,
+        }
+        log(json.dumps({"snr": snr, "oracle_nmse": scalar,
+                        "oracle_db": round(10 * np.log10(scalar), 2),
+                        "split": [round(v, 5) for v in split]}))
+    return rows
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
@@ -98,23 +120,8 @@ def main(argv=None) -> dict:
         "calibrated": bool(args.calibrated),
         "ue_speed_kmh": args.ue_speed_kmh,
         "seq_len": args.seq_len,
-        "snr": {},
+        "snr": oracle_rows(args, device, log=lambda line: print(line, flush=True)),
     }
-    for snr in args.snr:
-        ds = make_window_dataset(1234, model=cdl_from_args(args), num_samples=1024,
-                                 num_slots=100, seq_len=args.seq_len, pred_len=args.pred_len,
-                                 snr_db=snr, device=device)
-        _, _, hist, future = sample_windows(ds, args.windows,
-                                            generator=stream_generator(device, 5678))
-        scalar, split = ar_oracle_nmse(hist, future, args.order)
-        results["snr"][str(snr)] = {
-            "nmse": scalar,
-            "nmse_db": float(10 * np.log10(scalar)),
-            "split": split,
-        }
-        print(json.dumps({"snr": snr, "oracle_nmse": scalar,
-                          "oracle_db": round(10 * np.log10(scalar), 2),
-                          "split": [round(v, 5) for v in split]}), flush=True)
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

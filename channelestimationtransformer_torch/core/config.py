@@ -34,7 +34,8 @@ def activation_dtype(name: str) -> torch.dtype:
     if floating:
         raise NotImplementedError(
             f"dtype={name!r}: the port runs float32 and bfloat16 activations only "
-            "(ROADMAP Queue 1: float16 and the other float dtypes are not ported)")
+            "(ROADMAP Queue 1, standing limits: float16 and the other float dtypes are not "
+            "ported)")
     raise ValueError(f"dtype must name a float dtype ('float32' or 'bfloat16'), got {name!r}")
 
 

@@ -11,7 +11,7 @@ no generator it takes the fixed draw of a generator seeded 0 (JAX's
 With ``attn="ring"`` an ``AttentionLayer`` runs ``parallel/ring.py``'s
 :func:`ring_attention` over its ``mesh``'s ``seq_axis`` (the encoder's
 self-attention; JAX ``models/attention.py:268-278``): plain torch blocks, no
-kernel and no attention dropout, forward only.
+kernel and no attention dropout, forward and backward.
 
 Routing of ``AttentionLayer`` with ``attn="full"`` (the counterpart of JAX
 ``models/attention.py:291-345``), first match wins:
@@ -56,6 +56,7 @@ from ..ops.cuda.bd_attention import bd_attention, draw_seed, dropout_keep_mask, 
 from ..ops.cuda.mha_attention import mha_attention
 from ..ops.quant.lsq import DenseLSQ
 from ..parallel.ring import ring_attention
+from ..parallel.tensor import column_parallel
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -76,7 +77,12 @@ def causal_mask(l_q: int, l_k: int, device=None) -> torch.Tensor:
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=...)``: f32 parameters; x, the weight and the
     bias cast to the compute ``dtype``, then the product and the bias add in
-    it. At float32 the casts are no-ops and this is ``nn.Linear``."""
+    it. At float32 the casts are no-ops and this is ``nn.Linear``. With
+    ``tp_group`` set (``parallel/tensor.py``) the weight holds this rank's
+    output rows: the product runs column-parallel, the bias added after the
+    gather."""
+
+    tp_group = None
 
     def __init__(self, in_features: int, out_features: int, *,
                  dtype: torch.dtype = torch.float32):
@@ -85,6 +91,10 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.tp_group is not None:
+            w = self.weight.to(dt)
+            return (column_parallel(lambda x: F.linear(x, w), x.to(dt), self.tp_group)
+                    + self.bias.to(dt))
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import column_parallel
 from .dropout import dropout
 from .init import variance_scaling_
 
@@ -47,7 +48,10 @@ def circular_conv1d(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.T
 class TokenEmbedding(nn.Module):
     """Circular Conv1d ``c_in -> d_model`` (k=3, **no bias**), kaiming-normal
     init; x and the f32 weight cast to ``dtype`` for the conv (JAX
-    ``embed.py:74``)."""
+    ``embed.py:74``). With ``tp_group`` set the conv runs column-parallel
+    (``parallel/tensor.py``)."""
+
+    tp_group = None
 
     def __init__(self, c_in: int, d_model: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -59,7 +63,10 @@ class TokenEmbedding(nn.Module):
         variance_scaling_(self.weight, 2.0, generator=generator)
 
     def forward(self, x):
-        return circular_conv1d(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+        x, w = x.to(self.compute_dtype), self.weight.to(self.compute_dtype)
+        if self.tp_group is not None:
+            return column_parallel(lambda x: circular_conv1d(x, w), x, self.tp_group)
+        return circular_conv1d(x, w)
 
 
 class DataEmbedding(nn.Module):

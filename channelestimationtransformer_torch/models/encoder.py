@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.collectives import all_reduce_sum
+from ..parallel.tensor import column_parallel
 from .attention import AttentionLayer, dense_layer
 from .dropout import dropout
 from .embed import circular_conv1d
@@ -109,7 +110,11 @@ class ConvLayer(nn.Module):
     """Distilling layer: circular conv k=3 + bias -> BatchNorm (eps 1e-5) ->
     ELU -> MaxPool(3, 2, 1), halving the sequence. The f32 weight and bias
     are cast to ``dtype`` for the conv (JAX ``encoder.py:43``); the input
-    arrives in it."""
+    arrives in it. With ``tp_group`` set the conv runs column-parallel
+    (``parallel/tensor.py``), the bias added after the gather, before the
+    BatchNorm."""
+
+    tp_group = None
 
     def __init__(self, d_model: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -125,7 +130,12 @@ class ConvLayer(nn.Module):
 
     def forward(self, x):
         dt = self.compute_dtype
-        y = circular_conv1d(x, self.weight.to(dt), self.bias.to(dt)).transpose(1, 2)  # [B, C, L]
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        if self.tp_group is not None:
+            y = column_parallel(lambda x: circular_conv1d(x, w), x, self.tp_group) + b
+        else:
+            y = circular_conv1d(x, w, b)
+        y = y.transpose(1, 2)  # [B, C, L]
         y = F.max_pool1d(F.elu(self.norm(y)), kernel_size=3, stride=2, padding=1)
         return y.transpose(1, 2)
 

@@ -16,8 +16,9 @@ prediction comes out bf16, as the JAX package's does.
 ``attn="ring"`` shards the encoder's self-attention over the ``seq`` axis
 of the ``mesh`` passed to the model (``parallel/ring.py``); the decoder's
 self-attention is then full attention, as its cross-attention always is
-(JAX ``models/decoder.py:41-42``). Ring attention is forward-only: training
-such a model raises ``NotImplementedError``.
+(JAX ``models/decoder.py:41-42``). Such a model trains: the ring has a
+backward, and every rank of the ``seq`` axis draws the same dropout masks
+from the same generator, as the replicated model does.
 """
 
 from __future__ import annotations

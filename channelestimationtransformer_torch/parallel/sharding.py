@@ -9,8 +9,9 @@ kernel ``[in, out]``) and a conv weight ``[C_out, C_in, K]`` (flax's
 ``[K, C_in, C_out]``), so dim 0 here is the dim JAX shards last. Biases,
 norm scales and scalars replicate.
 
-A forward or a training step with tensor-parallel parameters is not ported
-(ROADMAP Queue 1); :func:`shard_params` places the parameters.
+:func:`shard_params` places the parameters as DTensors;
+``parallel/tensor.py`` runs a model and its training step on each rank's
+shards of these placements.
 """
 
 from __future__ import annotations

@@ -25,11 +25,13 @@ def checkpoint_path(folder: str, basename: str, epoch) -> str:
 
 
 def save_checkpoint(state, folder: str, basename: str, epoch, *,
-                    extra: Optional[dict] = None) -> str:
-    """Atomically write a :class:`~.trainer.TrainState` (+ optional metadata)."""
+                    extra: Optional[dict] = None, state_dicts: Optional[tuple] = None) -> str:
+    """Atomically write a :class:`~.trainer.TrainState` (+ optional metadata).
+    ``state_dicts``: the model's and the optimizer's dicts to write in place
+    of the state's own (a tensor-parallel model's, gathered)."""
     os.makedirs(folder, exist_ok=True)
-    payload = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-               "step": state.step, "epoch": epoch}
+    model_sd, optim_sd = state_dicts or (state.model.state_dict(), state.optimizer.state_dict())
+    payload = {"model": model_sd, "optimizer": optim_sd, "step": state.step, "epoch": epoch}
     if extra:
         payload["extra"] = extra
     path = checkpoint_path(folder, basename, epoch)

@@ -19,6 +19,13 @@ of the training set with its own generator, and ``_update`` with a
 BatchNorm statistics and the loss's denominator are the global batch's
 (all-reduced under autograd), and the gradients are summed over the ranks
 in one all-reduce before the same Adam update on every rank.
+
+Tensor parallelism (``Trainer(mesh=...)`` with a ``model`` axis > 1):
+``parallel/tensor.py`` keeps each rank's rows of the sharded weights and
+runs their layers column-parallel, so every rank takes the replicated
+model's step on the same batch; checkpoints hold the gathered parameters.
+Sequence parallelism: a model built with ``attn="ring"`` over the mesh's
+``seq`` axis trains through ``parallel/ring.py``'s backward.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..core.runtime import stream_generator
 from ..data.windows import WindowDataset, make_batch
 from ..models.encoder import batch_stats_group
 from ..parallel.collectives import all_reduce_grads, all_reduce_sum
+from ..parallel.tensor import full_state_dicts, replicated_grads_equal, tensor_parallel
 
 
 def _cosine_decay(init_value: float, decay_steps: int, alpha: float = 0.0):
@@ -235,7 +243,14 @@ class Trainer:
     :func:`train_chunk_dp` at ``batch_size`` / the axis size a rank, drawing
     from generators keyed by (seed, epoch, batch, rank). Validation runs
     the whole validation set on every rank, so it gives the numbers of a
-    single process. Only global rank 0 writes checkpoints."""
+    single process. Only global rank 0 writes checkpoints.
+
+    A ``model`` axis > 1 (with ``data`` and ``seq`` 1) trains tensor
+    parallel: every rank takes model-rank 0's weights and keeps its shards
+    (``parallel/tensor.py``); after each chunk the replicated parameters'
+    gradients are checked equal across the group, and checkpoints hold the
+    gathered parameters and optimizer state. A ring model (``attn="ring"``,
+    built over the mesh) trains over a ``seq`` axis of the same mesh."""
 
     model: nn.Module
     cfg: InformerConfig
@@ -248,11 +263,28 @@ class Trainer:
     checkpoint_tag: str = "tmodel_"
 
     def __post_init__(self):
+        self._tp = self.mesh is not None and self._tensor_parallel()
         self.state = create_train_state(self.model, self.train_cfg)
         self._schedule = self.state.schedule
         self._train, self._group, self._rank_key = self.train_data, None, ()
         if self.mesh is not None:
             self._shard_data()
+
+    def _tensor_parallel(self) -> bool:
+        sizes = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+        if sizes["model"] == 1:
+            return False
+        if sizes["data"] > 1 or sizes["seq"] > 1:
+            raise NotImplementedError(
+                f"mesh {sizes}: tensor parallelism runs with data and seq axes of 1 (two-axis "
+                "parallelism is not ported: ROADMAP Queue 1, standing limits)")
+        group = self.mesh.get_group("model")
+        src = dist.get_global_rank(group, 0)
+        with torch.no_grad():
+            for t in self.model.state_dict().values():
+                dist.broadcast(t, src, group=group)
+        tensor_parallel(self.model, self.mesh)
+        return True
 
     def _shard_data(self):
         tc = self.train_cfg
@@ -316,6 +348,9 @@ class Trainer:
                 t0 = time.time()
                 m = self._run_chunk(stream_generator(self.train_data.device, tc.seed + 1,
                                                      epoch, batch_idx, *self._rank_key), n)
+                if self._tp and not replicated_grads_equal(self.model):
+                    raise RuntimeError("tensor-parallel step: the gradients of the replicated "
+                                       "parameters differ across the model group")
                 batch_idx += n
                 stats = torch.cat([m["loss_sum"].reshape(1), m["split_sum"]]).cpu().numpy()
                 total_loss += float(stats[0])
@@ -355,9 +390,11 @@ class Trainer:
             if tc.checkpoint_every_epochs and (epoch + 1) % tc.checkpoint_every_epochs == 0:
                 from .checkpoint import save_checkpoint
 
+                dicts = (full_state_dicts(self.model, self.state.optimizer) if self._tp
+                         else None)
                 if not dist.is_initialized() or dist.get_rank() == 0:
                     save_checkpoint(self.state, tc.checkpoint_dir, self.checkpoint_tag,
-                                    epoch + 1)
-                if self._group is not None:
-                    dist.barrier(group=self._group)  # the file exists for every rank after
+                                    epoch + 1, state_dicts=dicts)
+                if self.mesh is not None:
+                    dist.barrier()  # the file exists for every rank after
         return history

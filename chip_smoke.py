@@ -5,8 +5,9 @@ LSQ training, the quantization study (QAT, pruning and their drivers), int8
 serving, blockwise streaming and the baseline models with their drivers,
 the end-to-end link simulation with its drivers, the scale demo with its
 int8 A/B, the utilities (tracing, timing, memory, complexity, the native
-host library) with the analysis drivers, and data-parallel training and
-ring attention over NCCL.
+host library) with the analysis drivers, the calibration and profiling
+drivers, and data-parallel training, ring attention (eval and training) and
+tensor parallelism over NCCL.
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
@@ -156,7 +157,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    at 0.9; 13 + 13 bd launches a step), the QAT, prune and plain FP32
    chunks' samples/s in turns; ``apply_pruning`` at 0.5 and 0.9 on the card
    against the CPU (masks and values bit for bit) and ``measured_sparsity``
-   equal to what the block count gives;
+   equal to what the block count gives (blocks tied at a threshold pruned
+   with it);
 25. drivers: ``cli.ptq_sweep`` (wl 8-10, 512 samples), ``cli.qat_incremental``
    (fibbinary, one epoch of 10 steps a fraction, 1,024 samples) and
    ``cli.prune`` (2 epochs of 10 steps) in this process from phase 18's
@@ -226,22 +228,39 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``cli.collect_results`` over the committed results and phase 18's; and
    ``parse_logs`` over phase 18's log, ``MetricsWriter`` writing its scalars
    (the JSONL branch where ``tensorboard`` is missing);
-36. parallel: subprocesses of this script (``--parallel-rank``), each group
+36. drivers: ``cli.calibrate_channel``, ``cli.calibrate_fast``,
+   ``cli.prob_crossover``, ``cli.prob_profile``, ``cli.step_profile``,
+   ``cli.perf_study`` and ``cli.interleaved_ab`` in this process, cut short
+   (``DRIVER_ARGS``): each JSON's keys as its committed JAX artifact's, no
+   row with an error, the calibration fit inside its speed grid, perf_study's
+   rows each naming its route and launching the bd, mha and fixed-point
+   kernels; ``cli.pallas_ab`` on copies of the committed r4ab result and
+   ``parity.json``, byte for byte the committed ``pallas_ab.json``;
+37. parallel: subprocesses of this script (``--parallel-rank``), each group
    killed and failed past ``PARALLEL_TIMEOUT``. Always NCCL at world 1:
    ``train_chunk_dp`` at the flagship (batch 256, f32 and bf16) against
    ``train_chunk`` from the same weights and generator (loss, state,
    last-step gradients at the kernel path's limits), 13 + 13 bd launches a
    step, samples/s of both in turns; the ring Informer (xl widths, distil
-   off, eval x 64) against the full model, ms a batch. Where the machine
+   off, eval x 64) against the full model, ms a batch; one training step of
+   the ring Informer (flagship widths, seq_len 80, distil off, dropout 0)
+   against the full model's (gradients at ``GRAD_TOL``; its decoder's 6 + 6
+   bd launches); the flagship made tensor-parallel over a ``model`` axis of
+   every rank against the replicated model: an eval batch, then one step
+   (shards against their rows of the replicated gradients, the replicated
+   gradients equal on every rank, 13 + 13 bd launches). Where the machine
    has 2 or more cards, the same across 2 or 4 ranks: one DP ``_update``
-   against one card's on the concatenated batch, and the ring with its
-   sequence sharded over the ranks. One line says which ran.
+   against one card's on the concatenated batch, the ring with its sequence
+   sharded over the ranks, and the tensor-parallel model with its weights
+   sharded over them. One line says which ran.
 
 The bd forward's entry in the kernels line also carries the launches of
 the later paths and drivers (``int8_eval_launches``,
 ``streaming_launches``, ``e2e_driver_launches``, ``scale_demo_launches``,
-``dp_train_launches_world1``, ...), as the bd backward's and the mha
-kernel's entries do theirs (``ring_eval_launches_world1``). Each
+``dp_train_launches_world1``, ``ring_train_launches_world1``,
+``tp_train_launches_world1``, ``drivers16_launches``, ...), as the bd
+backward's and the mha kernel's entries do theirs
+(``ring_eval_launches_world1``). Each
 attention kernel's entry carries its bf16 instance (time, launches, bound at
 bf16 bytes or tensor-core FLOPs, SDPA) under ``bfloat16``.
 
@@ -262,6 +281,7 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1841,7 +1861,11 @@ def phase_qat_prune(torch, wrappers, card):
         fixed_point_quantize_reference,
         nearest_codeword_reference,
     )
-    from channelestimationtransformer_torch.ops.prune import apply_pruning, measured_sparsity
+    from channelestimationtransformer_torch.ops.prune import (
+        apply_pruning,
+        block_scores,
+        measured_sparsity,
+    )
     from channelestimationtransformer_torch.ops.quant import (
         FibbinaryPartialWeightQuant,
         FixedPointPartialWeightQuant,
@@ -1952,24 +1976,35 @@ def phase_qat_prune(torch, wrappers, card):
               f"x plain FP32 training in the same turns) on {card}", flush=True)
 
     # (c) apply_pruning on the card against the CPU; measured_sparsity
-    # against the block count (k + 1 blocks of 4 a weight, no ties).
+    # against the block count: k + 1 blocks of 4 a weight, and with them
+    # any block whose score ties the threshold (pruned too: blocks scoring
+    # above it stay), each weight's scores taken alone by block_scores.
     weights = dict(paths["fp32"].named_parameters())
     for level in PRUNE_LEVELS:
         with torch.no_grad():
             got = apply_pruning(weights, level)
             want = apply_pruning({n: w.detach().cpu() for n, w in weights.items()}, level)
         equal = all(torch.equal(got[n].cpu(), want[n]) for n in weights)
-        blocks = [w.numel() // 4 for n, w in weights.items() if got[n] is not w]
         f32 = torch.tensor(level, dtype=torch.float32)
-        predicted = 4 * sum(int((f32 * (b - 1)).item()) + 1 for b in blocks) / (4 * sum(blocks))
+        blocks, pruned, ties = [], 0, 0
+        for n, w in weights.items():
+            if got[n] is w:
+                continue
+            scores = block_scores(w.detach()).reshape(-1)
+            k = int((f32 * (scores.numel() - 1)).item())
+            at_or_below = int((scores <= torch.sort(scores).values[k]).sum())
+            blocks.append(w.numel() // 4)
+            pruned += at_or_below
+            ties += at_or_below - (k + 1)
+        predicted = 4 * pruned / (4 * sum(blocks))
         measured = measured_sparsity(got)
         print(f"prune {level}: {len(blocks)} weights on the card equal to the CPU's bit for bit "
               f"(masks and values) {equal}; measured_sparsity {measured!r} (the block count "
-              f"gives {predicted!r})", flush=True)
+              f"gives {predicted!r}, {ties} block(s) tied at a threshold)", flush=True)
         if not (equal and measured == predicted and len(blocks) == 72):
             fail(f"pruning at {level} differs between the card and the CPU or from its block "
                  f"count")
-        out[f"prune_{level}"] = dict(measured_sparsity=measured, predicted=predicted)
+        out[f"prune_{level}"] = dict(measured_sparsity=measured, predicted=predicted, ties=ties)
     return out
 
 
@@ -3154,6 +3189,131 @@ def phase_analysis(torch, wrappers, card, checkpoint_dir, cli_name, cli_log):
     return out
 
 
+# The drivers phase: the last eight experiment drivers, cut short. Keys of
+# each one's JSON as the JAX package's committed artifact (less the
+# slot-geometry prong's, which needs the reference's pickle); perf_study and
+# interleaved_ab add "route" / "runs_as" to their rows.
+DRIVER_ARGS = {
+    "calibrate_channel": ["--speeds", "5,6", "--n", "512"],
+    "calibrate_fast": ["--speeds", "10,30", "--slot-symbols", "25", "--n", "512"],
+    "prob_crossover": ["--shapes", "128:192,2048:12"],
+    "prob_profile": [],
+    "step_profile": ["--chunks", "1", "--steps", "2"],
+    "perf_study": ["--reps", "10", "--steps", "2"],
+    "interleaved_ab": ["--steps", "2", "--rounds", "2"],
+}
+PICKLE_KEYS = {"pickle_lag_curve", "pickle_hankel_rank", "ours_30kmh_lag_curve",
+               "ours_30kmh_hankel_rank"}
+ARTIFACTS = pathlib.Path("experiments/artifacts")
+PALLAS_AB_RUN = ("result_ei_16_di_16_co_16_sl_90_ll_10_pl_5_f_5_dm_128_nh_8_el_[4, 3]_dl_3_df_64"
+                 "_do_0.05_at_full_em_fixed_ac_gelu_21_cal_v5_bf16_rbg_pallas_r4ab.json")
+
+
+def _row_keys(rows):
+    return [sorted(set(r) - {"route", "runs_as"}) for r in rows]
+
+
+def phase_drivers(torch, wrappers, card):
+    """The calibration and profiling drivers in this process, cut short
+    (``DRIVER_ARGS``), outputs under ``chiprun_out/drivers/``: each one's
+    JSON keys against its committed JAX artifact, no row with an error,
+    the calibration fit inside its speed grid, perf_study's kernels launched
+    (bd, mha, fixed point) and each row's route; then ``cli.pallas_ab`` on
+    copies of the committed r4ab result and ``parity.json``, byte for byte
+    the committed ``pallas_ab.json``."""
+    from channelestimationtransformer_torch.cli import (
+        calibrate_channel,
+        calibrate_fast,
+        interleaved_ab,
+        pallas_ab,
+        perf_study,
+        prob_crossover,
+        prob_profile,
+        step_profile,
+    )
+
+    t_phase = time.perf_counter()
+    folder = OUT / "drivers"
+    folder.mkdir(exist_ok=True)
+    modules = dict(calibrate_channel=calibrate_channel, calibrate_fast=calibrate_fast,
+                   prob_crossover=prob_crossover, prob_profile=prob_profile,
+                   step_profile=step_profile, perf_study=perf_study,
+                   interleaved_ab=interleaved_ab)
+    artifacts = dict(calibrate_channel="calibration.json", calibrate_fast="calibration_fast.json",
+                     prob_crossover="prob_crossover.json", prob_profile="prob_profile.json",
+                     step_profile="step_profile.json", perf_study="perf_study.json",
+                     interleaved_ab="interleaved_ab_r5.json")
+    runs = {}
+    for name, module in modules.items():
+        path = folder / f"{name}.json"
+        _, launches, secs, log = _driver(wrappers, module.main,
+                                         DRIVER_ARGS[name] + ["--out", str(path)])
+        (folder / f"{name}.log").write_text(log)
+        got = json.loads(path.read_text())
+        want = json.loads((ARTIFACTS / artifacts[name]).read_text())
+        problems = []
+        if name == "calibrate_channel":
+            keys_ok = set(got) == set(want) - PICKLE_KEYS
+            grid = [float(v) for v in DRIVER_ARGS[name][1].split(",")]
+            if got["fitted_speed_kmh"] not in grid:
+                problems.append(f"fitted {got['fitted_speed_kmh']} km/h outside {grid}")
+            note = (f"fitted {got['fitted_speed_kmh']} km/h, rms "
+                    f"{got['fitted_rms_delta_db']} dB (grid {grid})")
+        elif name == "perf_study":
+            keys_ok = set(got) == set(want) and all(
+                {tuple(k_) for k_ in _row_keys(got[k])} <= {tuple(k_) for k_ in
+                                                             _row_keys(want[k])}
+                for k in want)
+            routes = [r.get("route") for rows in got.values() for r in rows]
+            if any(r is None for r in routes):
+                problems.append("a row without its route")
+            for key in ("bd_fwd", "bd_bwd", "mha", "fixed"):
+                if not launches[key]:
+                    problems.append(f"no {COUNT_LABELS[key]} launch")
+            note = ", ".join(f"{k} {len(v)} rows" for k, v in got.items())
+        elif name == "interleaved_ab":
+            keys_ok = {tuple(k) for k in _row_keys(got)} == {tuple(k) for k in _row_keys(want)}
+            note = ", ".join(f"{r['variant']} {r['median_ms_per_batch']} ms" for r in got)
+        elif name == "prob_crossover":
+            keys_ok = set(got) == set(want) and all(set(r) == set(want["rows"][0])
+                                                    for r in got["rows"])
+            note = ", ".join(f"L {r['l']}: dense {r['ms_dense_select']} ms, gather "
+                             f"{r['ms_key_gather']} ms" for r in got["rows"])
+        elif name == "step_profile":
+            keys_ok = set(got) == set(want) and list(got["rows"]) == list(want["rows"])
+            note = f"canonical {got['rows']['canonical_bf16_bd_rbg']} a step"
+        else:
+            keys_ok = (set(got) == set(want) if name != "prob_profile"
+                       else list(got) == list(want))
+            note = f"{len(got)} keys"
+        if not keys_ok:
+            problems.append("JSON keys differ from the committed artifact's")
+        if "error" in json.dumps(got):
+            problems.append("a row with an error")
+        runs[name] = dict(seconds=secs, launches=launches, problems=problems)
+        print(f"driver phase: cli.{name} {' '.join(DRIVER_ARGS[name])}: {secs:.1f} s; {note}; "
+              f"keys as {artifacts[name]} {keys_ok}; launches "
+              f"{', '.join(f'{COUNT_LABELS[k]} {v}' for k, v in launches.items())} "
+              f"{'ok' if not problems else 'FAILED: ' + '; '.join(problems)}", flush=True)
+        if problems:
+            fail(f"cli.{name}: {'; '.join(problems)}")
+    ab = folder / "pallas_ab"
+    ab.mkdir(exist_ok=True)
+    for src in (PALLAS_AB_RUN, "parity.json"):
+        shutil.copy(ARTIFACTS / src, ab / src)
+    _, launches, secs, _ = _driver(wrappers, pallas_ab.main, [str(ab)])
+    same = (ab / "pallas_ab.json").read_bytes() == (ARTIFACTS / "pallas_ab.json").read_bytes()
+    print(f"driver phase: cli.pallas_ab on copies of the r4ab result and parity.json: equal to "
+          f"experiments/artifacts/pallas_ab.json byte for byte {same} {'ok' if same else 'FAILED'}",
+          flush=True)
+    if not same:
+        fail("cli.pallas_ab does not reproduce the committed pallas_ab.json")
+    runs["pallas_ab"] = dict(seconds=secs, launches=launches, equal=same)
+    runs["seconds"] = time.perf_counter() - t_phase
+    print(f"drivers phase: {runs['seconds']:.1f} s | {card}", flush=True)
+    return runs
+
+
 # The parallel phase: each group of ranks is a subprocess of this script
 # (``--parallel-rank``), joined under PARALLEL_TIMEOUT seconds.
 PARALLEL_TIMEOUT = 300
@@ -3477,6 +3637,143 @@ def _ring_vs_full(torch, wrappers, device, log):
     return dict(launches=launches, max_abs=err, ms=ms)
 
 
+# Ring training: the flagship widths with distil off (JAX's ring refuses the
+# distilling convs), dropout 0 (the ring drops no attention probabilities,
+# as JAX's), seq_len 80 (divisible by 4 ranks in both encoders; the
+# encoders' 80 + 40 slots are keys the bd kernel takes in the decoder's
+# cross-attention), batch 64.
+RING_TRAIN_CFG = dict(seq_len=80, distil=False, dropout=0.0)
+RING_TRAIN_BATCH = 64
+
+
+def _ring_train(torch, wrappers, device, log):
+    """One ``_update`` of the ring model (``RING_TRAIN_CFG``, its encoder's
+    sequence on every rank's ``seq`` axis) against the full model's with the
+    same weights and batch: loss, every gradient (``GRAD_TOL`` of the f32
+    step checks); the ring model's kernel launches (its decoder's 6 calls on
+    the bd forward and backward, the encoder's 7 ring calls on none) and the
+    full model's 13 + 13."""
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.core.config import InformerConfig, TrainConfig
+    from channelestimationtransformer_torch.data.windows import make_batch
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.parallel.mesh import make_mesh
+    from channelestimationtransformer_torch.train.trainer import _update, create_train_state
+
+    n = dist.get_world_size()
+    cfg = InformerConfig(use_pallas=True, attn="ring", **RING_TRAIN_CFG)
+    tc = TrainConfig(batch_size=RING_TRAIN_BATCH, lr=1e-4)
+    mesh = make_mesh(data=1, model=1, seq=n)
+    states = {"ring": create_train_state(build_informer(cfg, device=device, seed=0, mesh=mesh),
+                                         tc),
+              "full": create_train_state(build_informer(dataclasses.replace(cfg, attn="full"),
+                                                        device=device, seed=0), tc)}
+    ds = _card_data(torch, cfg.seq_len, cfg.pred_len, samples=4096, slots=cfg.seq_len + 10)
+    batch = make_batch(ds, RING_TRAIN_BATCH, cfg.label_len,
+                       generator=torch.Generator(device=device).manual_seed(6))
+    metrics, launches = {}, {}
+    for path, state in states.items():
+        torch.cuda.synchronize()
+        _zero_counts(wrappers)
+        metrics[path] = _update(state, *batch, torch.Generator(device=device).manual_seed(7))
+        torch.cuda.synchronize()
+        launches[path] = _counts(wrappers)
+    grads = {path: _grads(s.model) for path, s in states.items()}
+    floor = 1e-3 * max(g.abs().max().item() for g in grads["full"].values())
+    grad_err = max(_grad_errors(grads["ring"], grads["full"], floor).values())
+    loss = {path: m["loss"].item() for path, m in metrics.items()}
+    calls = 2 * cfg.d_layers
+    expected = dict(bd_fwd=calls, bd_bwd=calls, mha=0)
+    full_calls = len(attention_calls(cfg))
+    ok = (abs(loss["ring"] - loss["full"]) <= MAIN_TOL[0] * abs(loss["full"])
+          and grad_err <= GRAD_TOL and launches["ring"] == expected
+          and launches["full"] == dict(bd_fwd=full_calls, bd_bwd=full_calls, mha=0))
+    log(f"parallel ring training (world {n}, seq axis {n}; flagship widths, seq_len "
+        f"{cfg.seq_len}, distil off, dropout 0, batch {RING_TRAIN_BATCH}): one _update vs the "
+        f"full model's: loss {loss['ring']:.6f} vs {loss['full']:.6f}, gradients worst "
+        f"{grad_err:.3e} (limit {GRAD_TOL}); launches {_launch_report(launches['ring'], expected)}"
+        f" (full model {launches['full']}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"the ring model's training step on {n} rank(s) disagrees with the full model's or "
+             f"launched {launches['ring']}")
+    return dict(loss=loss, grad_err=grad_err, launches=launches["ring"],
+                full_launches=launches["full"])
+
+
+def _tp_vs_replicated(torch, wrappers, device, log):
+    """The flagship (kernels on, dropout 0.05) made tensor-parallel over a
+    ``model`` axis of every rank (``parallel/tensor.py``; at world 1 every
+    shard is whole) against the replicated model with the same weights:
+    one eval batch (``MAIN_TOL``), then one ``_update`` on the same batch and
+    generator (max pooling routed as the TP step's): loss, each shard's
+    gradient against its rows of the replicated one and every replicated
+    parameter's (``GRAD_TOL``), the replicated gradients equal on every
+    rank, 13 + 13 bd launches."""
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.core.config import InformerConfig, TrainConfig
+    from channelestimationtransformer_torch.data.windows import make_batch
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.parallel.mesh import make_mesh
+    from channelestimationtransformer_torch.parallel.tensor import (
+        replicated_grads_equal,
+        sharded_names,
+        tensor_parallel,
+    )
+    from channelestimationtransformer_torch.train.trainer import _update, create_train_state
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    cfg = InformerConfig(use_pallas=True)
+    tc = TrainConfig(batch_size=256, lr=1e-4)
+    models = {"tp": tensor_parallel(build_informer(cfg, device=device, seed=0),
+                                    make_mesh(data=1, model=n)),
+              "replicated": build_informer(cfg, device=device, seed=0)}
+    ds = _card_data(torch, cfg.seq_len, cfg.pred_len, samples=4096)
+    batch = make_batch(ds, 256, cfg.label_len,
+                       generator=torch.Generator(device=device).manual_seed(8))
+    with torch.no_grad():
+        outs = {path: m.eval()(batch[0], batch[1]) for path, m in models.items()}
+    fwd_text, fwd_ok, fwd_err = _close(torch, outs["tp"], outs["replicated"], "float32")
+    states = {path: create_train_state(m, tc) for path, m in models.items()}
+    routing, metrics, launches = [], {}, {}
+    for path, state in states.items():
+        torch.cuda.synchronize()
+        _zero_counts(wrappers)
+        with _maxpool_routing(torch, routing, replay=path != "tp") as flips:
+            metrics[path] = _update(state, *batch,
+                                    torch.Generator(device=device).manual_seed(9))
+        torch.cuda.synchronize()
+        launches[path] = _counts(wrappers)
+    sharded = sharded_names(models["tp"])
+    want = _grads(models["replicated"])
+    got = _grads(models["tp"])
+    for name in sharded:
+        rows = want[name].shape[0] // n
+        want[name] = want[name][r * rows:(r + 1) * rows]
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    grad_err = max(_grad_errors(got, want, floor).values())
+    equal = replicated_grads_equal(models["tp"])
+    loss = {path: m["loss"].item() for path, m in metrics.items()}
+    expected = dict(bd_fwd=13, bd_bwd=13, mha=0)
+    ok = (fwd_ok and equal and grad_err <= GRAD_TOL and launches["tp"] == expected
+          and abs(loss["tp"] - loss["replicated"]) <= MAIN_TOL[0] * abs(loss["replicated"]))
+    log(f"parallel tensor-parallel (world {n}, model axis {n}: {len(sharded)} weights "
+        f"sharded, {sum(p.numel() for p in models['tp'].parameters())} of "
+        f"{sum(p.numel() for p in models['replicated'].parameters())} parameters on a rank; "
+        f"flagship, kernels on, dropout 0.05) vs the replicated model: eval batch {fwd_text}; "
+        f"one _update: loss {loss['tp']:.6f} vs {loss['replicated']:.6f}, gradients (shards "
+        f"against their rows) worst {grad_err:.3e} (limit {GRAD_TOL}; max pooling routed as "
+        f"the TP step's, {sum(flips)} windows differ from the replicated model's own argmax), "
+        f"replicated gradients equal on every rank {equal}; launches "
+        f"{_launch_report(launches['tp'], expected)} {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"the tensor-parallel forward or step on {n} rank(s) disagrees with the replicated "
+             f"model's or launched {launches['tp']}")
+    return dict(max_abs=fwd_err, loss=loss, grad_err=grad_err, sharded=len(sharded),
+                launches=launches["tp"])
+
+
 def parallel_rank(out_path):
     """One rank of :func:`phase_parallel`'s group: joins it (NCCL, one card a
     rank), runs the DP checks in f32 and bf16 (:func:`_dp_world1` at world
@@ -3521,6 +3818,8 @@ def parallel_rank(out_path):
         result[dtype] = (_dp_world1 if world == 1 else _dp_ranks)(torch, wrappers, device, dtype,
                                                                    log)
     result["ring"] = _ring_vs_full(torch, wrappers, device, log)
+    result["ring_train"] = _ring_train(torch, wrappers, device, log)
+    result["tensor_parallel"] = _tp_vs_replicated(torch, wrappers, device, log)
     if rank == 0:
         pathlib.Path(out_path).write_text(json.dumps(result, indent=1))
     dist.barrier()
@@ -3730,7 +4029,11 @@ def main(argv):
     analysis = phase_analysis(torch, wrappers, card, OUT / "cli", cli["result"]["name"],
                               cli.pop("log"))
 
-    # Data parallelism over NCCL and the ring, in subprocesses of this script.
+    # The calibration and profiling drivers, cut short.
+    driver_phase = phase_drivers(torch, wrappers, card)
+
+    # Data parallelism over NCCL, the ring (eval and training) and tensor
+    # parallelism, in subprocesses of this script.
     parallel = phase_parallel(torch, card)
 
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
@@ -3837,6 +4140,14 @@ def main(argv):
             kernel["bfloat16"][f"dp_train_launches_world{world}"] = (
                 run["bfloat16"]["launches"][key])
         kernels[2][f"ring_eval_launches_world{world}"] = run["ring"]["launches"]["mha"]
+        for kernel, key in ((kernels[0], "bd_fwd"), (kernels[1], "bd_bwd")):
+            kernel[f"ring_train_launches_world{world}"] = run["ring_train"]["launches"][key]
+            kernel[f"tp_train_launches_world{world}"] = run["tensor_parallel"]["launches"][key]
+    # The drivers phase's, summed over the eight drivers.
+    for kernel, key in zip(kernels, ("bd_fwd", "bd_bwd", "mha", "fixed", "codeword")):
+        kernel["drivers16_launches"] = sum(run["launches"][key]
+                                           for name, run in driver_phase.items()
+                                           if name != "seconds")
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
         mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, fixed_grouped_rows=grouped_rows,
@@ -3853,7 +4164,7 @@ def main(argv):
         baselines=baselines, comparison_informer_batch=cmp_batch,
         comparison_informer_train_path=cmp_train_path, serving_drivers=serving_drivers,
         link=link, e2e_drivers=e2e, scale_demo=scale, int8_scale_ab=int8_ab, analysis=analysis,
-        parallel=parallel,
+        drivers16=driver_phase, parallel=parallel,
         kernels=kernels),
         indent=1))
     print(card, flush=True)

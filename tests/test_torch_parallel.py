@@ -12,7 +12,10 @@ way. Tolerances:
   (``tests/test_parallel.py``);
 - the data-parallel step: ``tests/test_torch_training.py``'s step
   tolerance, rtol 2e-4 / atol 2e-5, on the gradients, the parameters after
-  an SGD step at lr 1 and the BatchNorm statistics.
+  an SGD step at lr 1 and the BatchNorm statistics;
+- ring attention's dQ, dK, dV against ``jax.grad`` of JAX's ring, the ring
+  Informer's step, the tensor-parallel forward and step: the same rtol
+  2e-4 / atol 2e-5 (in the ranks too, against the port's replicated model).
 """
 
 import numpy as np
@@ -36,6 +39,7 @@ from channelestimationtransformer_tpu.parallel.ring import ring_attention as jax
 from channelestimationtransformer_tpu.parallel.sharding import (
     infer_param_spec as jax_infer_param_spec,
 )
+from channelestimationtransformer_tpu.parallel.sharding import shard_params as jax_shard_params
 from channelestimationtransformer_tpu.train.trainer import TrainState as JaxTrainState
 from channelestimationtransformer_tpu.train.trainer import _update as jax_update
 
@@ -54,6 +58,10 @@ RTOL, ATOL = 2e-4, 2e-5
 RING_CFG = dict(seq_len=32, label_len=8, pred_len=5, d_model=32, n_heads=4, e_layers=(2,),
                 d_layers=1, d_ff=16, distil=False, dropout=0.0)
 DP_RANKS, DP_PER_RANK = 4, 2
+# The tensor-parallel cases: the flagship's structure (distil on, two
+# encoders) at small widths, on 2 ranks (model axis 2).
+TP_CFG = dict(seq_len=24, label_len=6, pred_len=5, d_model=32, n_heads=4, e_layers=(2, 1),
+              d_layers=2, d_ff=32, dropout=0.0)
 
 
 def _np(tree):
@@ -64,6 +72,23 @@ def _ring_qkv(p, seed):
     """JAX test_ring_attention_matches_dense's inputs at P ranks: [2, 8P, 2, 16]."""
     rng = np.random.default_rng(seed)
     return [rng.normal(size=(2, 8 * p, 2, 16)).astype(np.float32) for _ in range(3)]
+
+
+def _ring_cotangent(p, seed):
+    """The output gradient of the ring gradient cases: [2, 8P, 2, 16]."""
+    return np.random.default_rng(seed).normal(size=(2, 8 * p, 2, 16)).astype(np.float32)
+
+
+def _tp_inputs(fused):
+    """TP_CFG (fused or not) with perturbed flax weights, and a batch of 4
+    (the same for both)."""
+    rng = np.random.default_rng(40)
+    x_enc = rng.normal(size=(4, TP_CFG["seq_len"], 16)).astype(np.float32)
+    x_dec = rng.normal(size=(4, TP_CFG["label_len"] + TP_CFG["pred_len"], 16)).astype(np.float32)
+    target = rng.normal(size=(4, TP_CFG["pred_len"], 16)).astype(np.float32)
+    fmod = jax_build_informer(JaxInformerConfig(**TP_CFG, fuse_qkv=fused))
+    params, stats = _variables(fmod, np.random.default_rng(41 + fused), x_enc, x_dec)
+    return fmod, params, stats, (x_enc, x_dec, target)
 
 
 def _dp_inputs():
@@ -91,31 +116,41 @@ def four_ranks(tmp_path_factory):
     x_enc = np.random.default_rng(0).normal(size=(2, 32, 16)).astype(np.float32)
     x_dec = np.random.default_rng(1).normal(size=(2, 13, 16)).astype(np.float32)
     ring_vars = _np(jax.jit(ring_fmod.init)(jax.random.key(0), x_enc, x_dec))
+    target = np.random.default_rng(2).normal(size=(2, 5, 16)).astype(np.float32)
     fmod, params, stats, batch = _dp_inputs()
     inputs = {
         "sharding_cfg": SMALL,
         "ring_qkv_4": [torch.from_numpy(t) for t in _ring_qkv(4, 4)],
+        "ring_cot_4": torch.from_numpy(_ring_cotangent(4, 5)),
         "ring_cfg": RING_CFG,
         "ring_state": from_flax(ring_vars["params"], ring_vars.get("batch_stats")),
         "ring_x_enc": torch.from_numpy(x_enc),
         "ring_x_dec": torch.from_numpy(x_dec),
+        "ring_batch": [torch.from_numpy(t) for t in (x_enc, x_dec, target)],
         "dp_cfg": SMALL,
         "dp_state": from_flax(params, stats),
         "dp_batch": [torch.from_numpy(t) for t in batch],
         "dp_per_rank": DP_PER_RANK,
     }
     outs = spawn(tmp_path_factory.mktemp("four_ranks"),
-                 ["mesh", "sharding", "ring", "ring_informer", "dp_update", "chunk_dp",
-                  "chunk_dp_pallas"], DP_RANKS, inputs)
+                 ["mesh", "sharding", "ring", "ring_grad", "ring_informer", "ring_train",
+                  "dp_update", "chunk_dp", "chunk_dp_pallas"], DP_RANKS, inputs)
     return dict(outs=outs, inputs=inputs, ring_fmod=ring_fmod, ring_vars=ring_vars,
                 dp=(fmod, params, stats, batch))
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    inputs = {"ring_qkv_2": [torch.from_numpy(t) for t in _ring_qkv(2, 2)]}
-    outs = spawn(tmp_path_factory.mktemp("two_ranks"), ["ring"], 2, inputs)
-    return dict(outs=outs, inputs=inputs)
+    tp = {fused: _tp_inputs(fused) for fused in (False, True)}
+    inputs = {"ring_qkv_2": [torch.from_numpy(t) for t in _ring_qkv(2, 2)],
+              "ring_cot_2": torch.from_numpy(_ring_cotangent(2, 3)),
+              "tp_cfg": TP_CFG,
+              "tp_batch": [torch.from_numpy(t) for t in tp[False][3]],
+              **{f"tp_state_{fused}": from_flax(params, stats)
+                 for fused, (_, params, stats, _) in tp.items()}}
+    outs = spawn(tmp_path_factory.mktemp("two_ranks"),
+                 ["ring", "ring_grad", "ring_trainer", "tp_forward", "tp_step"], 2, inputs)
+    return dict(outs=outs, inputs=inputs, tp=tp)
 
 
 def test_make_mesh_shapes_and_errors(four_ranks):
@@ -190,6 +225,46 @@ def test_ring_attention_matches_jax(four_ranks, two_ranks, p, causal):
     np.testing.assert_allclose(want, np.asarray(dense), rtol=RTOL, atol=ATOL)
     for out in group["outs"]:
         np.testing.assert_allclose(out["ring"][causal].numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("p", [2, 4])
+def test_ring_attention_grads_match_jax(four_ranks, two_ranks, p, causal):
+    """dQ, dK and dV of the port's ring on P gloo ranks (every rank holds
+    the global gradients) against ``jax.grad`` of JAX ``ring_attention``
+    on a seq=P sub-mesh, for ``sum(out * cotangent)``; P = 2 and 4, where a
+    rotation too few or too many shows."""
+    group = four_ranks if p == 4 else two_ranks
+    q, k, v = (jnp.asarray(t.numpy()) for t in group["inputs"][f"ring_qkv_{p}"])
+    cot = jnp.asarray(group["inputs"][f"ring_cot_{p}"].numpy())
+    mesh = jax_make_mesh(data=1, model=1, seq=p, devices=jax.devices()[:p])
+    want = jax.grad(lambda q, k, v: jnp.sum(jax_ring_attention(q, k, v, mesh, causal=causal)
+                                            * cot), argnums=(0, 1, 2))(q, k, v)
+    for out in group["outs"]:
+        for got, w in zip(out["ring_grad"][causal], want):
+            np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+
+
+def test_ring_informer_step_matches_jax_update(four_ranks):
+    """One ``_update`` (SGD at lr 1) of the ring Informer on 4 ranks, equal
+    in the ranks to the full model's step, against JAX ``_update`` of JAX's
+    ring model (``jax.grad`` through its ``shard_map``) on 4 devices with
+    the same weights and batch: the loss and every parameter after it."""
+    cfg = JaxInformerConfig(**RING_CFG, attn="ring")
+    mesh = jax_make_mesh(data=1, model=1, seq=4, devices=jax.devices()[:4])
+    fmod = jax_build_informer(cfg, mesh=mesh)
+    state = JaxTrainState.create(apply_fn=fmod.apply, params=four_ranks["ring_vars"]["params"],
+                                 batch_stats=None, tx=optax.sgd(1.0))
+    batch = [jnp.asarray(t.numpy()) for t in four_ranks["inputs"]["ring_batch"]]
+    key = jax.random.key(0)
+    stepped, metrics = jax.jit(jax_update)(state, *batch, key, key)
+    want = from_flax(_np(stepped.params))
+    for out in four_ranks["outs"]:
+        got = out["ring_train"]
+        np.testing.assert_allclose(got["loss"], float(metrics["loss"]), rtol=RTOL)
+        for name, w in want.items():
+            np.testing.assert_allclose(got["state"][name].numpy(), w.numpy(), rtol=RTOL,
+                                       atol=ATOL, err_msg=name)
 
 
 def test_ring_informer_matches_flax_full(four_ranks):
@@ -283,12 +358,78 @@ def test_train_chunk_dp_with_use_pallas(four_ranks):
         assert all(np.isfinite(out["chunk_dp_pallas"]["losses"]))
 
 
-def test_ring_is_forward_only_and_needs_a_mesh():
-    """Under autograd the ring raises, naming ROADMAP item 13, before it
-    touches the mesh; an ``attn="ring"`` layer with no mesh raises as JAX's."""
+def test_ring_is_forward_only_and_needs_a_mesh(two_ranks):
+    """The ring is no longer forward-only: ``Trainer(mesh=...)`` trains a
+    ring Informer over a 2-rank seq axis (in the ranks: parameters the same
+    on every rank; at dropout 0 its run ends where the full model's ends
+    within rtol 2e-4 / atol 2e-5), its validation NMSE finite and falling
+    at dropout 0.1. An ``attn="ring"`` layer with no mesh raises as JAX's,
+    and so does the ring itself."""
+    for out in two_ranks["outs"]:
+        hist = out["ring_trainer"][0.1]
+        assert all(np.isfinite(hist)) and hist[-1] < hist[0], hist
     q = torch.randn(1, 4, 1, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    with pytest.raises(AttributeError):
         ring_attention(q, q, q, mesh=None)
     layer = AttentionLayer(8, 1, attn="ring")
     with torch.no_grad(), pytest.raises(ValueError, match="requires a mesh with a 'seq' axis"):
         layer(torch.randn(1, 4, 8), torch.randn(1, 4, 8), torch.randn(1, 4, 8))
+
+
+# --- tensor parallelism ------------------------------------------------------------
+
+
+def _jax_tp_mesh():
+    return jax_make_mesh(data=1, model=2, devices=jax.devices()[:2])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tensor_parallel_forward_matches_jax_shard_params(two_ranks, fused):
+    """The port's tensor-parallel forward on 2 gloo ranks (in the ranks:
+    equal to the replicated port model, every shard its rows of the full
+    weight) against JAX's apply on ``shard_params``' placements at model 2,
+    eval mode, fused and unfused; every weight of the model is sharded."""
+    fmod, params, stats, (x_enc, x_dec, _) = two_ranks["tp"][fused]
+    mesh = _jax_tp_mesh()
+    variables = {"params": jax_shard_params(params, mesh), "batch_stats": stats}
+    want = np.asarray(jax.jit(fmod.apply)(variables, jnp.asarray(x_enc), jnp.asarray(x_dec)))
+    port = dict(build_informer(InformerConfig(**TP_CFG, fuse_qkv=fused),
+                               device="cpu").named_parameters())
+    for out in two_ranks["outs"]:
+        np.testing.assert_allclose(out["tp_forward"][fused]["out"].numpy(), want, rtol=RTOL,
+                                   atol=ATOL)
+        assert set(out["tp_forward"][fused]["sharded"]) == {n for n, p in port.items()
+                                                             if p.ndim >= 2}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tensor_parallel_step_matches_jax_update(two_ranks, fused):
+    """One tensor-parallel ``_update`` (SGD at lr 1) on 2 gloo ranks (in the
+    ranks: each shard equal to its rows of the replicated model's step, the
+    replicated parameters' gradients equal on both ranks bit for bit),
+    gathered, against JAX ``_update`` on ``shard_params``' placements at
+    model 2: the loss, every parameter and the BatchNorm statistics."""
+    fmod, params, stats, batch = two_ranks["tp"][fused]
+    mesh = _jax_tp_mesh()
+    state = JaxTrainState.create(apply_fn=fmod.apply, params=jax_shard_params(params, mesh),
+                                 batch_stats=stats, tx=optax.sgd(1.0))
+    key = jax.random.key(0)
+    stepped, metrics = jax.jit(jax_update)(state, *map(jnp.asarray, batch), key, key)
+    want = from_flax(_np(stepped.params), _np(stepped.batch_stats))
+    for out in two_ranks["outs"]:
+        got = out["tp_step"][fused]
+        np.testing.assert_allclose(got["loss"], float(metrics["loss"]), rtol=RTOL)
+        for name, w in want.items():
+            if not name.endswith("num_batches_tracked"):
+                np.testing.assert_allclose(got["state"][name].numpy(), w.numpy(), rtol=RTOL,
+                                           atol=ATOL, err_msg=name)
+
+
+def test_tensor_parallel_trainer_matches_the_replicated_trainer(two_ranks):
+    """``Trainer(mesh=...)`` with a model axis of 2: two epochs of Adam at
+    dropout 0.1 end where the replicated model's Trainer (a mesh of the same
+    draws) ends (in the ranks: validation NMSE rtol 2e-4; the checkpoints'
+    gathered parameters and Adam moments against the replicated ones), the
+    same history on both ranks."""
+    hists = [out["tp_step"]["trainer"] for out in two_ranks["outs"]]
+    assert hists[0] == hists[1] and all(np.isfinite(hists[0]))

@@ -15,6 +15,9 @@ from channelestimationtransformer_torch.channel.cdl import CDLModel, generate_cd
 from channelestimationtransformer_torch.channel.dataset import generate_beamformed_dataset
 from channelestimationtransformer_torch.cli import (
     ar_oracle,
+    calibrate_channel,
+    calibrate_fast,
+    channel_spread,
     collect_e2e,
     collect_results,
     comparison,
@@ -24,8 +27,14 @@ from channelestimationtransformer_torch.cli import (
     generate_dataset,
     int8_scale_ab,
     int8_serving,
+    interleaved_ab,
     make_figures,
+    pallas_ab,
+    perf_study,
+    prob_crossover,
+    prob_profile,
     scale_demo,
+    step_profile,
     timing_analysis,
     train_informer,
     train_streaming,
@@ -87,7 +96,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "utils/profiling.py", "utils/export.py", "utils/tensorboard.py",
                    "utils/figures.py", "utils/parse_logs.py", "native.py",
                    "cli/complexity_report.py", "cli/timing_analysis.py", "cli/ar_oracle.py",
-                   "cli/collect_results.py", "cli/eval_parity_ci.py", "cli/make_figures.py"):
+                   "cli/collect_results.py", "cli/eval_parity_ci.py", "cli/make_figures.py",
+                   "parallel/tensor.py", "cli/calibrate_channel.py", "cli/calibrate_fast.py",
+                   "cli/prob_crossover.py", "cli/prob_profile.py", "cli/step_profile.py",
+                   "cli/perf_study.py", "cli/interleaved_ab.py", "cli/pallas_ab.py",
+                   "cli/channel_spread.py"):
         assert f"channelestimationtransformer_torch/{module}" in names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
@@ -143,7 +156,16 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
                       (timing_analysis, ["--params", "seq_len", "--out", str(tmp_path / "t.json")]),
                       (ar_oracle, ["--out", str(tmp_path / "ar.json")]),
                       (eval_parity_ci, ["--parity", "missing.json",
-                                        "--out", str(tmp_path / "ci.json")])):
+                                        "--out", str(tmp_path / "ci.json")]),
+                      # the calibration and profiling drivers
+                      (calibrate_channel, ["--out", str(tmp_path / "cal.json")]),
+                      (calibrate_fast, ["--out", str(tmp_path / "calf.json")]),
+                      (prob_crossover, ["--out", str(tmp_path / "pc.json")]),
+                      (prob_profile, ["--out", str(tmp_path / "pp.json")]),
+                      (step_profile, ["--out", str(tmp_path / "sp.json")]),
+                      (perf_study, ["--out", str(tmp_path / "ps.json")]),
+                      (interleaved_ab, ["--out", str(tmp_path / "ia.json")]),
+                      (channel_spread, ["--out", str(tmp_path / "cs.json")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(argv)
     # The link functions run where ``device`` says, the card by default.
@@ -153,33 +175,62 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simulate_coded_ber(torch.Generator(), h, h, 6.0)
     assert not any(tmp_path.iterdir())
-    # The log and result collectors and the figures compute on no device: they
-    # run without a card.
+    # The log and result collectors, the figures and the kernel A/B summary
+    # compute on no device: they run without a card.
     assert collect_e2e.main(["--out", str(tmp_path / "e2e_branches.json")])
     monkeypatch.chdir(tmp_path)
     assert make_figures.main(["--weights-dir", str(tmp_path), "--out",
                               str(tmp_path / "figures")]) == []
     assert collect_results.main([str(tmp_path)])["sweeps"]["snr"]["rows"] == {}
+    assert pallas_ab.main([str(tmp_path)]) is None  # no A/B run in the folder
     ber, total = simulate_ber(torch.Generator(), h, h, 30.0, device="cpu")
     assert float(ber) == 0.0 and total == 256
     h = generate_beamformed_dataset(0, model=model, num_samples=2, num_slots=10, device="cpu")
     assert h.device.type == "cpu" and h.shape == (2, 10, 2, 4, 2)
 
 
-def test_unported_options_raise():
+@pytest.fixture
+def world_of_one():
+    """A gloo process group of this process alone, and its mesh."""
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.parallel.launch import _free_port, init_group
+    from channelestimationtransformer_torch.parallel.mesh import make_mesh
+
+    init_group(f"127.0.0.1:{_free_port()}", 1, 0, device="cpu")
+    try:
+        yield make_mesh(data=1, model=1, seq=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_unported_options_raise(world_of_one):
     """``attn="ring"`` builds with distil off and refuses distil on; a ring
-    model under autograd raises before its ring touches the mesh (the
-    ring's backward is not ported); float16 is not ported."""
+    model trains (its ring has a backward: one ``_update`` on a seq axis of
+    one equals the full model's with the same weights, rtol 2e-4 / atol
+    2e-5); float16 is not ported."""
+    from channelestimationtransformer_torch.train.trainer import TrainState, _update
+
     small = dict(seq_len=16, label_len=4, pred_len=2, d_model=16, n_heads=2, e_layers=(1,),
                  d_layers=1, dropout=0.0)
     with pytest.raises(ValueError, match="distil=False"):
         InformerConfig(attn="ring", **small)
-    model = build_informer(InformerConfig(attn="ring", distil=False, **small), device="cpu",
-                           mesh=object()).train()
-    assert model.encoder.layer_0.attention.attn == "ring"
-    assert model.decoder.layer_0.self_attention.attn == "full"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        model(torch.randn(2, 16, 16), torch.randn(2, 6, 16))
+    g = torch.Generator().manual_seed(0)
+    batch = (torch.randn(2, 16, 16, generator=g), torch.randn(2, 6, 16, generator=g),
+             torch.randn(2, 2, 16, generator=g))
+    models = {}
+    for attn in ("ring", "full"):
+        model = build_informer(InformerConfig(attn=attn, distil=False, **small), device="cpu",
+                               mesh=world_of_one)
+        state = TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=1.0),
+                           schedule=lambda count: 1.0)
+        _update(state, *batch, torch.Generator().manual_seed(1))
+        models[attn] = model
+    assert models["ring"].encoder.layer_0.attention.attn == "ring"
+    assert models["ring"].decoder.layer_0.self_attention.attn == "full"
+    want = models["full"].state_dict()
+    for name, t in models["ring"].state_dict().items():
+        assert torch.allclose(t, want[name], rtol=2e-4, atol=2e-5), name
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_informer(InformerConfig(dtype="float16"), device="cpu")
 

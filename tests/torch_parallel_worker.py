@@ -119,6 +119,230 @@ def ring(inputs, initialized):
 
 
 @case
+def ring_grad(inputs, initialized):
+    """dQ, dK and dV of ``sum(ring_attention(q, k, v) * cotangent)`` over
+    all ranks on the seq axis, causal and not."""
+    from channelestimationtransformer_torch.parallel.ring import ring_attention
+
+    n = dist.get_world_size()
+    m = make_mesh(data=1, model=1, seq=n)
+    qkv, cot = inputs[f"ring_qkv_{n}"], inputs[f"ring_cot_{n}"]
+    out = {}
+    for causal in (False, True):
+        leaves = [t.clone().requires_grad_() for t in qkv]
+        (ring_attention(*leaves, m, causal=causal) * cot).sum().backward()
+        out[causal] = [t.grad for t in leaves]
+    return out
+
+
+def _sgd_step(cfg, state_dict, batch, mesh=None, tp_mesh=None):
+    """One ``_update`` (SGD at lr 1, so the parameters after it carry the
+    gradients whole) of the model of ``cfg`` with ``state_dict``, built
+    over ``mesh`` (a ring model), or made tensor-parallel over
+    ``tp_mesh``; returns the model and the step's metrics."""
+    from channelestimationtransformer_torch.parallel.tensor import tensor_parallel
+    from channelestimationtransformer_torch.train.trainer import TrainState, _update
+
+    model = build_informer(cfg, device="cpu", mesh=mesh)
+    model.load_state_dict(state_dict)
+    if tp_mesh is not None:
+        tensor_parallel(model, tp_mesh)
+    state = TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=1.0),
+                       schedule=lambda count: 1.0)
+    metrics = _update(state, *batch, torch.Generator().manual_seed(0))
+    return model, metrics
+
+
+def _params_close(got, want, names=None):
+    bad = [k for k in (names or want) if not torch.allclose(got[k], want[k], rtol=2e-4,
+                                                           atol=2e-5)]
+    assert not bad, bad
+
+
+def _zero_gradient(name, names):
+    """Whether the parameter ``name`` has a zero gradient in exact arithmetic:
+    an attention key bias (softmax is invariant to a shift along the keys),
+    a distilling conv's bias and the LayerNorm bias before that conv (the
+    BatchNorm after it takes off any per-channel constant); or is the
+    BatchNorm's running mean, which such a bias shifts."""
+    if name.endswith("key.bias") or (".distil_" in name and name.endswith(
+            (".bias", ".running_mean"))):
+        return True
+    head, _, tail = name.rpartition(".layer_")
+    i, _, rest = tail.partition(".")
+    return rest == "norm2.bias" and f"{head}.distil_{i}.bias" in names
+
+
+def _trained_close(got, want, tc):
+    """Two models' parameters after ``tc``'s Adam run: within rtol 2e-4 /
+    atol 2e-5, but those of :func:`_zero_gradient`. Adam's first steps move
+    such a parameter by up to ``lr`` a step on rounding noise alone: they
+    are held to ``lr`` times the steps."""
+    keys = [k for k in want if _zero_gradient(k, want)]
+    _params_close(got, want, [k for k in want if k not in keys
+                              and not k.endswith("num_batches_tracked")])
+    bound = tc.lr * tc.num_epochs * tc.steps_per_epoch
+    assert all((got[k] - want[k]).abs().max() <= bound for k in keys)
+
+
+@case
+def ring_train(inputs, initialized):
+    """One ``_update`` of the ring Informer (JAX test_ring_informer_matches_full's
+    config, dropout 0) against the full model's with the same weights and
+    batch: loss and every parameter after the step; the ring's parameters
+    the same on every rank."""
+    n = dist.get_world_size()
+    cfg = InformerConfig(**inputs["ring_cfg"])
+    batch = inputs["ring_batch"]
+    ring, m_ring = _sgd_step(InformerConfig(**inputs["ring_cfg"], attn="ring"),
+                             inputs["ring_state"], batch, mesh=make_mesh(data=1, model=1, seq=n))
+    full, m_full = _sgd_step(cfg, inputs["ring_state"], batch)
+    assert torch.allclose(m_ring["loss"], m_full["loss"], rtol=2e-4), (m_ring, m_full)
+    _params_close(ring.state_dict(), full.state_dict())
+    assert _replicated(_flat_params(ring))
+    return {"state": ring.state_dict(), "loss": float(m_ring["loss"])}
+
+
+@case
+def ring_trainer(inputs, initialized):
+    """``Trainer(mesh=...)`` on a seq-axis mesh: the ring model trains two
+    epochs (dropout 0.1, Adam), every rank's parameters the same; with
+    dropout 0 it ends where the full model's Trainer on the same mesh ends."""
+    from channelestimationtransformer_torch.data.windows import WindowDataset
+    from channelestimationtransformer_torch.train.trainer import Trainer
+
+    n = dist.get_world_size()
+    m = make_mesh(data=1, model=1, seq=n)
+    h = torch.randn(8, 20, 16, generator=torch.Generator().manual_seed(1))
+    data = [WindowDataset(h=x, seq_len=12, pred_len=2, snr_db=20.0, device="cpu")
+            for x in (h[:6], h[6:])]
+    out = {}
+    for dropout in (0.1, 0.0):
+        runs = {}
+        for attn in (("ring", "full") if dropout == 0.0 else ("ring",)):
+            cfg = InformerConfig(seq_len=12, label_len=4, pred_len=2, d_model=16, n_heads=2,
+                                 e_layers=(2,), d_layers=1, d_ff=16, distil=False,
+                                 dropout=dropout, attn=attn)
+            tc = TrainConfig(batch_size=4, num_epochs=2, steps_per_epoch=2, log_every=2)
+            t = Trainer(build_informer(cfg, device="cpu", seed=0, mesh=m), cfg, tc, *data,
+                        mesh=m, log=lambda msg: None)
+            runs[attn] = (t.fit(), t.model)
+            assert _replicated(_flat_params(t.model))
+            assert all(torch.isfinite(torch.tensor(e["nmse"])) for e in runs[attn][0])
+        out[dropout] = [e["nmse"] for e in runs["ring"][0]]
+    full_hist, full = runs["full"]
+    assert _close_lists([e["nmse"] for e in full_hist], out[0.0])
+    _trained_close(runs["ring"][1].state_dict(), full.state_dict(), tc)
+    return out
+
+
+def _close_lists(got, want, rel=2e-4):
+    """Two lists of floats, element for element within ``rel``."""
+    return len(got) == len(want) and all(abs(a - b) <= rel * abs(b) for a, b in zip(got, want))
+
+
+def _tp_mesh():
+    return make_mesh(data=1, model=dist.get_world_size())
+
+
+@case
+def tp_forward(inputs, initialized):
+    """The tensor-parallel model (model axis = all ranks) against the
+    replicated model with the same weights, eval mode, fused and unfused;
+    each shard holds its rows of the full weight."""
+    from channelestimationtransformer_torch.parallel.tensor import sharded_names, tensor_parallel
+
+    out = {}
+    for fused in (False, True):
+        cfg = InformerConfig(**inputs["tp_cfg"], fuse_qkv=fused)
+        state = inputs[f"tp_state_{fused}"]
+        full = build_informer(cfg, device="cpu")
+        full.load_state_dict(state)
+        tp = build_informer(cfg, device="cpu")
+        tp.load_state_dict(state)
+        tensor_parallel(tp, _tp_mesh())
+        names = sharded_names(tp)
+        params = dict(tp.named_parameters())
+        r, n = dist.get_rank(), dist.get_world_size()
+        for name in names:
+            rows = state[name].shape[0] // n
+            assert torch.equal(params[name], state[name][r * rows:(r + 1) * rows]), name
+        x_enc, x_dec, _ = inputs["tp_batch"]
+        with torch.no_grad():
+            got, want = tp(x_enc, x_dec), full(x_enc, x_dec)
+        assert torch.allclose(got, want, rtol=2e-4, atol=2e-5), (got - want).abs().max()
+        out[fused] = {"out": got, "sharded": sorted(names)}
+    return out
+
+
+@case
+def tp_step(inputs, initialized):
+    """One tensor-parallel ``_update`` (SGD at lr 1) against the replicated
+    model's: each shard equals its rows of the replicated update, the
+    replicated parameters' gradients are the same on every rank, and the
+    gathered state dict is the replicated one. Then ``Trainer(mesh=...)``
+    with a model axis: two epochs of Adam with dropout 0.1 against the
+    replicated model's Trainer on a mesh of the same draws, and its
+    checkpoint holds the full parameters and optimizer state."""
+    import tempfile
+
+    from channelestimationtransformer_torch.data.windows import WindowDataset
+    from channelestimationtransformer_torch.parallel.tensor import (
+        full_state_dicts,
+        replicated_grads_equal,
+        sharded_names,
+    )
+    from channelestimationtransformer_torch.train.trainer import Trainer
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for fused in (False, True):
+        cfg = InformerConfig(**inputs["tp_cfg"], fuse_qkv=fused)
+        state = inputs[f"tp_state_{fused}"]
+        tp, m_tp = _sgd_step(cfg, state, inputs["tp_batch"], tp_mesh=_tp_mesh())
+        full, m_full = _sgd_step(cfg, state, inputs["tp_batch"])
+        assert torch.allclose(m_tp["loss"], m_full["loss"], rtol=2e-4)
+        assert replicated_grads_equal(tp)
+        want = full.state_dict()
+        local = tp.state_dict()
+        for name in sharded_names(tp):
+            rows = want[name].shape[0] // n
+            want_rows = want[name][r * rows:(r + 1) * rows]
+            assert torch.allclose(local[name], want_rows, rtol=2e-4, atol=2e-5), name
+        gathered, _ = full_state_dicts(tp)
+        _params_close(gathered, want, [k for k in want if not k.endswith("num_batches_tracked")])
+        out[fused] = {"state": gathered, "loss": float(m_tp["loss"])}
+
+    # The Trainer.
+    cfg = InformerConfig(**dict(inputs["tp_cfg"], dropout=0.1))
+    h = torch.randn(8, 40, 16, generator=torch.Generator().manual_seed(2))
+    data = [WindowDataset(h=x, seq_len=cfg.seq_len, pred_len=cfg.pred_len, snr_db=20.0,
+                          device="cpu") for x in (h[:6], h[6:])]
+    folder = [tempfile.mkdtemp() if r == 0 else None]
+    dist.broadcast_object_list(folder)
+    runs = {}
+    for name, mesh in (("tp", _tp_mesh()), ("replicated", make_mesh(data=1, model=1, seq=n))):
+        tc = TrainConfig(batch_size=4, num_epochs=2, steps_per_epoch=2, log_every=2,
+                         checkpoint_every_epochs=2, checkpoint_dir=f"{folder[0]}/{name}")
+        t = Trainer(build_informer(cfg, device="cpu", seed=0), cfg, tc, *data, mesh=mesh,
+                    log=lambda msg: None)
+        runs[name] = (t.fit(), t)
+    hist_tp, hist_rep = ([e["nmse"] for e in runs[k][0]] for k in ("tp", "replicated"))
+    assert _close_lists(hist_tp, hist_rep), (hist_tp, hist_rep)
+    if r == 0:
+        saved = {k: torch.load(f"{folder[0]}/{k}/tmodel_2.pt", weights_only=True)
+                 for k in runs}
+        _trained_close(saved["tp"]["model"], saved["replicated"]["model"], tc)
+        for i, st in saved["replicated"]["optimizer"]["state"].items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                got = saved["tp"]["optimizer"]["state"][i][k]
+                assert got.shape == st[k].shape, (i, k)
+                assert torch.allclose(got, st[k], rtol=2e-4, atol=1e-7), (i, k)
+    out["trainer"] = hist_tp
+    return out
+
+
+@case
 def ring_informer(inputs, initialized):
     """The ring Informer of JAX test_ring_informer_matches_full's config
     with the flax full model's weights, in eval mode."""
