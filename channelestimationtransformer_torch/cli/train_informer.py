@@ -12,6 +12,11 @@ names and keys::
         --train-samples 16384 --calibrated --ue-speed-kmh 5 --use-pallas
     python -m channelestimationtransformer_torch.cli.train_informer --device cpu \\
         --d-model 32 --d-ff 32 --e-layers 1 --d-layers 1 --epochs 1 --steps-per-epoch 2
+
+``main(argv, mesh=...)`` trains over a ``(data, model, seq)`` mesh of a
+process group the caller joined (``Trainer(mesh=...)``); ``--resume`` then
+loads the gathered checkpoint into each rank's shards, and global rank 0
+alone writes the checkpoints and the result file.
 """
 
 from __future__ import annotations
@@ -23,13 +28,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..channel.cdl import CDLModel
 from ..channel.dataset import make_window_dataset
 from ..core.config import InformerConfig, TrainConfig
 from ..core.runtime import resolve_device
 from ..models.informer import build_informer
-from ..train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from ..train.checkpoint import latest_checkpoint, load_checkpoint
 from ..train.trainer import Trainer, create_train_state
 from ..utils.tensorboard import MetricsWriter
 
@@ -128,8 +134,9 @@ def run_name(args, cfg: InformerConfig, ue_speed: float) -> str:
     )
 
 
-def main(argv=None) -> dict:
-    """Run the driver; returns the result written to ``result_<name>.json``."""
+def main(argv=None, *, mesh=None) -> dict:
+    """Run the driver; returns the result written to ``result_<name>.json``.
+    ``mesh``: train over it (module docstring)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     ue_speed = (args.ue_speed_kmh if args.ue_speed_kmh is not None
@@ -167,7 +174,7 @@ def main(argv=None) -> dict:
     print("Using device: " + (torch.cuda.get_device_name(device) if device.type == "cuda"
                               else str(device)), flush=True)
     # The weights come from their own generator (seed), as in JAX.
-    model = build_informer(cfg, device=device, seed=args.seed)
+    model = build_informer(cfg, device=device, seed=args.seed, mesh=mesh)
 
     t0 = time.time()
     if args.calibrated:
@@ -189,7 +196,7 @@ def main(argv=None) -> dict:
 
     writer = MetricsWriter(os.path.join("runs", name)) if args.tensorboard else None
     trainer = Trainer(model=model, cfg=cfg, train_cfg=tc, train_data=train_ds, val_data=val_ds,
-                      metrics_writer=writer)
+                      mesh=mesh, metrics_writer=writer)
     start_epoch = 0
     if args.preload or args.resume:
         path = (latest_checkpoint(args.out, f"tmodel_{name}_")
@@ -212,7 +219,7 @@ def main(argv=None) -> dict:
         writer.close()
 
     os.makedirs(args.out, exist_ok=True)
-    save_checkpoint(trainer.state, args.out, f"tmodel_{name}_", args.epochs)
+    trainer.save(args.out, f"tmodel_{name}_", args.epochs)
     result = {
         "name": name,
         "snr": args.snr,
@@ -222,8 +229,9 @@ def main(argv=None) -> dict:
         "final_val_split": [float(v) for v in history[-1]["split"]],
         "history_nmse": [h["nmse"] for h in history],
     }
-    with open(os.path.join(args.out, f"result_{name}.json"), "w") as f:
-        json.dump(result, f, indent=2)
+    if mesh is None or dist.get_rank() == 0:
+        with open(os.path.join(args.out, f"result_{name}.json"), "w") as f:
+            json.dump(result, f, indent=2)
     print(json.dumps({k: v for k, v in result.items() if k != "history_nmse"}), flush=True)
     return result
 

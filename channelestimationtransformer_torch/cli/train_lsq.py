@@ -23,6 +23,10 @@ asked for) and ``--use-pallas``, off by default as in JAX, whose LSQ
 training runs no Pallas kernel. With it each LSQ-fibbinary layer snaps
 through the nearest-codeword kernel (its LSQ mode forward, the snap mode in
 the backward) and attention goes through the bd kernels.
+
+``main(argv, mesh=...)`` trains over a ``(data, model, seq)`` mesh of a
+process group the caller joined: each rank overlays its rows of the FP32
+checkpoint's sharded weights, and global rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -32,12 +36,14 @@ import json
 import os
 import pathlib
 
+import torch.distributed as dist
+
 from ..channel.cdl import add_channel_args, cdl_from_args
 from ..channel.dataset import make_window_dataset
 from ..core.config import InformerConfig, TrainConfig
 from ..core.runtime import resolve_device
 from ..models.informer_lsq import build_informer_lsq
-from ..train.checkpoint import load_weights_overlay, save_checkpoint
+from ..train.checkpoint import load_weights_overlay
 from ..train.trainer import Trainer
 
 # The JAX package's committed LSQ results, which each run's rows extend.
@@ -67,8 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> dict:
-    """Run the driver; returns the results (every row, old and new)."""
+def main(argv=None, *, mesh=None) -> dict:
+    """Run the driver; returns the results (every row, old and new).
+    ``mesh``: train over it (module docstring)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     # Merge with prior rows (the committed artifact, then an earlier file in
@@ -95,14 +102,14 @@ def main(argv=None) -> dict:
         model = build_informer_lsq(cfg, nbits=nbits, fibbinary=args.fibbinary, device=device,
                                    seed=tc.seed)
         trainer = Trainer(model=model, cfg=cfg, train_cfg=tc, train_data=train_ds,
-                          val_data=val_ds)
+                          val_data=val_ds, mesh=mesh)
         if args.checkpoint:
             load_weights_overlay(args.checkpoint, trainer.model)
             print(f"Preloaded FP32 weights from {args.checkpoint}", flush=True)
 
         history = trainer.fit()
         tag = f"lsq{'fib' if args.fibbinary else ''}_n{nbits}"
-        save_checkpoint(trainer.state, args.out, f"{tag}_", args.epochs)
+        trainer.save(args.out, f"{tag}_", args.epochs)
         results[tag] = {
             "nbits": nbits,
             "final_val_nmse": history[-1]["nmse"],
@@ -111,8 +118,9 @@ def main(argv=None) -> dict:
             "preload": os.path.basename(args.checkpoint) if args.checkpoint else None,
         }
         print(json.dumps(results[tag]), flush=True)
-        with open(out_path, "w") as f:
-            json.dump(results, f, indent=2)
+        if mesh is None or dist.get_rank() == 0:
+            with open(out_path, "w") as f:
+                json.dump(results, f, indent=2)
     return results
 
 

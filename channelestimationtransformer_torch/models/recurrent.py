@@ -34,10 +34,12 @@ from __future__ import annotations
 import warnings
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import RecurrentConfig, activation_dtype
 from ..core.runtime import resolve_device
+from ..parallel.tensor import full_param
 from .init import dense_, variance_scaling_
 
 GATES = {"lstm": 4, "gru": 3, "rnn": 1}
@@ -74,14 +76,21 @@ class RecurrentCell(nn.Module):
                 nn.init.zeros_(getattr(self, name))
 
     def op_params(self) -> list:
-        """``[w_ih, w_hh, b_ih, b_hh]`` as the fused op takes them."""
-        zeros = self.weight_ih.new_zeros(self.weight_ih.shape[0])
+        """``[w_ih, w_hh, b_ih, b_hh]`` as the fused op takes them (under
+        tensor parallelism the weights gathered from the ranks' rows)."""
+        w_ih, w_hh = full_param(self, "weight_ih"), full_param(self, "weight_hh")
+        zeros = w_ih.new_zeros(w_ih.shape[0])
         if self.kind == "lstm":
-            return [self.weight_ih, self.weight_hh, zeros, self.bias_hh]
+            return [w_ih, w_hh, zeros, self.bias_hh]
         if self.kind == "gru":
             b_hh = torch.cat([zeros[: 2 * self.bias_hn.shape[0]], self.bias_hn])
-            return [self.weight_ih, self.weight_hh, self.bias_ih, b_hh]
-        return [self.weight_ih, self.weight_hh, self.bias_ih, zeros]
+            return [w_ih, w_hh, self.bias_ih, b_hh]
+        return [w_ih, w_hh, self.bias_ih, zeros]
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)``, its weight gathered where tensor parallelism sharded it."""
+    return F.linear(x, full_param(layer, "weight"), layer.bias)
 
 
 class RecurrentPredictor(nn.Module):
@@ -122,8 +131,8 @@ class RecurrentPredictor(nn.Module):
 
     def _step(self, carry, x):
         """Slots ``x`` ``[B, T, F]`` through encoder -> stacked cells -> decoder."""
-        ys, carry = self._core(self.encoder(x), carry)
-        return carry, self.decoder(ys)
+        ys, carry = self._core(_linear(self.encoder, x), carry)
+        return carry, _linear(self.decoder, ys)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Teacher-forced one-step-ahead prediction (reference ``train_data``,

@@ -16,6 +16,12 @@ Semantics kept exactly, value for value:
   launch of the nearest-codeword kernel's LSQ mode (``_LsqCodeword``), whose
   values equal the eager chain's bit for bit and whose gradient is the eager
   chain's; on the CPU, or without ``use_pallas``, the eager chain runs.
+
+Under tensor parallelism (``parallel/tensor.py``) a ``DenseLSQ`` holds its
+rank's output rows and runs column-parallel: the rows are quantized where
+they are, with ``g`` from the whole weight's ``numel`` (as JAX's global
+array gives it), and the ``step_size`` gradient, a sum over every element
+of the weight, is summed over the model group.
 """
 
 from __future__ import annotations
@@ -23,9 +29,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.tensor import column_parallel, full_param, sum_grad_over
 from ..cuda.quant import fused_lsq_codeword, nearest_codeword_reference
 from .codebooks import lsq_fibbinary_codebook, nearest_codeword
 
@@ -52,16 +60,19 @@ def codebook_pass(x, codebook, *, use_pallas: bool = True):
     return (snap(xd, codebook) - xd) + x
 
 
-def _lsq_bounds(w, nbits: int):
-    """(Qn, Qp, g): the code range and the gradient scale ``1/sqrt(numel * Qp)``."""
+def _lsq_bounds(w, nbits: int, numel: int | None = None):
+    """(Qn, Qp, g): the code range and the gradient scale ``1/sqrt(numel * Qp)``,
+    ``numel`` the whole weight's (default ``w.numel()``; a shard passes its
+    full weight's)."""
     qn = -(2 ** (nbits - 1))
     qp = 2 ** (nbits - 1) - 1
-    return qn, qp, 1.0 / math.sqrt(w.numel() * qp)
+    return qn, qp, 1.0 / math.sqrt((w.numel() if numel is None else numel) * qp)
 
 
-def _lsq_chain(w, step_size, nbits: int, codebook=None, *, use_pallas: bool = True):
+def _lsq_chain(w, step_size, nbits: int, codebook=None, *, use_pallas: bool = True,
+               numel: int | None = None):
     """The eager chain (reference ``LSQ.py:65-74``): ~10 ops, each its own launch on the card."""
-    qn, qp, g = _lsq_bounds(w, nbits)
+    qn, qp, g = _lsq_bounds(w, nbits, numel)
     s = grad_scale(step_size, g)
     scaled = torch.clamp(w / s, qn, qp)
     if codebook is None:
@@ -77,10 +88,10 @@ class _LsqCodeword(torch.autograd.Function):
     (equal to the plain snap bit for bit)."""
 
     @staticmethod
-    def forward(ctx, w, step_size, codebook, nbits):
+    def forward(ctx, w, step_size, codebook, nbits, numel=None):
         ctx.save_for_backward(w, step_size, codebook)
-        ctx.nbits = nbits
-        qn, qp, g = _lsq_bounds(w, nbits)
+        ctx.nbits, ctx.numel = nbits, numel
+        qn, qp, g = _lsq_bounds(w, nbits, numel)
         return fused_lsq_codeword(w.detach(), step_size.detach(), codebook, g, qn, qp)
 
     @staticmethod
@@ -88,23 +99,25 @@ class _LsqCodeword(torch.autograd.Function):
         w, step_size, codebook = ctx.saved_tensors
         with torch.enable_grad():
             w_, s_ = w.detach().requires_grad_(), step_size.detach().requires_grad_()
-            out = _lsq_chain(w_, s_, ctx.nbits, codebook)
+            out = _lsq_chain(w_, s_, ctx.nbits, codebook, numel=ctx.numel)
         gw, gs = torch.autograd.grad(out, (w_, s_), grad)
-        return gw, gs, None, None
+        return (gw, gs) + (None,) * (len(ctx.needs_input_grad) - 2)
 
 
-def lsq_quantize(w, step_size, nbits: int, codebook=None, *, use_pallas: bool = True):
+def lsq_quantize(w, step_size, nbits: int, codebook=None, *, use_pallas: bool = True,
+                 numel: int | None = None):
     """The LSQ fake quantization of a weight tensor; with ``codebook``, the
     fibbinary snap in place of the rounding. The codebook case on a CUDA
     tensor with ``use_pallas`` is one kernel launch (through ``_LsqCodeword``
-    when a gradient is needed, as ``bd_attention`` does)."""
+    when a gradient is needed, as ``bd_attention`` does). ``numel``: the
+    whole weight's element count when ``w`` is a shard of it (``g``)."""
     if codebook is not None and use_pallas and w.device.type == "cuda":
         codebook = torch.as_tensor(codebook, dtype=torch.float32, device=w.device)
         if torch.is_grad_enabled() and (w.requires_grad or step_size.requires_grad):
-            return _LsqCodeword.apply(w, step_size, codebook, nbits)
-        qn, qp, g = _lsq_bounds(w, nbits)
+            return _LsqCodeword.apply(w, step_size, codebook, nbits, numel)
+        qn, qp, g = _lsq_bounds(w, nbits, numel)
         return fused_lsq_codeword(w, step_size, codebook, g, qn, qp)
-    return _lsq_chain(w, step_size, nbits, codebook, use_pallas=use_pallas)
+    return _lsq_chain(w, step_size, nbits, codebook, use_pallas=use_pallas, numel=numel)
 
 
 def lsq_step_size_init(weight: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -122,7 +135,12 @@ class DenseLSQ(nn.Linear):
     weight's device once, with the module, and not on every forward.
     ``dtype`` is the compute dtype: the f32 weight is quantized in f32,
     then the quantized weight, the bias and x are cast to ``dtype`` for the
-    product (JAX ``lsq.py:97-104``)."""
+    product (JAX ``lsq.py:97-104``). With ``tp_group`` set
+    (``parallel/tensor.py``) the weight holds this rank's output rows: they
+    are quantized with ``g`` of the whole weight, the product runs
+    column-parallel, and ``step_size``'s gradient is summed over the group."""
+
+    tp_group = None
 
     def __init__(self, in_features: int, out_features: int, *, nbits: int,
                  fibbinary: bool = False, use_pallas: bool = True,
@@ -140,14 +158,21 @@ class DenseLSQ(nn.Linear):
     @torch.no_grad()
     def reset_step_size(self) -> None:
         """``step_size`` from the current weight, as flax's lazy init does
-        (JAX ``lsq.py:94-96``)."""
-        self.step_size.copy_(lsq_step_size_init(self.weight, self.nbits))
+        (JAX ``lsq.py:94-96``); a shard's from the whole weight, gathered (a
+        collective over ``tp_group``)."""
+        self.step_size.copy_(lsq_step_size_init(full_param(self, "weight"), self.nbits))
 
     def forward(self, x):
-        w = lsq_quantize(self.weight, self.step_size, self.nbits, self.codebook,
-                         use_pallas=self.use_pallas)
         dt = self.compute_dtype
-        return F.linear(x.to(dt), w.to(dt), self.bias.to(dt))
+        if self.tp_group is None:
+            w = lsq_quantize(self.weight, self.step_size, self.nbits, self.codebook,
+                             use_pallas=self.use_pallas)
+            return F.linear(x.to(dt), w.to(dt), self.bias.to(dt))
+        w = lsq_quantize(self.weight, sum_grad_over(self.step_size, self.tp_group), self.nbits,
+                         self.codebook, use_pallas=self.use_pallas,
+                         numel=self.weight.numel() * dist.get_world_size(self.tp_group)).to(dt)
+        return (column_parallel(lambda x: F.linear(x, w), x.to(dt), self.tp_group)
+                + self.bias.to(dt))
 
 
 class ConvLSQ(nn.Module):
@@ -185,12 +210,12 @@ class ConvLSQ(nn.Module):
         variance_scaling_(self.weight, 1.0, generator=generator)
         nn.init.zeros_(self.bias)
         if self.nbits is not None:
-            self.step_size.copy_(lsq_step_size_init(self.weight, self.nbits))
+            self.step_size.copy_(lsq_step_size_init(full_param(self, "weight"), self.nbits))
 
     def forward(self, x):
         from ...models.embed import circular_conv1d
 
-        w = self.weight
+        w = full_param(self, "weight")  # a shard's rows gathered (parallel/tensor.py)
         if self.nbits is not None:
             w = lsq_quantize(w, self.step_size, self.nbits, self.codebook,
                              use_pallas=self.use_pallas)

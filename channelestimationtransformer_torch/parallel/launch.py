@@ -44,19 +44,22 @@ def _env_int(*names: str, default: int) -> int:
 COLLECTIVE_TIMEOUT_S = 300.0
 
 
-def init_group(address: str, world_size: int, rank: int, *, device=None) -> torch.device:
+def init_group(address: str, world_size: int, rank: int, *, device=None,
+               backend: str | None = None) -> torch.device:
     """``dist.init_process_group`` at ``address`` (``host:port``) as ``rank``
     of ``world_size``: NCCL on the card (this process's card is
     ``LOCAL_RANK``, else ``SLURM_LOCALID``, else ``rank`` modulo the cards
-    here), gloo on the CPU. Returns the device this rank runs on."""
+    here), gloo on the CPU. ``backend="gloo"`` on the card runs ranks that
+    share one card (NCCL refuses two ranks on one device), their
+    collectives through the host; gloo's point-to-point sends of CUDA
+    tensors fail on some builds (``chip_smoke.py`` probes each op). Returns
+    the device this rank runs on."""
     device = resolve_device(device)
     if device.type == "cuda":
         local = _env_int("LOCAL_RANK", "SLURM_LOCALID", default=rank)
         device = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(device)
-        backend = "nccl"
-    else:
-        backend = "gloo"
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=world_size,
                             rank=rank, timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     return device
@@ -88,12 +91,13 @@ def initialize_distributed(
     return True
 
 
-def join_local(device=None) -> torch.device:
+def join_local(device=None, backend: str | None = None) -> torch.device:
     """Join the group that :func:`run_local` started this process in, a
     world of one included (which :func:`initialize_distributed` leaves
     alone), from the torchrun variables; returns this rank's device."""
     return init_group(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
-                      int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]), device=device)
+                      int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]), device=device,
+                      backend=backend)
 
 
 def per_host_batch(global_batch: int) -> int:

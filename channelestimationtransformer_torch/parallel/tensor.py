@@ -20,8 +20,16 @@ replicated model's, and the replicated parameters' gradients come out equal
 on every rank (:func:`replicated_grads_equal`).
 
 The layers that run so are those that declare ``tp_group``: ``Dense``,
-``TokenEmbedding`` and the distilling ``ConvLayer``. A ``Shard(0)`` weight
-of any other layer raises ``NotImplementedError``.
+``DenseLSQ``, ``TokenEmbedding`` and the distilling ``ConvLayer``. Every
+other layer that holds a ``Shard(0)`` parameter (the recurrent cells, the
+recurrent predictor's ``nn.Linear``s, ``ConvLSQ``) keeps its rows and
+all-gathers the full weight where its forward uses it (:func:`full_param`),
+as GSPMD does around an op it cannot split, such as a fused recurrent scan;
+the gather's backward takes the rank's rows of the gradient. Reading the
+attribute itself gives the rows, as in a column-parallel layer.
+
+A checkpoint holds the gathered parameters (:func:`full_state_dicts`);
+:func:`local_state_dicts` takes this rank's rows back out of one.
 """
 
 from __future__ import annotations
@@ -54,16 +62,34 @@ class _CopyToGroup(torch.autograd.Function):
         return grad, None
 
 
-class _GatherFeatures(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, group):
-        ctx.group, ctx.n = group, y.shape[-1]
-        return _all_gather(y, group, -1)
+    def forward(ctx, y, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, y.shape[dim]
+        return _all_gather(y, group, dim)
 
     @staticmethod
     def backward(ctx, grad):
+        # Every rank's use of the gathered tensor is the same replicated
+        # computation: its gradient is the rank's slice of the whole one.
         r = dist.get_rank(ctx.group)
-        return grad[..., r * ctx.n:(r + 1) * ctx.n].contiguous(), None
+        return grad.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+def sum_grad_over(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` itself, whose gradient under autograd is summed over ``group``
+    (each rank's use of it is a part of one sum)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _CopyToGroup.apply(t, group)
+    return t
+
+
+def gather_rows(w: torch.Tensor, group) -> torch.Tensor:
+    """The full tensor from every rank's rows (dim 0) of ``group``, in rank
+    order; under autograd each rank's gradient is its rows of the full one's."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _Gather.apply(w, group, 0)
+    return _all_gather(w, group, 0)
 
 
 def column_parallel(fn, x: torch.Tensor, group) -> torch.Tensor:
@@ -71,35 +97,47 @@ def column_parallel(fn, x: torch.Tensor, group) -> torch.Tensor:
     replicated ``x``, its output gathered along the last dim in rank order.
     Under autograd each rank's output gradient is its slice, and the
     gradient of ``x`` is summed over ``group``."""
-    if x.requires_grad:
-        x = _CopyToGroup.apply(x, group)
-    return _GatherFeatures.apply(fn(x), group)
+    return _Gather.apply(fn(sum_grad_over(x, group)), group, -1)
+
+
+def full_param(module: nn.Module, name: str) -> torch.Tensor:
+    """``module``'s parameter ``name`` whole: gathered from the ranks' rows
+    (a collective over ``module.tp_group``) where :func:`tensor_parallel`
+    sharded it, else the parameter itself."""
+    p = getattr(module, name)
+    if name in getattr(module, "tp_sharded", ()):
+        return gather_rows(p, module.tp_group)
+    return p
 
 
 def tensor_parallel(model: nn.Module, mesh) -> nn.Module:
     """Turn ``model`` into its tensor-parallel form over ``mesh``'s
     ``model`` axis, in place: every parameter that ``param_shardings``
-    places at ``Shard(0)`` keeps this rank's rows, and its layer runs
-    column-parallel. Every rank must hold the same full parameters before
-    (the caller broadcasts them). A model axis of one changes nothing."""
+    places at ``Shard(0)`` keeps this rank's rows; a layer that declares
+    ``tp_group`` runs its ``weight`` column-parallel, any other layer
+    gathers the full parameter where it uses it (:func:`full_param`). Every
+    rank must hold the same full parameters before (the caller broadcasts
+    them). A model axis of one changes nothing."""
     group = mesh.get_group("model")
-    if dist.get_world_size(group) == 1:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
         return model
     placements = param_shardings(model, mesh)
     for mod_name, module in model.named_modules():
-        for name, p in list(module.named_parameters(recurse=False)):
-            full = f"{mod_name}.{name}" if mod_name else name
-            if placements[full].is_replicate():
-                continue
-            if not hasattr(module, "tp_group") or name != "weight":
-                raise NotImplementedError(
-                    f"{full} ({type(module).__name__}) is sharded over the model axis, but only "
-                    "Dense, TokenEmbedding and ConvLayer weights run column-parallel")
-            rows = p.shape[0] // dist.get_world_size(group)
-            r = dist.get_rank(group)
-            module.weight = nn.Parameter(p.detach()[r * rows:(r + 1) * rows].clone())
-            module.tp_group = group
+        names = [name for name in module._parameters
+                 if not placements[_join(mod_name, name)].is_replicate()]
+        if not names:
+            continue
+        for name in names:
+            rows = module._parameters[name].shape[0] // n
+            shard = module._parameters[name].detach()[r * rows:(r + 1) * rows].clone()
+            module._parameters[name] = nn.Parameter(shard)
+        module.tp_group, module.tp_sharded = group, tuple(names)
     return model
+
+
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
 
 
 def _tp_modules(model: nn.Module):
@@ -107,9 +145,20 @@ def _tp_modules(model: nn.Module):
             if getattr(m, "tp_group", None) is not None]
 
 
+def _sharded(model: nn.Module):
+    """``(full name, module, parameter name)`` of every sharded parameter."""
+    return [(_join(mod_name, name), m, name) for mod_name, m in _tp_modules(model)
+            for name in m.tp_sharded]
+
+
 def sharded_names(model: nn.Module) -> set[str]:
     """The names of the parameters that hold this rank's rows only."""
-    return {f"{name}.weight" if name else "weight" for name, _ in _tp_modules(model)}
+    return {key for key, _, _ in _sharded(model)}
+
+
+def _optimizer_index(optimizer) -> dict:
+    params = (p for g in optimizer.param_groups for p in g["params"])
+    return {id(p): i for i, p in enumerate(params)}
 
 
 @torch.no_grad()
@@ -118,21 +167,41 @@ def full_state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer | None =
     gathered back to its full parameter (the optimizer's per-parameter
     state of a shard too), as the replicated model's would be; a
     collective: every rank of the model group calls it."""
-    mods = dict(_tp_modules(model))
     sd = model.state_dict()
-    for name, m in mods.items():
-        key = f"{name}.weight" if name else "weight"
+    osd = None if optimizer is None else optimizer.state_dict()
+    index = {} if optimizer is None else _optimizer_index(optimizer)
+    for key, m, name in _sharded(model):
         sd[key] = _all_gather(sd[key], m.tp_group, 0)
-    if optimizer is None:
-        return sd, None
-    osd = optimizer.state_dict()
-    params = (p for g in optimizer.param_groups for p in g["params"])
-    index = {id(p): i for i, p in enumerate(params)}
-    for m in mods.values():
-        i = index[id(m.weight)]
-        if i in osd["state"]:  # a new dict: state_dict() shares the live one
+        p = m._parameters[name]
+        i = index.get(id(p))
+        if osd is not None and i in osd["state"]:  # a new dict: state_dict() shares the live one
             osd["state"][i] = {k: (_all_gather(t, m.tp_group, 0) if torch.is_tensor(t)
-                                   and t.shape == m.weight.shape else t)
+                                   and t.shape == p.shape else t)
+                               for k, t in osd["state"][i].items()}
+    return sd, osd
+
+
+def local_state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer | None, sd: dict,
+                      osd: dict | None = None):
+    """The inverse of :func:`full_state_dicts`: from a gathered model
+    ``state_dict`` (keys it lacks are left out) and optimizer ``state_dict``,
+    this rank's rows of every sharded parameter and of its per-parameter
+    optimizer state (Adam's ``exp_avg`` / ``exp_avg_sq``), everything else
+    as it is. No collective: every rank reads the same file."""
+    sd = dict(sd)
+    if osd is not None:
+        osd = dict(osd, state=dict(osd["state"]))
+    index = {} if optimizer is None else _optimizer_index(optimizer)
+    for key, m, name in _sharded(model):
+        if key not in sd:
+            continue
+        full = sd[key].shape
+        n = full[0] // dist.get_world_size(m.tp_group)
+        rows = slice(dist.get_rank(m.tp_group) * n, (dist.get_rank(m.tp_group) + 1) * n)
+        sd[key] = sd[key][rows]
+        i = index.get(id(m._parameters[name]))
+        if osd is not None and i in osd["state"]:
+            osd["state"][i] = {k: (t[rows] if torch.is_tensor(t) and t.shape == full else t)
                                for k, t in osd["state"][i].items()}
     return sd, osd
 

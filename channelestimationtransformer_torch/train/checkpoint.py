@@ -5,9 +5,13 @@ and latest-checkpoint globbing, ``config.py:36-50``).
 A checkpoint holds the model's ``state_dict`` (parameters and BatchNorm
 statistics), the optimizer's, the update count and the epoch, in torch's own
 format (``torch.save``). Writes are atomic (tmp + rename), so an interrupted
-job can always resume from the newest file. The JAX package's flax-msgpack
-checkpoints are not read here: a JAX checkpoint reaches the port through
-``utils/convert.py:from_flax`` on arrays that a caller loaded with flax.
+job can always resume from the newest file. A tensor-parallel model's
+checkpoint holds its gathered parameters and optimizer state, as the
+replicated model's would; loading one into a tensor-parallel model keeps
+each rank's rows (``parallel/tensor.py:local_state_dicts``). The JAX
+package's flax-msgpack checkpoints are not read here: a JAX checkpoint
+reaches the port through ``utils/convert.py:from_flax`` on arrays that a
+caller loaded with flax.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..parallel.tensor import local_state_dicts
 
 
 def checkpoint_path(folder: str, basename: str, epoch) -> str:
@@ -42,11 +48,15 @@ def save_checkpoint(state, folder: str, basename: str, epoch, *,
 
 
 def load_checkpoint(path: str, state):
-    """Restore into ``state`` in place; returns ``(state, epoch, extra)``."""
+    """Restore into ``state`` in place (a tensor-parallel model takes its
+    rows of the gathered parameters and optimizer state); returns
+    ``(state, epoch, extra)``."""
     device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    model_sd, optim_sd = local_state_dicts(state.model, state.optimizer, payload["model"],
+                                           payload["optimizer"])
+    state.model.load_state_dict(model_sd)
+    state.optimizer.load_state_dict(optim_sd)
     state.step = payload["step"]
     return state, payload.get("epoch"), payload.get("extra")
 
@@ -58,11 +68,12 @@ def load_weights_overlay(path: str, model) -> list[str]:
     replaced, the others on either side are left alone (an LSQ model's
     ``step_size``). The JAX package's overlay (``experiments/train_lsq.py:91-108``)
     replaces the parameters only and keeps the BatchNorm statistics of the
-    init. Returns the names replaced."""
+    init. A tensor-parallel model takes its rows of the sharded parameters.
+    Returns the names replaced."""
     device = next(model.parameters()).device
     saved = torch.load(path, map_location=device, weights_only=True)["model"]
     own = model.state_dict()
-    overlay = {k: v for k, v in saved.items() if k in own}
+    overlay, _ = local_state_dicts(model, None, {k: v for k, v in saved.items() if k in own})
     model.load_state_dict(overlay, strict=False)
     return sorted(overlay)
 

@@ -22,10 +22,13 @@ in one all-reduce before the same Adam update on every rank.
 
 Tensor parallelism (``Trainer(mesh=...)`` with a ``model`` axis > 1):
 ``parallel/tensor.py`` keeps each rank's rows of the sharded weights and
-runs their layers column-parallel, so every rank takes the replicated
-model's step on the same batch; checkpoints hold the gathered parameters.
-Sequence parallelism: a model built with ``attn="ring"`` over the mesh's
-``seq`` axis trains through ``parallel/ring.py``'s backward.
+runs their layers column-parallel (or gathers them at use), so every rank
+of a model group takes the replicated model's step on the same batch;
+checkpoints hold the gathered parameters. Sequence parallelism: a model
+built with ``attn="ring"`` over the mesh's ``seq`` axis trains through
+``parallel/ring.py``'s backward. The axes compose: on any ``(data, model,
+seq)`` mesh the data group splits the global batch, and the ranks of one
+model or seq group draw the same windows, noise and dropout.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ..data.windows import WindowDataset, make_batch
 from ..models.encoder import batch_stats_group
 from ..parallel.collectives import all_reduce_grads, all_reduce_sum
 from ..parallel.tensor import full_state_dicts, replicated_grads_equal, tensor_parallel
+from .checkpoint import save_checkpoint
 
 
 def _cosine_decay(init_value: float, decay_steps: int, alpha: float = 0.0):
@@ -237,20 +241,21 @@ class Trainer:
     """Epoch-driven trainer with reference-format logging. ``model`` is a
     port model with its weights, on the datasets' device.
 
-    ``mesh`` (``parallel.make_mesh``): data-parallel training over its
-    ``data`` axis. The training set is shuffled on the host, then each rank
-    keeps its contiguous shard; every rank takes rank 0's weights and runs
-    :func:`train_chunk_dp` at ``batch_size`` / the axis size a rank, drawing
-    from generators keyed by (seed, epoch, batch, rank). Validation runs
-    the whole validation set on every rank, so it gives the numbers of a
-    single process. Only global rank 0 writes checkpoints.
-
-    A ``model`` axis > 1 (with ``data`` and ``seq`` 1) trains tensor
-    parallel: every rank takes model-rank 0's weights and keeps its shards
-    (``parallel/tensor.py``); after each chunk the replicated parameters'
-    gradients are checked equal across the group, and checkpoints hold the
-    gathered parameters and optimizer state. A ring model (``attn="ring"``,
-    built over the mesh) trains over a ``seq`` axis of the same mesh."""
+    ``mesh`` (``parallel.make_mesh``), any ``(data, model, seq)`` mesh
+    over every rank: every rank first takes global rank 0's weights. A
+    ``model`` axis > 1 then keeps each rank's shards (``parallel/tensor.py``),
+    and after each chunk the replicated parameters' gradients are checked
+    equal across the model group. The training set is shuffled on the host,
+    then each rank keeps the contiguous shard of its ``data`` coordinate
+    and runs :func:`train_chunk_dp` at ``batch_size`` / the data axis size
+    a rank, drawing from generators keyed by (seed, epoch, batch, data
+    coordinate): the ranks of one model or seq group draw alike. BatchNorm
+    statistics, the loss's power and the gradients are reduced over the
+    data group. A ring model (``attn="ring"``, built over the mesh) runs
+    its attention over the ``seq`` axis. Validation runs the whole
+    validation set on every rank, so it gives the numbers of a single
+    process. Checkpoints hold the gathered parameters and optimizer state,
+    written by global rank 0 alone (:meth:`save`)."""
 
     model: nn.Module
     cfg: InformerConfig
@@ -263,28 +268,18 @@ class Trainer:
     checkpoint_tag: str = "tmodel_"
 
     def __post_init__(self):
-        self._tp = self.mesh is not None and self._tensor_parallel()
+        self._tp = False
+        if self.mesh is not None:
+            with torch.no_grad():
+                for t in self.model.state_dict().values():
+                    dist.broadcast(t, 0)
+            self._tp = self.mesh["model"].size() > 1
+            tensor_parallel(self.model, self.mesh)
         self.state = create_train_state(self.model, self.train_cfg)
         self._schedule = self.state.schedule
         self._train, self._group, self._rank_key = self.train_data, None, ()
         if self.mesh is not None:
             self._shard_data()
-
-    def _tensor_parallel(self) -> bool:
-        sizes = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
-        if sizes["model"] == 1:
-            return False
-        if sizes["data"] > 1 or sizes["seq"] > 1:
-            raise NotImplementedError(
-                f"mesh {sizes}: tensor parallelism runs with data and seq axes of 1 (two-axis "
-                "parallelism is not ported: ROADMAP Queue 1, standing limits)")
-        group = self.mesh.get_group("model")
-        src = dist.get_global_rank(group, 0)
-        with torch.no_grad():
-            for t in self.model.state_dict().values():
-                dist.broadcast(t, src, group=group)
-        tensor_parallel(self.model, self.mesh)
-        return True
 
     def _shard_data(self):
         tc = self.train_cfg
@@ -305,10 +300,17 @@ class Trainer:
         rank, per = dist.get_rank(group), h.shape[0] // n_data
         self._train = dataclasses.replace(
             self.train_data, h=h[perm[rank * per:(rank + 1) * per].to(h.device)])
-        src = dist.get_global_rank(group, 0)
-        for t in self.model.state_dict().values():
-            dist.broadcast(t, src, group=group)
         self._group, self._rank_key = group, (rank,)
+
+    def save(self, folder: str, basename: str, epoch) -> None:
+        """Write the state as the checkpoint ``<folder>/<basename><epoch>.pt``:
+        with a mesh, the gathered parameters and optimizer state (a
+        collective on every rank), written by global rank 0 alone."""
+        dicts = full_state_dicts(self.model, self.state.optimizer) if self._tp else None
+        if self.mesh is None or dist.get_rank() == 0:
+            save_checkpoint(self.state, folder, basename, epoch, state_dicts=dicts)
+        if self.mesh is not None:
+            dist.barrier()  # the file exists for every rank after
 
     def run_validation(self, generator: torch.Generator, num_batches: int = 8) -> dict:
         """Per-horizon split loss (reference ``run_validation`` semantics, incl.
@@ -388,13 +390,5 @@ class Trainer:
                 # Loss/train is the mean train loss over ALL steps this epoch.
                 self.metrics_writer.log_epoch(epoch, total_loss / steps, val_nmse, val_loss)
             if tc.checkpoint_every_epochs and (epoch + 1) % tc.checkpoint_every_epochs == 0:
-                from .checkpoint import save_checkpoint
-
-                dicts = (full_state_dicts(self.model, self.state.optimizer) if self._tp
-                         else None)
-                if not dist.is_initialized() or dist.get_rank() == 0:
-                    save_checkpoint(self.state, tc.checkpoint_dir, self.checkpoint_tag,
-                                    epoch + 1, state_dicts=dicts)
-                if self.mesh is not None:
-                    dist.barrier()  # the file exists for every rank after
+                self.save(tc.checkpoint_dir, self.checkpoint_tag, epoch + 1)
         return history

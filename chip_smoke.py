@@ -6,8 +6,9 @@ serving, blockwise streaming and the baseline models with their drivers,
 the end-to-end link simulation with its drivers, the scale demo with its
 int8 A/B, the utilities (tracing, timing, memory, complexity, the native
 host library) with the analysis drivers, the calibration and profiling
-drivers, and data-parallel training, ring attention (eval and training) and
-tensor parallelism over NCCL.
+drivers, data-parallel training, ring attention (eval and training) and
+tensor parallelism over NCCL, the two-axis (data x model) mesh, and the
+multi-chip dry run (``cli/multichip.py``).
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
@@ -252,7 +253,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    has 2 or more cards, the same across 2 or 4 ranks: one DP ``_update``
    against one card's on the concatenated batch, the ring with its sequence
    sharded over the ranks, and the tensor-parallel model with its weights
-   sharded over them. One line says which ran.
+   sharded over them. One line says which ran. Then the two-axis part: a
+   probe of gloo with CUDA tensors (2 ranks on one card: all_gather,
+   all_reduce, broadcast, the ring's batched sends), and, on 4 ranks (NCCL
+   with 4 cards, else gloo on the one card where the probe allows), the
+   flagship and the LSQ-fibbinary flagship steps on a data 2 x model 2 mesh
+   against one card's ``_update`` on the whole batch (13 + 13 bd launches a
+   rank; LSQ 72 + 72 codeword on each rank's rows), a 2 x 2 step's ms beside
+   one card's ``train_chunk``, and a ``Trainer`` on the mesh resumed from
+   its gathered checkpoint against the uninterrupted run; then
+   ``cli.multichip`` at n 1 and n 4.
 
 The bd forward's entry in the kernels line also carries the launches of
 the later paths and drivers (``int8_eval_launches``,
@@ -3351,7 +3361,488 @@ def phase_parallel(torch, card):
     secs = ", ".join(f"{runs[w]['seconds']:.1f} s" for w in worlds)
     print(f"parallel: ran NCCL at world 1 {multi}; {cards} card(s) here; {secs} | {card}",
           flush=True)
+    runs["two_axis"] = phase_two_axis(torch, card, folder)
     return runs
+
+
+# The two-axis part of the parallel phase: 4 ranks on a data 2 x model 2 mesh,
+# NCCL where the machine has 4 cards, else gloo on the one card (its collectives
+# through the host) where the probe finds that gloo takes CUDA tensors.
+TWO_AXIS_ROUNDS = 3  # chunks of each path in turns; the first is dropped
+TWO_AXIS_STEPS = 4  # steps a timed chunk
+PROBE_TIMEOUT = 90  # a collective that one rank refuses leaves the other waiting
+LSQ_SHARD_STEP_TOL = 1e-4  # relative; the CPU sees 3.5e-6
+
+
+def phase_two_axis(torch, card, folder):
+    """The LSQ-mode kernel on shards (:func:`phase_lsq_shards`, one card);
+    probe gloo with CUDA tensors (2 ranks on the card: all_gather,
+    all_reduce, broadcast and the ring's batched sends), then run
+    :func:`two_axis_rank` on 4 ranks and ``cli/multichip.py`` at n 1 and
+    n 4 where NCCL (4 cards) or the probe allows; a line says what ran."""
+    from channelestimationtransformer_torch.ops.cuda import quant
+    from channelestimationtransformer_torch.ops.quant import codebooks, lsq
+    from channelestimationtransformer_torch.parallel.launch import run_local
+
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    shards = phase_lsq_shards(torch, quant, lsq, codebooks)
+    probe = {} if cards >= 4 else gloo_probe(run_local, t0)
+    backend = "nccl" if cards >= 4 else "gloo"
+    collectives = cards >= 4 or all(probe[op] == "ok" for op in GLOO_OPS[:3])
+    p2p = cards >= 4 or probe["p2p"] == "ok"
+    run = {"probe": probe, "backend": backend, "cards": cards, "lsq_shards": shards,
+           "four_ranks": collectives}
+    if collectives:
+        t1 = time.perf_counter()
+        path = folder / "two_axis.json"
+        try:
+            outs = run_local([sys.executable, str(pathlib.Path(__file__).resolve()),
+                              "--two-axis-rank", str(path), backend], 4,
+                             timeout=PARALLEL_TIMEOUT)
+        except RuntimeError as e:
+            fail(f"two-axis phase, 4 ranks ({backend}): {e}")
+        print(outs[0], end="", flush=True)
+        result = json.loads(path.read_text())
+        missing = {"step", "lsq_step", "resume"} - result.keys()
+        if missing:
+            fail(f"two-axis phase, 4 ranks ({backend}): no result for {sorted(missing)}")
+        run.update(result, seconds=time.perf_counter() - t1)
+    from channelestimationtransformer_torch.cli import multichip
+
+    run["multichip"] = {}
+    for n in (1, 4):
+        if n == 4 and not (collectives and p2p):
+            continue
+        argv = ["--n-devices", str(n), "--timeout", str(PARALLEL_TIMEOUT)]
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            result = multichip.main(argv)
+        ok = (result["ok"] and math.isfinite(result["train_loss"])
+              and math.isfinite(result["ring_loss"]) and result["ring_grads_finite"]
+              and result["dataset_finite"] and result["h_eff_finite"])
+        print(f"driver phase: cli.multichip --n-devices {n} ({result['backend']}, model axis "
+              f"{result['model_axis']}): {result['seconds']:.1f} s; train loss "
+              f"{result['train_loss']:.6f}, ring loss {result['ring_loss']:.3f}, dataset shard "
+              f"{result['dataset_shard']}, h_eff {result['h_eff']}, finite "
+              f"{ok} {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok or text.getvalue().strip().splitlines()[-1] != json.dumps(result):
+            fail(f"cli.multichip at n {n} failed or printed no result line")
+        run["multichip"][n] = result
+    ran = ("4 ranks (" + backend + (" on one card" if cards < 4 else "") + ")" if collectives
+           else "no 4-rank run (gloo refused CUDA tensors and fewer than 4 cards)")
+    print(f"two-axis phase: {ran}; cli.multichip at n {sorted(run['multichip'])}; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    run["seconds"] = time.perf_counter() - t0
+    return run
+
+
+def two_axis_rank(out_path, backend):
+    """One of 4 ranks on a data 2 x model 2 mesh (``backend``: NCCL on 4
+    cards, gloo on one): the flagship step and the LSQ-fibbinary flagship
+    step against one card's (:func:`_two_axis_step`), then the resume
+    check (:func:`_two_axis_resume`); rank 0 writes the results."""
+    import torch
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.ops.cuda import bd_attention as ops
+    from channelestimationtransformer_torch.ops.cuda import mha_attention as mha
+    from channelestimationtransformer_torch.ops.cuda import quant
+    from channelestimationtransformer_torch.parallel.launch import join_local
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = join_local("cuda", backend=backend)
+    rank = dist.get_rank()
+    wrappers = dict(bd_fwd=ops.bd_attention_fwd, bd_bwd=ops.bd_attention_bwd,
+                    mha=mha.mha_attention_fwd, codeword=quant.fused_nearest_codeword)
+
+    def log(*args, **kwargs):
+        if rank == 0:
+            print(*args, **kwargs)
+
+    result = dict(world=dist.get_world_size(), backend=backend,
+                  card=torch.cuda.get_device_name())
+    result["step"] = _two_axis_step(torch, wrappers, device, log, lsq=False)
+    result["lsq_step"] = _two_axis_step(torch, wrappers, device, log, lsq=True)
+    result["resume"] = _two_axis_resume(torch, device, log)
+    if rank == 0:
+        pathlib.Path(out_path).write_text(json.dumps(result, indent=1))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _two_axis_step(torch, wrappers, device, log, lsq):
+    """One ``_update`` of the flagship (``lsq``: the LSQ-fibbinary flagship;
+    kernels on, dropout 0) on a data 2 x model 2 mesh, the global batch 256
+    split over ``data``, against one card's ``_update`` on the whole batch
+    on rank 0 (max pooling routed as the mesh's): loss, every gradient
+    (shards gathered) and the BatchNorm statistics; the replicated
+    gradients equal across the model group; 13 + 13 bd launches a rank (LSQ:
+    and 72 + 72 codeword, the LSQ mode on the rank's rows). The flagship
+    then times a 2 x 2 chunk beside one card's ``train_chunk`` of the same
+    global batch, in turns."""
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.core.config import InformerConfig, TrainConfig
+    from channelestimationtransformer_torch.data.windows import WindowDataset, make_batch
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.parallel.mesh import make_mesh
+    from channelestimationtransformer_torch.parallel.tensor import (
+        gather_rows,
+        replicated_grads_equal,
+        sharded_names,
+        tensor_parallel,
+    )
+    from channelestimationtransformer_torch.train.trainer import (
+        _update,
+        create_train_state,
+        train_chunk,
+        train_chunk_dp,
+    )
+
+    cfg = (InformerConfig(attn="full", use_pallas=True, lsq_nbits=LSQ_NBITS, lsq_fibbinary=True,
+                          dropout=0.0) if lsq else InformerConfig(use_pallas=True, dropout=0.0))
+    name = "lsq-fibbinary" if lsq else "flagship"
+    mesh = make_mesh(data=2, model=2)
+    dg, mg = mesh.get_group("data"), mesh.get_group("model")
+    d, per, tc = dist.get_rank(dg), 128, TrainConfig(batch_size=256, lr=1e-4)
+    ds = _card_data(torch, cfg.seq_len, cfg.pred_len, samples=4096)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    batch = make_batch(ds, 256, cfg.label_len, generator=gen(8))  # the same on every rank
+    model = tensor_parallel(build_informer(cfg, device=device, seed=0), mesh)
+    state = create_train_state(model, tc)
+    routing = []
+    torch.cuda.synchronize()
+    _zero_counts(wrappers)
+    with _maxpool_routing(torch, routing):
+        metrics = _update(state, *(t[d * per:(d + 1) * per] for t in batch), gen(20), dg)
+    torch.cuda.synchronize()
+    launches = _counts(wrappers)
+    sharded = sharded_names(model)
+    grads = {n: gather_rows(p.grad, mg) if n in sharded else p.grad.clone()
+             for n, p in model.named_parameters()}
+    equal = replicated_grads_equal(model)
+    routes = [_gather_batch(torch, idx, dg) for idx in routing]
+    expected = dict(bd_fwd=13, bd_bwd=13, mha=0, codeword=2 * 72 if lsq else 0)
+    out = dict(launches=launches, sharded=len(sharded), replicated_grads_equal=equal)
+    if dist.get_rank() == 0:
+        single = create_train_state(build_informer(cfg, device=device, seed=0), tc)
+        with _maxpool_routing(torch, routes, replay=True) as flips:
+            m_one = _update(single, *batch, gen(20))
+        want = _grads(single.model)
+        floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+        grad_err = max(_grad_errors(grads, want, floor).values())
+        stats = {k: v for k, v in single.model.state_dict().items() if "running" in k}
+        stat_err = _state_errors(torch, model.state_dict(), stats, "float32")
+        loss = (metrics["loss"].item(), m_one["loss"].item())
+        ok = (abs(loss[0] - loss[1]) <= MAIN_TOL[0] * abs(loss[1]) and grad_err <= GRAD_TOL
+              and stat_err <= MAIN_TOL[1] and equal and launches == expected)
+        log(f"two-axis {name} step (data 2 x model 2, 4 ranks; {len(sharded)} weights sharded, "
+            f"128 windows a data rank, dropout 0) vs one card's _update on the whole 256: loss "
+            f"{loss[0]:.6f} vs {loss[1]:.6f}, gradients (shards gathered) worst {grad_err:.3e} "
+            f"(limit {GRAD_TOL}; max pooling routed as the mesh's, {sum(flips)} windows "
+            f"differ), BatchNorm statistics worst {stat_err:.3e} (limit {MAIN_TOL[1]}); "
+            f"replicated gradients equal across the model group {equal}; launches on rank 0 "
+            f"{_launch_report(launches, expected)} {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the two-axis {name} step disagrees with one card's or launched {launches}")
+        out.update(loss=loss, grad_err=grad_err, stat_err=stat_err)
+    dist.barrier()
+    if lsq:
+        return out
+    rows = ds.num_samples // 2
+    shard = WindowDataset(h=ds.h[d * rows:(d + 1) * rows], seq_len=cfg.seq_len,
+                          pred_len=cfg.pred_len, snr_db=ds.snr_db, device=device)
+    single = create_train_state(build_informer(cfg, device=device, seed=0), tc)
+    times = {"two_axis": [], "single": []}
+    for i in range(TWO_AXIS_ROUNDS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_chunk_dp(state, shard, num_steps=TWO_AXIS_STEPS, per_device_batch=per,
+                       label_len=cfg.label_len, generator=gen(100 + 2 * i + d), group=dg)
+        torch.cuda.synchronize()
+        times["two_axis"].append(time.perf_counter() - t0)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            t0 = time.perf_counter()
+            train_chunk(single, ds, num_steps=TWO_AXIS_STEPS, batch_size=256,
+                        label_len=cfg.label_len, generator=gen(200 + i))
+            torch.cuda.synchronize()
+            times["single"].append(time.perf_counter() - t0)
+    ms = {path: 1e3 * statistics.median(ts[1:]) / TWO_AXIS_STEPS for path, ts in times.items()
+          if ts}
+    if "single" in ms:
+        log(f"two-axis flagship: {ms['two_axis']:.1f} ms a step of the global batch 256 on the "
+            f"data 2 x model 2 mesh (4 ranks), one card's train_chunk {ms['single']:.1f} ms a "
+            f"step (median of {TWO_AXIS_ROUNDS - 1} chunks of {TWO_AXIS_STEPS}, in turns)",
+            flush=True)
+    return dict(out, ms_per_step=ms)
+
+
+# The resume check's limit on Adam's moments (each tensor's max abs
+# difference over its own max abs, floored at 1e-3 of the largest): the
+# sound resume reads far below it (cuDNN's conv backward alone), a resume
+# that lost the moments far above (half of 4 steps' sums), which the check
+# plants and reads in every run.
+MOMENT_TOL = 0.05
+
+
+def _two_axis_resume(torch, device, log):
+    """``Trainer`` on a data 2 x model 2 mesh (the flagship, kernels on,
+    dropout 0.05, 2 steps an epoch): two epochs against one epoch, its
+    gathered checkpoint, ``load_checkpoint`` into a new tensor-parallel
+    Trainer and ``fit(start_epoch=1)``: the last validation NMSE within
+    ``MAIN_TOL``, the parameters within the run's Adam steps times its lr,
+    and Adam's moments (gathered) within ``MOMENT_TOL`` (said: whether bit
+    for bit). A third run resumes with the moments dropped (a planted
+    fault), which the moment check must see."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.core.config import InformerConfig, TrainConfig
+    from channelestimationtransformer_torch.data.windows import WindowDataset
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.parallel.mesh import make_mesh
+    from channelestimationtransformer_torch.parallel.tensor import full_state_dicts
+    from channelestimationtransformer_torch.train.checkpoint import (
+        latest_checkpoint,
+        load_checkpoint,
+    )
+    from channelestimationtransformer_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = InformerConfig(use_pallas=True)
+    mesh = make_mesh(data=2, model=2)
+    ds = _card_data(torch, cfg.seq_len, cfg.pred_len, samples=4096)
+    train, val = (WindowDataset(h=h, seq_len=cfg.seq_len, pred_len=cfg.pred_len,
+                                snr_db=ds.snr_db, device=device) for h in (ds.h[:3584],
+                                                                           ds.h[3584:]))
+    folder = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(folder)
+    tc = TrainConfig(batch_size=256, num_epochs=2, steps_per_epoch=2, log_every=2,
+                     checkpoint_every_epochs=1, checkpoint_dir=folder[0])
+
+    def trainer(tc):
+        return Trainer(build_informer(cfg, device=device, seed=0), cfg, tc, train, val,
+                       mesh=mesh, log=lambda msg: None)
+
+    def resume(path, drop_moments):
+        t = trainer(tc)
+        t.state, epoch, _ = load_checkpoint(path, t.state)
+        step = t.state.step
+        if drop_moments:
+            t.state.optimizer.state.clear()
+        return t, t.fit(start_epoch=1), epoch, step
+
+    whole = trainer(dataclasses.replace(tc, checkpoint_every_epochs=0))
+    hist_whole = whole.fit()
+    trainer(tc).fit(num_epochs=1)
+    path = latest_checkpoint(folder[0], "tmodel_")  # epoch 1's, before the resumed runs write
+    resumed, hist_resumed, epoch, step = resume(path, False)
+    planted, hist_planted, _, _ = resume(path, True)
+    a, ra, pa = (full_state_dicts(t.model, t.state.optimizer)
+                 for t in (whole, resumed, planted))
+    dist.barrier()
+    if dist.get_rank() != 0:
+        return {}
+    shutil.rmtree(folder[0])
+
+    def moments(got, want):
+        """Worst over exp_avg and exp_avg_sq of each tensor's error (see MOMENT_TOL)."""
+        worst = 0.0
+        for key in ("exp_avg", "exp_avg_sq"):
+            g, w = ([st[key] for _, st in sorted(o["state"].items())] for o in (got, want))
+            floor = 1e-3 * max(t.abs().max().item() for t in w)
+            worst = max(worst, max(_grad_errors(dict(enumerate(g)), dict(enumerate(w)),
+                                                floor).values()))
+        return worst
+
+    nmse = (hist_whole[-1]["nmse"], hist_resumed[-1]["nmse"], hist_planted[-1]["nmse"])
+    worst, planted_worst = (_state_errors(torch, b[0], a[0], "float32") for b in (ra, pa))
+    moment, planted_moment = moments(ra[1], a[1]), moments(pa[1], a[1])
+    bits = all(torch.equal(a[0][k], ra[0][k]) for k in a[0]) and nmse[0] == nmse[1]
+    bound = tc.lr * tc.num_epochs * tc.steps_per_epoch
+    ok = (epoch == 1 and step == 2 and worst <= bound and moment <= MOMENT_TOL
+          and abs(nmse[0] - nmse[1]) <= MAIN_TOL[0] * abs(nmse[0]))
+    seen = planted_moment > MOMENT_TOL
+    log(f"two-axis resume (Trainer, data 2 x model 2, flagship, kernels on, dropout 0.05, 2 "
+        f"epochs of 2 steps): resumed at epoch {epoch} from the gathered checkpoint; last "
+        f"validation NMSE {nmse[1]:.6f} vs {nmse[0]:.6f} uninterrupted, parameters worst "
+        f"{worst:.3e} (limit {bound:.0e}), Adam moments worst {moment:.3e} (limit "
+        f"{MOMENT_TOL}), bit for bit {bits}; planted fault (moments dropped on resume): NMSE "
+        f"{nmse[2]:.6f}, parameters {planted_worst:.3e}, moments {planted_moment:.3e}, seen "
+        f"{seen}; {time.perf_counter() - t0:.1f} s {'ok' if ok and seen else 'MISMATCH'}",
+        flush=True)
+    if not ok:
+        fail("the resumed two-axis run does not end where the uninterrupted run ends")
+    if not seen:
+        fail("the resume check does not see a resume that drops Adam's moments")
+    return dict(nmse=nmse, worst=worst, moments=moment, bit_for_bit=bits,
+                planted=dict(worst=planted_worst, moments=planted_moment),
+                seconds=time.perf_counter() - t0)
+
+
+def phase_lsq_shards(torch, quant, lsq, cbm):
+    """The LSQ-fibbinary layer at a model axis of 2 and 4, on one card: each
+    rank's rows of the flagship's three LSQ weight shapes through
+    ``lsq_quantize`` with the whole weight's ``numel`` (the LSQ-mode launch
+    a ``DenseLSQ`` shard makes) against the whole weight's, values and
+    weight gradients bit for bit, the ``step_size`` gradients summed over
+    the ranks within ``LSQ_SHARD_STEP_TOL`` of the whole's (another order of
+    one sum, which cancels ~1e4-fold, as ``tests/test_torch_lsq.py`` says); how
+    many values the shard's own ``numel`` would change is printed."""
+    import numpy as np
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cb_np = np.asarray(cbm.lsq_fibbinary_codebook(LSQ_NBITS))
+    cb = torch.tensor(cb_np, dtype=torch.float32, device="cuda")
+    checks, launches, own_numel, step_err = 0, 0, 0, 0.0
+    for label, shape, _ in LSQ_SHAPES:
+        w = _lsq_weight(torch, np, shape, cb_np, gen).nan_to_num(0.0)
+        cot = torch.randn(shape, generator=gen, device="cuda")
+        for step_value in (LSQ_STEP, LSQ_STEP * 1.37):
+            step = torch.tensor(step_value, device="cuda", requires_grad=True)
+            whole_w = w.clone().requires_grad_()
+            whole = lsq.lsq_quantize(whole_w, step, LSQ_NBITS, cb)
+            (whole * cot).sum().backward()
+            want_step = step.grad.clone()
+            for n in (2, 4):
+                rows = shape[0] // n
+                step_sum = torch.zeros((), device="cuda")
+                for r in range(n):
+                    part = slice(r * rows, (r + 1) * rows)
+                    step.grad = None
+                    shard = w[part].clone().requires_grad_()
+                    quant.fused_nearest_codeword.launches = 0
+                    got = lsq.lsq_quantize(shard, step, LSQ_NBITS, cb, numel=w.numel())
+                    (got * cot[part]).sum().backward()
+                    launches += quant.fused_nearest_codeword.launches
+                    step_sum += step.grad
+                    if not (torch.equal(got, whole[part].detach())
+                            and torch.equal(shard.grad, whole_w.grad[part])):
+                        fail(f"LSQ mode on rows {part} of {label} (model axis {n}) differs from "
+                             "the whole weight's rows")
+                    with torch.no_grad():
+                        own = lsq.lsq_quantize(w[part], step, LSQ_NBITS, cb)
+                    own_numel += int((own != whole[part]).sum())
+                    checks += 1
+                step_err = max(step_err, ((step_sum - want_step).abs()
+                                          / want_step.abs().clamp_min(1e-30)).item())
+    ok = step_err <= LSQ_SHARD_STEP_TOL
+    print(f"codeword lsq mode on shards (model axis 2 and 4, {len(LSQ_SHAPES)} shapes x 2 step "
+          f"sizes, nbits {LSQ_NBITS}): {checks} shards' values and weight gradients = the whole "
+          f"weight's rows bit for bit; step_size gradients summed over the shards within "
+          f"{step_err:.2e} of the whole's (limit {LSQ_SHARD_STEP_TOL}); {launches} codeword "
+          f"launches (forward and backward); with the shard's own numel {own_numel} values "
+          f"would differ "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the step_size gradient of LSQ shards does not sum to the whole weight's")
+    return dict(shards=checks, launches=launches, step_rel_err=step_err,
+                own_numel_differs=own_numel)
+
+
+GLOO_OPS = ("all_gather", "all_reduce", "broadcast", "p2p")
+# gloo's own answer to a CUDA tensor it does not take: an error that names
+# gloo or the device type, or a rank ended by an uncaught exception of
+# gloo's C++ code (std::terminate's "what():" and gloo's source path; this
+# torch's batched sends end so). The peer's "Connection closed" that
+# follows any death is neither.
+GLOO_REFUSAL = re.compile(r"gloo|device type|CUDA tensor", re.I)
+GLOO_ABORT = re.compile(r"what\(\):\s+\[[^\]]*[/\\]gloo[/\\]")
+
+
+def gloo_probe(run_local, t0):
+    """Whether gloo takes CUDA tensors for each op of :data:`GLOO_OPS`, from
+    :func:`gloo_probe_rank` on 2 ranks of the card: ``{op: "ok" | "refused"
+    | "not tried"}``, and a line that says so. An op is refused only where
+    it started and then raised gloo's error, or a rank died inside it with
+    gloo's transport abort (the ops after it are then not tried). Anything
+    else (no op started, a wrong value, another error, a timeout) fails the
+    phase."""
+    argv = [sys.executable, str(pathlib.Path(__file__).resolve()), "--gloo-probe-rank"]
+    try:
+        text, died = "".join(run_local(argv, 2, timeout=PROBE_TIMEOUT)), None
+    except RuntimeError as e:  # the ranks' outputs follow the first line
+        head, _, text = str(e).partition("\n")
+        died = head
+    verdict = dict.fromkeys(GLOO_OPS, "not tried")
+    last = None  # the op that rank 0 started last
+    for op, what in re.findall(r"^probe (\w+) (start|True|refused|wrong)", text, re.M):
+        if what == "wrong":
+            fail(f"gloo probe: {op} on CUDA tensors gave wrong values:\n{text}")
+        if what == "start":
+            last, verdict[op] = op, "no answer"
+        else:
+            verdict[op] = "ok" if what == "True" else "refused"
+    if died is not None:  # a rank that dies in gloo's transport takes its peer with it
+        abort = next((line.strip() for line in text.splitlines() if GLOO_ABORT.search(line)),
+                     None)
+        if last is None or verdict[last] == "ok" or abort is None:
+            fail(f"gloo probe failed, and not by gloo refusing an op it had started "
+                 f"({died}):\n{text}")
+        verdict[last], died = "refused", abort
+    elif set(verdict.values()) - {"ok", "refused"}:
+        fail(f"gloo probe ended without an answer for every op:\n{text}")
+    print("two-axis: gloo with CUDA tensors on one card (2 ranks): "
+          + ", ".join(f"{op} {v}" for op, v in verdict.items())
+          + (f"; a rank died in {last}: {died}" if died else "")
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return dict(verdict, died=died)
+
+
+def gloo_probe_rank():
+    """One of 2 gloo ranks on the card: each op of :data:`GLOO_OPS` on CUDA
+    tensors, its values checked. Rank 0 prints ``probe <op> start`` before
+    each and then ``True``, ``wrong`` (values off) or ``refused`` (gloo's
+    error, :data:`GLOO_REFUSAL`); any other error ends the rank."""
+    import torch
+    import torch.distributed as dist
+
+    from channelestimationtransformer_torch.parallel.launch import join_local
+
+    device = join_local("cuda", backend="gloo")
+    r, n = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(r + 1), device=device)
+    for op in GLOO_OPS:
+        if r == 0:
+            print(f"probe {op} start", flush=True)
+        try:
+            if op == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(n)]
+                dist.all_gather(parts, x)
+                ok = all(float(p[0]) == i + 1 for i, p in enumerate(parts))
+            elif op == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                ok = float(y[0]) == n * (n + 1) / 2
+            elif op == "broadcast":
+                y = x.clone()
+                dist.broadcast(y, 0)
+                ok = float(y[0]) == 1.0
+            else:
+                y = torch.empty_like(x)
+                reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, (r + 1) % n),
+                                               dist.P2POp(dist.irecv, y, (r - 1) % n)])
+                for req in reqs:
+                    req.wait()
+                ok = float(y[0]) == (r - 1) % n + 1
+            torch.cuda.synchronize()
+            answer = "True" if ok else "wrong"
+        except RuntimeError as e:
+            if not GLOO_REFUSAL.search(str(e)):
+                raise
+            answer = f"refused: {str(e).splitlines()[0]}"
+        if r == 0:
+            print(f"probe {op} {answer}", flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def _state_errors(torch, got, want, dtype):
@@ -3857,6 +4348,11 @@ def main(argv):
 
     if "--parallel-rank" in argv:
         return parallel_rank(argv[argv.index("--parallel-rank") + 1])
+    if "--gloo-probe-rank" in argv:
+        return gloo_probe_rank()
+    if "--two-axis-rank" in argv:
+        i = argv.index("--two-axis-rank")
+        return two_axis_rank(argv[i + 1], argv[i + 2])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs on a CUDA card")
     from channelestimationtransformer_torch.ops.cuda import _build
@@ -4032,9 +4528,10 @@ def main(argv):
     # The calibration and profiling drivers, cut short.
     driver_phase = phase_drivers(torch, wrappers, card)
 
-    # Data parallelism over NCCL, the ring (eval and training) and tensor
-    # parallelism, in subprocesses of this script.
+    # Data parallelism over NCCL, the ring (eval and training), tensor
+    # parallelism and the two-axis mesh, in subprocesses of this script.
     parallel = phase_parallel(torch, card)
+    two_axis = parallel.pop("two_axis")
 
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
     bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]  # noqa: E731
@@ -4143,6 +4640,12 @@ def main(argv):
         for kernel, key in ((kernels[0], "bd_fwd"), (kernels[1], "bd_bwd")):
             kernel[f"ring_train_launches_world{world}"] = run["ring_train"]["launches"][key]
             kernel[f"tp_train_launches_world{world}"] = run["tensor_parallel"]["launches"][key]
+    # The two-axis phase's, rank 0's count of one step (data 2 x model 2),
+    # where its 4 ranks could run (phase_two_axis fails a run without them).
+    for kernel, key in ((kernels[0], "bd_fwd"), (kernels[1], "bd_bwd"), (kernels[4], "codeword")):
+        for step in ("step", "lsq_step"):
+            kernel[f"two_axis_{step}_launches"] = (two_axis[step]["launches"][key]
+                                                   if two_axis["four_ranks"] else None)
     # The drivers phase's, summed over the eight drivers.
     for kernel, key in zip(kernels, ("bd_fwd", "bd_bwd", "mha", "fixed", "codeword")):
         kernel["drivers16_launches"] = sum(run["launches"][key]
@@ -4164,7 +4667,7 @@ def main(argv):
         baselines=baselines, comparison_informer_batch=cmp_batch,
         comparison_informer_train_path=cmp_train_path, serving_drivers=serving_drivers,
         link=link, e2e_drivers=e2e, scale_demo=scale, int8_scale_ab=int8_ab, analysis=analysis,
-        drivers16=driver_phase, parallel=parallel,
+        drivers16=driver_phase, parallel=parallel, two_axis=two_axis,
         kernels=kernels),
         indent=1))
     print(card, flush=True)

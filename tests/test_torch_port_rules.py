@@ -100,7 +100,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "parallel/tensor.py", "cli/calibrate_channel.py", "cli/calibrate_fast.py",
                    "cli/prob_crossover.py", "cli/prob_profile.py", "cli/step_profile.py",
                    "cli/perf_study.py", "cli/interleaved_ab.py", "cli/pallas_ab.py",
-                   "cli/channel_spread.py"):
+                   "cli/channel_spread.py", "cli/multichip.py"):
         assert f"channelestimationtransformer_torch/{module}" in names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
@@ -280,3 +280,119 @@ def test_build_is_seeded():
     w = build_informer(InformerConfig(), device="cpu").state_dict()[
         "encoder.encoder_0.layer_0.attention.query.weight"]
     assert abs(w.std().item() - (1 / 128) ** 0.5) < 0.1 * (1 / 128) ** 0.5
+
+
+def test_multichip_runs_on_the_card_unless_asked(monkeypatch):
+    """``cli/multichip.py`` raises without a card before it starts a rank,
+    and its ``entry`` too; asked for the CPU, ``entry`` gives the flagship
+    forward at batch 8 (``__graft_entry__.py:entry``'s shapes)."""
+    from channelestimationtransformer_torch.cli import multichip
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        m.setattr(multichip.launch, "run_local",
+                  lambda *a, **k: pytest.fail("a rank was started"))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            multichip.main(["--n-devices", "1"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            multichip.entry()
+    fn, (model, x_enc, x_dec) = multichip.entry("cpu")
+    cfg = InformerConfig()
+    assert x_enc.shape == (8, cfg.seq_len, cfg.enc_in) and x_dec.shape == (8, cfg.dec_len,
+                                                                            cfg.dec_in)
+    out = fn(model, x_enc, x_dec)
+    assert out.shape == (8, cfg.pred_len, cfg.c_out) and bool(torch.isfinite(out).all())
+    assert [multichip.model_axis(n) for n in (1, 2, 3, 4, 6, 8)] == [1, 1, 1, 2, 2, 2]
+
+
+class _FakeMesh:
+    """A ``(data, model, seq)`` mesh of the given sizes seen from its first
+    rank, with no process group behind its axes (no collective runs)."""
+
+    def __init__(self, **sizes):
+        self.sizes = sizes
+        self.mesh_dim_names = ("data", "model", "seq")
+        self.shape = tuple(sizes[a] for a in self.mesh_dim_names)
+
+    def __getitem__(self, axis):
+        return type("Axis", (), {"size": lambda _: self.sizes[axis]})()
+
+    def get_group(self, axis):
+        return ("fake", axis)
+
+
+@pytest.fixture
+def fake_axes(monkeypatch, world_of_one):
+    """``dist.get_world_size`` / ``get_rank`` answer for a fake mesh's axes
+    (rank 0 of each); a real group of one stands behind everything else."""
+    import torch.distributed as dist
+
+    size, rank = dist.get_world_size, dist.get_rank
+    sizes = {}
+
+    def fake_size(group=None):
+        return sizes[group[1]] if isinstance(group, tuple) else size(group)
+
+    monkeypatch.setattr(dist, "get_world_size", fake_size)
+    monkeypatch.setattr(dist, "get_rank",
+                        lambda group=None: 0 if isinstance(group, tuple) else rank(group))
+
+    def mesh(**kw):
+        sizes.update(kw)
+        return _FakeMesh(**kw)
+    return mesh
+
+
+def test_every_model_takes_a_model_axis(fake_axes):
+    """Tensor parallelism at model 2 raises for no model the port builds
+    (the Informer, the InformerStack, fused QKV, LSQ and LSQ-fibbinary, the
+    Transformer, the RNN, GRU and LSTM predictors): every weight
+    ``param_shardings`` shards keeps half its rows, in a column-parallel
+    layer or one that gathers it at use."""
+    from channelestimationtransformer_torch.models.informer_lsq import build_informer_lsq
+    from channelestimationtransformer_torch.parallel.sharding import param_shardings
+    from channelestimationtransformer_torch.parallel.tensor import sharded_names, tensor_parallel
+
+    small = dict(seq_len=16, label_len=4, pred_len=2, d_model=16, n_heads=2, e_layers=(2, 1),
+                 d_layers=1, d_ff=16)
+    models = {
+        "informer": build_informer(InformerConfig(**dict(small, e_layers=2)), device="cpu"),
+        "stack": build_informer(InformerConfig(**small), device="cpu"),
+        "fused": build_informer(InformerConfig(**small, fuse_qkv=True), device="cpu"),
+        "lsq": build_informer_lsq(InformerConfig(**small), nbits=8, device="cpu"),
+        "lsq_fibbinary": build_informer_lsq(InformerConfig(**small), nbits=8, fibbinary=True,
+                                            device="cpu"),
+        "transformer": build_transformer(TransformerConfig(d_model=16, n_heads=2, d_ff=16),
+                                         device="cpu"),
+        **{cell: build_recurrent(RecurrentConfig(input_size=8, hidden_size=8, cell=cell),
+                                 device="cpu") for cell in ("rnn", "gru", "lstm")},
+    }
+    mesh = fake_axes(data=1, model=2, seq=1)
+    for name, model in models.items():
+        full = {n: p.shape for n, p in model.named_parameters()}
+        want = {n for n, p in param_shardings(model, mesh).items() if not p.is_replicate()}
+        tensor_parallel(model, mesh)
+        assert sharded_names(model) == want and want, name
+        for n, p in model.named_parameters():
+            rows = full[n][0] // 2 if n in want else full[n][0] if full[n] else None
+            assert (p.shape[0] if p.ndim else None) == rows, (name, n)
+
+
+def test_trainer_takes_a_two_axis_mesh(fake_axes):
+    """``Trainer`` takes a data 2 x model 2 mesh (it raised before tensor
+    parallelism composed with the other axes): the model keeps its shards,
+    the training set its data coordinate's half, and the optimizer holds
+    the shards."""
+    from channelestimationtransformer_torch.core.config import TrainConfig
+    from channelestimationtransformer_torch.parallel.tensor import sharded_names
+    from channelestimationtransformer_torch.train.trainer import Trainer
+
+    cfg = InformerConfig(seq_len=16, label_len=4, pred_len=2, d_model=16, n_heads=2,
+                         e_layers=(1,), d_layers=1, d_ff=16)
+    data = [WindowDataset(h=torch.zeros(n, 20, 16), seq_len=16, pred_len=2, snr_db=20.0,
+                          device="cpu") for n in (8, 2)]
+    t = Trainer(build_informer(cfg, device="cpu"), cfg, TrainConfig(batch_size=4), *data,
+                mesh=fake_axes(data=2, model=2, seq=1), log=lambda msg: None)
+    assert t._tp and t._train.h.shape[0] == 4 and sharded_names(t.model)
+    held = {id(p) for g in t.state.optimizer.param_groups for p in g["params"]}
+    assert held == {id(p) for p in t.model.parameters()}

@@ -12,6 +12,7 @@ checks what it can alone with ``assert``: a failing rank exits non-zero and
 the outputs with the JAX package in their own process.
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -553,6 +554,338 @@ def trainer_resume(inputs, initialized):
     else:
         raise AssertionError("batch 3 on 2 ranks was accepted")
     return {"nmse": hist_a[-1]["nmse"], "refused": refused}
+
+
+# --- two axes, every model under tensor parallelism, resuming, the dry run --------------
+
+
+def _sgd_state(model):
+    from channelestimationtransformer_torch.train.trainer import TrainState
+
+    return TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=1.0),
+                      schedule=lambda count: 1.0)
+
+
+def _mesh_step(cfg, state_dict, batch, mesh, *, ring=False):
+    """One ``_update`` (SGD at lr 1) over ``mesh``: global rank 0's weights,
+    the parameters sharded over its model axis, this rank's ``data`` part of
+    the global ``batch`` (a ring model built over the mesh when ``ring``).
+    Returns the model, the step's metrics and the gathered state dict."""
+    from channelestimationtransformer_torch.parallel.tensor import (
+        full_state_dicts,
+        replicated_grads_equal,
+        tensor_parallel,
+    )
+    from channelestimationtransformer_torch.train.trainer import _update
+
+    model = build_informer(cfg, device="cpu", mesh=mesh if ring else None)
+    model.load_state_dict(state_dict)
+    tensor_parallel(model, mesh)
+    group = mesh.get_group("data")
+    d, per = dist.get_rank(group), batch[0].shape[0] // dist.get_world_size(group)
+    metrics = _update(_sgd_state(model), *(t[d * per:(d + 1) * per] for t in batch),
+                      torch.Generator().manual_seed(0), group)
+    assert replicated_grads_equal(model)
+    return model, metrics, full_state_dicts(model)[0]
+
+
+@case
+def dp_tp_update(inputs, initialized):
+    """One ``_update`` on a data 2 x model 2 mesh: each rank its data
+    coordinate's half of the global batch of the small stack (distil on),
+    its rows of the sharded weights; the loss and the gathered state after
+    the step, the same on every rank."""
+    mesh = make_mesh(data=2, model=2)
+    _, metrics, state = _mesh_step(InformerConfig(**inputs["tp_cfg"]), inputs["tp_state_False"],
+                                   inputs["tp2d_batch"], mesh)
+    assert _replicated(torch.cat([t.reshape(-1).float() for t in state.values()]))
+    return {"loss": float(metrics["loss"]), "state": state}
+
+
+@case
+def seq_axes(inputs, initialized):
+    """The ring Informer (distil off) on model 2 x seq 2 and on data 2 x
+    seq 2 against the full model's replicated step on the global batch: the
+    loss and every parameter after the step (SGD at lr 1)."""
+    batch = inputs["ring_batch"]
+    full, m_full = _sgd_step(InformerConfig(**inputs["ring_cfg"]), inputs["ring_state"], batch)
+    full = full.state_dict()
+    out = {}
+    for axes in (dict(data=1, model=2, seq=2), dict(data=2, model=1, seq=2)):
+        ring_cfg = InformerConfig(**inputs["ring_cfg"], attn="ring")
+        _, metrics, state = _mesh_step(ring_cfg, inputs["ring_state"], batch, make_mesh(**axes),
+                                       ring=True)
+        assert torch.allclose(metrics["loss"], m_full["loss"], rtol=2e-4), (axes, metrics)
+        _params_close(state, full)
+        out["x".join(str(v) for v in axes.values())] = {"loss": float(metrics["loss"]),
+                                                        "state": state}
+    return out
+
+
+def _tp_trainer(cfg, tc, data, mesh, **kw):
+    from channelestimationtransformer_torch.train.trainer import Trainer
+
+    return Trainer(build_informer(cfg, device="cpu", seed=0), cfg, tc, *data, mesh=mesh,
+                   log=lambda msg: None, **kw)
+
+
+@case
+def trainer_2d_resume(inputs, initialized):
+    """``Trainer`` on a data 2 x model 2 mesh, dropout 0.1: two epochs
+    against one epoch, its gathered checkpoint, ``load_checkpoint`` into a
+    new tensor-parallel Trainer and ``fit(start_epoch=1)``: the histories
+    and the parameters bit for bit. Then ``cli/train_informer.py`` on the
+    mesh: two epochs against one and ``--resume``, bit for bit."""
+    import tempfile
+
+    from channelestimationtransformer_torch.cli import train_informer
+    from channelestimationtransformer_torch.data.windows import WindowDataset
+    from channelestimationtransformer_torch.train.checkpoint import (
+        latest_checkpoint,
+        load_checkpoint,
+    )
+
+    mesh = make_mesh(data=2, model=2)
+    cfg = InformerConfig(**dict(inputs["tp_cfg"], dropout=0.1))
+    h = torch.randn(8, 40, 16, generator=torch.Generator().manual_seed(3))
+    data = [WindowDataset(h=x, seq_len=cfg.seq_len, pred_len=cfg.pred_len, snr_db=20.0,
+                          device="cpu") for x in (h[:6].repeat(2, 1, 1), h[6:])]
+    folder = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(folder)
+    tc = TrainConfig(batch_size=4, num_epochs=2, steps_per_epoch=2, log_every=2,
+                     checkpoint_every_epochs=1, checkpoint_dir=folder[0])
+    whole = _tp_trainer(cfg, dataclasses.replace(tc, checkpoint_every_epochs=0), data, mesh)
+    hist_whole = whole.fit()
+    _tp_trainer(cfg, tc, data, mesh).fit(num_epochs=1)
+    resumed = _tp_trainer(cfg, tc, data, mesh)
+    resumed.state, epoch, _ = load_checkpoint(latest_checkpoint(folder[0], "tmodel_"),
+                                              resumed.state)
+    assert epoch == 1 and resumed.state.step == 2
+    hist_resumed = resumed.fit(start_epoch=1)
+    assert [e["nmse"] for e in hist_whole[1:]] == [e["nmse"] for e in hist_resumed]
+    a, b = whole.model.state_dict(), resumed.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    for p, q in zip(whole.state.optimizer.state.values(), resumed.state.optimizer.state.values()):
+        assert all(torch.equal(p[k], q[k]) for k in p)
+
+    argv = ["--device", "cpu", "--d-model", "32", "--n-heads", "4", "--d-ff", "32",
+            "--e-layers", "2", "1", "--d-layers", "1", "--seq-len", "24", "--label-len", "6",
+            "--batch-size", "4", "--steps-per-epoch", "2", "--log-every", "2",
+            "--train-samples", "16", "--val-samples", "8", "--num-slots", "40",
+            "--checkpoint-every", "1"]
+    runs = {}
+    for name, steps in (("whole", [["--epochs", "2"]]),
+                        ("resumed", [["--epochs", "1"], ["--epochs", "2", "--resume"]])):
+        for extra in steps:
+            runs[name] = train_informer.main(argv + extra + ["--out", f"{folder[0]}/{name}"],
+                                             mesh=mesh)
+    assert runs["whole"]["history_nmse"][1:] == runs["resumed"]["history_nmse"]
+    return {"nmse": [e["nmse"] for e in hist_whole], "cli": runs["whole"]["history_nmse"]}
+
+
+@case
+def tp_lsq(inputs, initialized):
+    """The small LSQ-fibbinary stack (use_pallas: the wrappers' plain
+    versions here) at model 2 against the replicated model: one ``_update``
+    (SGD at lr 1), each shard's gradient its rows of the replicated one,
+    every ``step_size`` gradient summed over the group, the replicated
+    gradients equal on both ranks bit for bit; ``reset_step_size`` on the
+    shards gives the replicated value. Returns the loss and every gradient,
+    gathered."""
+    from channelestimationtransformer_torch.models.informer_lsq import build_informer_lsq
+    from channelestimationtransformer_torch.ops.quant import DenseLSQ
+    from channelestimationtransformer_torch.parallel.tensor import (
+        gather_rows,
+        replicated_grads_equal,
+        sharded_names,
+        tensor_parallel,
+    )
+    from channelestimationtransformer_torch.train.trainer import _update
+
+    cfg = InformerConfig(**inputs["lsq_cfg"], use_pallas=True)
+    models = {}
+    for path in ("tp", "replicated"):
+        model = build_informer_lsq(cfg, nbits=8, fibbinary=True, device="cpu")
+        model.load_state_dict(inputs["lsq_state"])
+        if path == "tp":
+            tensor_parallel(model, _tp_mesh())
+        metrics = _update(_sgd_grads(model), *inputs["lsq_batch"],
+                          torch.Generator().manual_seed(0))
+        models[path] = (model, float(metrics["loss"]))
+    tp, rep = models["tp"][0], models["replicated"][0]
+    assert replicated_grads_equal(tp)
+    sharded = sharded_names(tp)
+    layers = {n: m for n, m in tp.named_modules() if isinstance(m, DenseLSQ)}
+    assert len(layers) == 28 and all(m.tp_group is not None for m in layers.values())
+    group = next(iter(layers.values())).tp_group
+    grads = {}
+    for (name, p), q in zip(tp.named_parameters(), rep.parameters()):
+        g = gather_rows(p.grad, group) if name in sharded else p.grad
+        assert torch.allclose(g, q.grad, rtol=2e-4, atol=2e-5), name
+        grads[name] = g
+    replicated = dict(rep.named_modules())
+    for name, m in layers.items():
+        m.reset_step_size()  # from the whole weight, gathered
+        replicated[name].reset_step_size()
+        assert torch.equal(m.step_size, replicated[name].step_size), name
+    return {"loss": models["tp"][1], "grads": grads}
+
+
+@case
+def train_lsq_tp(inputs, initialized):
+    """``cli/train_lsq.py`` (shrunken widths, random windows, one step) on a
+    model axis of 2 against the same run on a mesh of the same draws with
+    nothing sharded:
+    each rank overlays its rows of the gathered FP32 checkpoint; the
+    result and the checkpoint (gathered, written by rank 0) agree."""
+    import functools
+    import json
+    import tempfile
+
+    from channelestimationtransformer_torch.cli import train_lsq
+    from channelestimationtransformer_torch.train.checkpoint import save_checkpoint
+    from channelestimationtransformer_torch.train.trainer import create_train_state
+
+    from channelestimationtransformer_torch.data.windows import WindowDataset
+
+    def windows(key, *, num_samples, num_slots, seq_len, pred_len, snr_db, device, model):
+        """Random windows in place of the CDL data (the ranks draw alike)."""
+        h = torch.randn(min(num_samples, 64), num_slots, 16,
+                        generator=torch.Generator().manual_seed(key))
+        return WindowDataset(h=h, seq_len=seq_len, pred_len=pred_len, snr_db=snr_db,
+                             device=device)
+
+    cfg = dict(d_model=16, n_heads=2, e_layers=(2, 1), d_layers=1, d_ff=16)
+    train_lsq.InformerConfig = functools.partial(InformerConfig, **cfg)
+    train_lsq.make_window_dataset = windows
+    folder = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(folder)
+    if dist.get_rank() == 0:
+        fp32 = build_informer(InformerConfig(**cfg), device="cpu", seed=1)
+        save_checkpoint(create_train_state(fp32, TrainConfig()), folder[0], "fp32_", 1)
+    dist.barrier()
+    argv = ["--device", "cpu", "--fibbinary", "--nbits-min", "8", "--nbits-max", "8",
+            "--epochs", "1", "--steps-per-epoch", "1", "--train-samples", "64", "--calibrated",
+            "--checkpoint", f"{folder[0]}/fp32_1.pt"]
+    runs = {}
+    for name, mesh in (("tp", _tp_mesh()),
+                       ("replicated", make_mesh(data=1, model=1, seq=dist.get_world_size()))):
+        runs[name] = train_lsq.main(argv + ["--out", f"{folder[0]}/{name}"], mesh=mesh)
+    a, b = (runs[k]["lsqfib_n8"]["final_val_nmse"] for k in ("tp", "replicated"))
+    assert _close_lists([a], [b]), (a, b)
+    if dist.get_rank() == 0:
+        saved = {k: torch.load(f"{folder[0]}/{k}/lsqfib_n8_1.pt", weights_only=True)["model"]
+                 for k in runs}
+        _trained_close(saved["tp"], saved["replicated"],
+                       TrainConfig(lr=1e-4, num_epochs=1, steps_per_epoch=1))
+        on_disk = json.loads(open(f"{folder[0]}/tp/lsq_fibbinary_results.json").read())
+        assert on_disk["lsqfib_n8"] == runs["tp"]["lsqfib_n8"]
+    return {"nmse": a}
+
+
+def _sgd_grads(model):
+    """A state whose optimizer leaves the parameters as they are (lr 0)."""
+    from channelestimationtransformer_torch.train.trainer import TrainState
+
+    return TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=0.0),
+                      schedule=lambda count: 0.0)
+
+
+@case
+def tp_baselines(inputs, initialized):
+    """The Transformer, the LSTM, GRU and RNN predictors (flax's weights
+    from the inputs) and a quantized ``ConvLSQ`` (k 3, fibbinary) at model
+    2 against the replicated model with the same weights: the forward
+    (eval; the recurrent ones' rollout too), then one SGD step at lr 1 on
+    an NMSE loss (dropout 0): the loss, each shard against its rows of the
+    replicated parameters, the replicated gradients equal on both ranks bit
+    for bit. Returns each model's eval output (and rollout), loss and
+    gradients, gathered, for the JAX side."""
+    from channelestimationtransformer_torch.core.config import RecurrentConfig, TransformerConfig
+    from channelestimationtransformer_torch.core.metrics import nmse
+    from channelestimationtransformer_torch.models import build_recurrent, build_transformer
+    from channelestimationtransformer_torch.parallel.tensor import (
+        full_state_dicts,
+        gather_rows,
+        replicated_grads_equal,
+        sharded_names,
+        tensor_parallel,
+    )
+
+    x = inputs["baselines"]["x"]
+    cfgs, states = inputs["baselines"]["cfgs"], inputs["baselines"]["states"]
+
+    def loaded(model, name):
+        model.load_state_dict(states[name])
+        return model
+
+    builders = {
+        "transformer": (lambda: loaded(build_transformer(TransformerConfig(
+            **cfgs["transformer"]), device="cpu"), "transformer"),
+            lambda m: m(x["x_enc"], x["x_dec"]), lambda out: nmse(out, x["target"])),
+        **{cell: (lambda cell=cell: loaded(build_recurrent(RecurrentConfig(
+            **cfgs["recurrent"], cell=cell), device="cpu"), cell),
+            lambda m: m(x["seq"]), lambda out: nmse(out[:, 1:], x["seq"][:, 1:]))
+           for cell in ("lstm", "gru", "rnn")},
+        "conv_lsq": (_conv_lsq, lambda m: m(x["seq"]), lambda out: nmse(out, x["seq"])),
+    }
+    out = {}
+    for name, (build, forward, loss_fn) in builders.items():
+        rep, tp = build(), build()
+        mesh = _tp_mesh()
+        tensor_parallel(tp, mesh)
+        sharded = sharded_names(tp)
+        assert sharded, name
+        got = {}
+        with torch.no_grad():
+            got["out"] = forward(tp)
+            assert torch.allclose(got["out"], forward(rep), rtol=2e-4, atol=2e-5), name
+            if hasattr(rep, "rollout"):
+                got["rollout"] = tp.rollout(x["seq"], 4)
+                assert torch.allclose(got["rollout"], rep.rollout(x["seq"], 4), rtol=2e-4,
+                                      atol=2e-5), name
+        losses = []
+        for m in (tp, rep):
+            m.train()
+            state = _sgd_state(m)
+            loss = loss_fn(forward(m))
+            loss.backward()
+            if m is tp:
+                got["grads"] = {n: gather_rows(p.grad, mesh.get_group("model"))
+                                if n in sharded else p.grad.clone()
+                                for n, p in tp.named_parameters()}
+            state.optimizer.step()
+            losses.append(float(loss))
+        assert abs(losses[0] - losses[1]) <= 2e-4 * abs(losses[1]), (name, losses)
+        assert replicated_grads_equal(tp), name
+        _params_close(full_state_dicts(tp)[0], rep.state_dict())
+        out[name] = dict(got, loss=losses[0], sharded=sorted(sharded))
+    return out
+
+
+def _conv_lsq():
+    """A ConvLSQ (16 -> 16 channels, k 3, 6 bits, fibbinary) with seeded weights."""
+    from channelestimationtransformer_torch.ops.quant import ConvLSQ
+
+    m = ConvLSQ(16, 16, 3, nbits=6, quantize=True, fibbinary=True, use_pallas=True)
+    m.reset_parameters(torch.Generator().manual_seed(3))
+    return m
+
+
+@case
+def multichip(inputs, initialized):
+    """``cli/multichip.py`` on every rank: its three legs with the JAX dry
+    run's weights and draws (dropout 0 in the training step), and the dry
+    run itself with its own."""
+    from channelestimationtransformer_torch.cli import multichip as mc
+
+    n = dist.get_world_size()
+    train = mc.train_leg(n, "cpu", state_dict=inputs["mc_train_state"],
+                         draws=inputs["mc_draws"], dropout=0.0)
+    ring = mc.ring_leg(n, "cpu", state_dict=inputs["mc_ring_state"])
+    pipe = mc.pipeline_leg(n, "cpu", train["mesh"], h=inputs["mc_h"])
+    return {"train": {k: train[k] for k in ("loss", "state", "grads")},
+            "ring": ring, "pipeline": pipe, "dryrun": mc.dryrun_multichip(n, "cpu")}
 
 
 def spawn(folder, cases, nprocs, inputs=None, timeout=300.0):
