@@ -4,7 +4,8 @@
 
 Builds each of ``csrc/mha_attention_fwd.cu``, ``csrc/bd_attention_fwd.cu``
 and ``csrc/bd_attention_bwd.cu`` as it is and with one part cut out, and
-times every build on the path's calls (f32, random inputs): the ``xl``
+times every build on the path's calls (random inputs; the bd kernels in f32
+and bf16, mha in f32): the ``xl``
 encoder's L 256 and L 128 mha calls (B 64, H 8, E 128), the flagship's
 forward calls with dropout 0.05 and the lse (B 256, H 8, E 16: the encoder's
 L 90, 45, 23 and 12, the decoder's causal 15 and its 15 x 24 cross call)
@@ -14,7 +15,7 @@ cut part costs where it does not overlap the rest:
 
 - mha ``no_mma``: no Q K^T and no P V (loads, softmax and stores remain);
 - mha ``no_prefetch``: the next K/V tile is not copied (the first is);
-- fwd ``no_mma``: no S and no P V products;
+- fwd ``no_mma``: no S and no P V products (both dtypes);
 - fwd ``no_dropout_bits``: no Philox calls (every key kept);
 - fwd ``three_blocks``: not a cut: registers held for three blocks an SM
   (spills where the scores need more), for occupancy against spills;
@@ -84,7 +85,10 @@ CUTS = {
     (MHA, "no_prefetch"): [("if (tile + kStages - 1 < n_tiles) load_tile(tile + kStages - 1);",
                             "")],
     (FWD, "no_mma"): [("mma_split_tf32(s[n], ah, al, bh, bl);", ""),
-                      ("mma_split_tf32(acc[n], ah, al, bh, bl);", "")],
+                      ("mma_split_tf32(acc[n], ah, al, bh, bl);", ""),
+                      ("mma_bf16(s[n], a, b);", ""),
+                      ("mma_split_bf16(acc[n], hi, lo, b0);\n      "
+                       "mma_split_bf16(acc[n + 1], hi, lo, b1);", "")],
     (FWD, "no_dropout_bits"): [("const bool dropout = seed != nullptr;",
                                 "const bool dropout = false;")],
     (FWD, "three_blocks"): [("EP * NK >= 2048 ? 1 : 2", "EP * NK >= 2048 ? 1 : 3")],
@@ -205,18 +209,22 @@ def mha_call(torch, fn, l):
                       e ** -0.5, 0, 0, _stream(torch))
 
 
+DTYPES = {"f32": 0, "bf16": 1}  # the bd kernels' dtype codes
+
+
 def fwd_call(torch, fn, shape):
-    lq, lk, causal = shape
+    lq, lk, causal, dtype = shape
     b, h, e = 256, 8, 16
     g = torch.Generator(device="cuda").manual_seed(2)
-    q = torch.randn(b, lq, h, e, generator=g, device="cuda")
-    k, v = (torch.randn(b, lk, h, e, generator=g, device="cuda") for _ in range(2))
+    to = torch.float32 if dtype == "f32" else torch.bfloat16
+    q = torch.randn(b, lq, h, e, generator=g, device="cuda").to(to)
+    k, v = (torch.randn(b, lk, h, e, generator=g, device="cuda").to(to) for _ in range(2))
     o = torch.empty_like(q)
     lse = torch.empty(b, h, lq, device="cuda")
     seed = torch.tensor([12345], dtype=torch.int64, device="cuda")
     tensors = (q, k, v, o, lse, seed)  # held by the closure: the call reads them
     return lambda: fn(*(t.data_ptr() for t in tensors), b, h, lq, lk, e, e ** -0.5, causal,
-                      int(0.95 * 2**32), 1 / 0.95, 0, _stream(torch))
+                      int(0.95 * 2**32), 1 / 0.95, DTYPES[dtype], _stream(torch))
 
 
 def codeword_call(torch, fn, n, lsq):
@@ -311,16 +319,19 @@ def fixed_wrapper_host_times(torch):
     return ", ".join(f"{name} {host_us(torch, fn):.1f}" for name, fn in cells.items())
 
 
-def bwd_call(torch, fn, l):
+def bwd_call(torch, fn, shape):
+    l, dtype = shape
     b, h, e = 256, 8, 16
     g = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v, o, do = (torch.randn(b, l, h, e, generator=g, device="cuda") for _ in range(5))
+    to = torch.float32 if dtype == "f32" else torch.bfloat16
+    q, k, v, o, do = (torch.randn(b, l, h, e, generator=g, device="cuda").to(to)
+                      for _ in range(5))
     lse = torch.randn(b, h, l, generator=g, device="cuda").abs() + 3
     seed = torch.tensor([12345], dtype=torch.int64, device="cuda")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     tensors = (q, k, v, o, do, lse, seed, dq, dk, dv)
     return lambda: fn(*(t.data_ptr() for t in tensors), b, h, l, l, e, e ** -0.5, 0,
-                      int(0.95 * 2**32), 1 / 0.95, 0, _stream(torch))
+                      int(0.95 * 2**32), 1 / 0.95, DTYPES[dtype], _stream(torch))
 
 
 def main(argv=None):
@@ -356,9 +367,11 @@ def main(argv=None):
     fwd_shapes = ((90, 90, 0), (45, 45, 0), (23, 23, 0), (12, 12, 0), (15, 15, 1), (15, 24, 0))
     # (library, entry, [(label, shape)], call maker)
     sections = [(MHA, MHA, [(f"L {l} f32", l) for l in (256, 128)], mha_call),
-                (FWD, FWD, [(f"Lq {s[0]} Lk {s[1]}{' causal' if s[2] else ''} f32, "
-                             "dropout and lse", s) for s in fwd_shapes], fwd_call),
-                (BWD, BWD, [(f"L {l} f32", l) for l in (90, 45)], bwd_call)]
+                (FWD, FWD, [(f"Lq {s[0]} Lk {s[1]}{' causal' if s[2] else ''} {d}, "
+                             "dropout and lse", s + (d,)) for d in DTYPES for s in fwd_shapes],
+                 fwd_call),
+                (BWD, BWD, [(f"L {l} {d}", (l, d)) for d in DTYPES for l in (90, 45)],
+                 bwd_call)]
     for entry, mode in ((CODEWORD, "snap mode"), (LSQ, "lsq mode")):
         sections.append((CODEWORD, entry, [(f"n {n} {mode}", n) for n in (128 * 128, 128 * 64)],
                          lambda torch, fn, n, lsq=entry == LSQ: codeword_call(torch, fn, n, lsq)))

@@ -16,11 +16,12 @@
 // of the packed dK/dV (bd_attention.py:211-222) exist only to fill the MXU
 // and are not carried over.
 //
-// Bound on an H100 SXM (3.35 TB/s; f32 products at 165 TFLOP/s, the
-// split-TF32 rate of the tensor cores, 495 / 3): at the flagship encoder
-// shape (B 256, H 8, E 16, L 90, f32) the call reads Q, K, V, O, dO and lse
-// and writes dQ, dK, dV, ~94 MB, 28 us; its ~10*E FLOPs per unmasked (row,
-// key) pair, 2.65 GFLOP, take 16 us. So bytes bound every call of the path.
+// Bound on an H100 SXM (3.35 TB/s; products at 165 TFLOP/s in f32, the
+// split-TF32 rate of the tensor cores, 495 / 3, and at 989 in bf16): at the
+// flagship encoder shape (B 256, H 8, E 16, L 90) the call reads Q, K, V,
+// O, dO and lse and writes dQ, dK, dV, ~95 MB in f32, 28 us, and ~48 MB in
+// bf16, 14 us; its ~10*E FLOPs per unmasked (row, key) pair, 2.65 GFLOP,
+// take 16 us in f32 and 2.7 in bf16. So bytes bound every call of the path.
 //
 // Design. One block per (b, h) with one warp per 16 rows: NW warps, enough
 // for the query slab (16 * NW rows, up to 128) and for the keys (up to 128,
@@ -28,29 +29,53 @@
 // up to 32 such blocks share an SM. K and V of the (b, h) stay in shared
 // memory for the whole call; Q, dO and O come in query slabs (one slab up
 // to L 128; the slab shrinks until shared memory fits; O lands in the dS
-// and P_drop buffers, read for D before they are written, so 2 blocks of
-// 109 KB share an SM at L 90), all by cp.async where rows are 16-byte
-// multiples, as f32.
+// and P_drop buffers, read for D before they are written). Rows are staged
+// in the input dtype, by 16-byte cp.async where they are 16-byte multiples
+// and by plain loads otherwise (E 20 or 22 in bf16, say).
 //   Row phase, a warp per 16 query rows: D from dO and O, S = Q K^T and
-//   dP = dO V^T once each as split-TF32 MMAs (mma_tf32.cuh), in chunks of 32
-//   keys; then P, the dropped P and dS in registers, dQ = dS K from the
-//   registers (the C fragment of dS is the A fragment of the product in the
-//   k order (2t, 2t + 1)), and dS and the dropped P to shared memory. The
-//   dropout bits were made per slab before the phase, one Philox call per
-//   four keys, keyed as in the forward, into shared memory.
+//   dP = dO V^T once each, in chunks of 32 keys (bf16: 16, which keeps
+//   every bf16 instance clear of spills); then P, the dropped P and dS in
+//   registers (f32), dQ = dS K from the registers (the C fragments of dS
+//   are the A fragments of the product), and dS and the dropped P to
+//   shared memory. The dropout bits were made per slab before the phase,
+//   one Philox call per four keys, keyed as in the forward, into shared
+//   memory.
 //   Key phase, a warp per 16 keys: dK += dS^T Q and dV += P_drop^T dO over
 //   the slab's rows, accumulated in registers across slabs.
+// The dtype is a template parameter, and each instance has its own
+// products (mma_tf32.cuh):
+//   f32: split-TF32, three TF32 MMAs a product (f32 accuracy), in the k
+//   order (2t, 2t + 1); shared memory holds f32, rows pitched EP + 4 and
+//   Lk + 4, and 2 blocks of 109 KB share an SM at L 90.
+//   bf16: rows staged as bf16. A product of two bf16 inputs takes one bf16
+//   MMA (m16n8k16): S = Q K^T and dP = dO V^T, exact (bf16 products are
+//   exact in f32). D, the softmax, lse and the 1/keep scaling stay f32 in
+//   registers. dS and P_drop are computed in f32 and split into bf16
+//   hi + lo (hi = bf16(x), lo = bf16(x - hi): ~16 bits), so each of
+//   dQ = dS K, dK = dS^T Q and dV = P_drop^T dO takes two MMAs: one
+//   rounding (8 bits, as the TPU's MXU rounds its operands at default
+//   precision) misses the bf16 tolerance (rtol/atol 1e-2) at B 256, dQ by
+//   up to 1.16x of it, dV 1.03x, dK 0.92x (tests/test_torch_bf16_mma.py).
+//   dS is split in registers for dQ, and shared memory holds the hi and lo
+//   planes of dS and P_drop for the key phase. S and dP read their Q, dO, K
+//   and V fragments as 32-bit loads; the key phase's dS^T and P_drop^T
+//   fragments and every B fragment of K, Q and dO come by ldmatrix.trans;
+//   tiles are pitched at 8 elements past a multiple of 16.
 // Each (row, key) pair is computed once; masked entries are exactly 0 in P
 // and dS. Each gradient element is summed by one warp in a fixed order: no
-// atomics, the result is deterministic. bf16 inputs are staged as f32 by
-// plain loads (bf16 is exact in TF32) and take the same products.
+// atomics, the result is deterministic.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 156.6 us
-// at the L 90 shape above, 5.5x its bound (the CUDA-core kernel this
-// replaces: 288.7 us); 423.8 us for a training step's 13 calls, where
-// SDPA's f32 backward takes 2,408.5. attention_ablation.py puts ~45 us of
-// the L 90 call in the products and ~15 in the Philox bits; the rest is each
-// block's staging and three serial phases, exposed at 2 blocks an SM.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py,
+// attention_ablation.py; numbers in PERF.md): the f32 instance ~156 us at
+// the L 90 shape above, 5.5x its bound (the CUDA-core kernel this
+// replaces: 288.7 us), ~421 us for a training step's 13 calls; cutting
+// parts out saves ~24 us (the row phase's products), ~28 (the key phase)
+// and ~17 (the Philox bits) at L 90, the rest being each block's staging
+// and three serial phases at 2 blocks an SM. The bf16 instance ~120 us at
+// L 90 and ~337 a step, against ~285 and ~737 for its earlier datapath
+// (rows staged as f32 by plain loads, split-TF32 products); its 99,840
+// shared bytes a block at L 90 (the hi and lo planes) hold it to 2 blocks
+// an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,19 +93,202 @@ constexpr int kMaxE = 64;
 constexpr int kMaxSlab = 128;               // query rows a slab
 constexpr size_t kSmemBudget = 200 * 1024;  // bytes a block
 
-// Shared layout in floats, for padded width EP, Lk rounded up to 32 (lkr,
-// whole 32-key chunks) and to 16 (lkp): K and V [lkr][EP + 4], Q and dO
-// [QS][EP + 4], dS and P_drop [QS][lkp + 4] each, with O [QS][EP + 4] over
-// them until D is read, then the bits [QS][4].
-__host__ __device__ constexpr int over_floats(int ep, int lkp) {  // a row
-  return 2 * (lkp + 4) > ep + 4 ? 2 * (lkp + 4) : ep + 4;
-}
-constexpr size_t smem_floats(int ep, int lkr, int lkp, int qs) {
-  return 2 * (size_t)lkr * (ep + 4) + 2 * (size_t)qs * (ep + 4) +
-         (size_t)qs * over_floats(ep, lkp) + (size_t)qs * kMaskWords;
+// Shared layout in elements of T, for padded width EP, Lk rounded up to 32
+// (lkr, whole 32-key chunks) and to 16 (lkp): K and V [lkr][KP], Q and dO
+// [QS][KP], dS and P_drop [planes][QS][PP] each, with O [QS][KP] over them
+// until D is read, then the bits [QS][4] (32-bit words). f32: KP = EP + 4,
+// PP = lkp + 4, one plane; bf16: EP + 8 and lkp + 8 (mma_tf32.cuh), two
+// planes (the bf16 hi and lo of each value).
+template <typename T>
+struct Layout {
+  static constexpr int pad = sizeof(T) == 4 ? 4 : 8;
+  static constexpr int planes = sizeof(T) == 4 ? 1 : 2;
+  __host__ __device__ static constexpr int kp(int ep) { return ep + pad; }
+  __host__ __device__ static constexpr int pp(int lkp) { return lkp + pad; }
+  __host__ __device__ static constexpr int over(int ep, int lkp) {  // a row
+    return 2 * planes * pp(lkp) > kp(ep) ? 2 * planes * pp(lkp) : kp(ep);
+  }
+  static constexpr size_t bytes(int ep, int lkr, int lkp, int qs) {
+    return sizeof(T) * (2 * (size_t)lkr * kp(ep) + 2 * (size_t)qs * kp(ep) +
+                        (size_t)qs * over(ep, lkp)) +
+           sizeof(unsigned) * (size_t)qs * kMaskWords;
+  }
+};
+
+// 8-key tiles of a row-phase chunk: f32 32 keys; bf16 16 keys (one MMA k
+// step), which keeps every bf16 instance within its registers.
+template <typename T>
+constexpr int kChunkTiles = sizeof(T) == 4 ? 4 : 2;
+
+// S and dP for the warp's 16 rows (qa, da: their first Q and dO rows) and
+// the keys of a chunk (kt, vt: its first K and V rows), over all EP
+// columns (those past E are zero). f32: split-TF32.
+template <int EP>
+__device__ __forceinline__ void row_products(float (&s)[4][4], float (&dp)[4][4],
+                                             const float* qa, const float* da,
+                                             const float* kt, const float* vt, int g, int t) {
+  constexpr int KP = Layout<float>::kp(EP);
+#pragma unroll
+  for (int ks_ = 0; ks_ < EP / 8; ++ks_) {
+    const float* qr = qa + g * KP + 8 * ks_ + 2 * t;
+    const float* dr = da + g * KP + 8 * ks_ + 2 * t;
+    const float2 q0 = *reinterpret_cast<const float2*>(qr);
+    const float2 q1 = *reinterpret_cast<const float2*>(qr + 8 * KP);
+    const float2 o0 = *reinterpret_cast<const float2*>(dr);
+    const float2 o1 = *reinterpret_cast<const float2*>(dr + 8 * KP);
+    uint32_t qh[4], ql[4], oh[4], ol[4];
+    split_tf32({q0.x, q1.x, q0.y, q1.y}, qh, ql);
+    split_tf32({o0.x, o1.x, o0.y, o1.y}, oh, ol);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {  // keys past nk are zero rows or masked later
+      const int kr = (8 * n + g) * KP + 8 * ks_ + 2 * t;
+      const float2 kv = *reinterpret_cast<const float2*>(kt + kr);
+      const float2 vv = *reinterpret_cast<const float2*>(vt + kr);
+      uint32_t bh_[2], bl_[2];
+      split_tf32({kv.x, kv.y}, bh_, bl_);
+      mma_split_tf32(s[n], qh, ql, bh_, bl_);
+      split_tf32({vv.x, vv.y}, bh_, bl_);
+      mma_split_tf32(dp[n], oh, ol, bh_, bl_);
+    }
+  }
 }
 
-// EP: E padded to 16, 32 or 64. Lane = 4 * g + t (mma_tf32.cuh).
+// bf16: one MMA a 16-column step and 8 keys, exact products.
+template <int EP, int CT>
+__device__ __forceinline__ void row_products(float (&s)[CT][4], float (&dp)[CT][4],
+                                             const __nv_bfloat16* qa, const __nv_bfloat16* da,
+                                             const __nv_bfloat16* kt, const __nv_bfloat16* vt,
+                                             int g, int t) {
+  constexpr int KP = Layout<__nv_bfloat16>::kp(EP);
+#pragma unroll
+  for (int kk = 0; kk < EP / 16; ++kk) {
+    uint32_t qf[4], of[4];
+    frag_a_bf16(qf, qa + g * KP + 16 * kk + 2 * t, KP);
+    frag_a_bf16(of, da + g * KP + 16 * kk + 2 * t, KP);
+#pragma unroll
+    for (int n = 0; n < CT; ++n) {
+      const int kr = (8 * n + g) * KP + 16 * kk + 2 * t;
+      uint32_t b[2];
+      frag_b_bf16(b, kt + kr);
+      mma_bf16(s[n], qf, b);
+      frag_b_bf16(b, vt + kr);
+      mma_bf16(dp[n], of, b);
+    }
+  }
+}
+
+// dq_acc += dS K over a chunk's keys (kt: its first K row); ds holds dS in
+// C-fragment order. f32: split-TF32, the C fragment of dS is the A
+// fragment (k column t <-> key 2t).
+template <int EP>
+__device__ __forceinline__ void dq_products(float (&dq_acc)[EP / 8][4], const float (&ds)[4][4],
+                                            const float* kt, int g, int t, int) {
+  constexpr int KP = Layout<float>::kp(EP);
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn) {
+    uint32_t ah[4], al[4];
+    split_tf32({ds[jn][0], ds[jn][2], ds[jn][1], ds[jn][3]}, ah, al);
+    const float* k0 = kt + (8 * jn + 2 * t) * KP + g;
+#pragma unroll
+    for (int n = 0; n < EP / 8; ++n) {
+      uint32_t bh_[2], bl_[2];
+      split_tf32({k0[8 * n], k0[KP + 8 * n]}, bh_, bl_);
+      mma_split_tf32(dq_acc[n], ah, al, bh_, bl_);
+    }
+  }
+}
+
+// bf16: dS split into bf16 hi and lo (two MMAs), the C fragments of two
+// 8-key tiles as the A fragments of a 16-key step; K's B fragments by
+// ldmatrix.trans.
+template <int EP, int CT>
+__device__ __forceinline__ void dq_products(float (&dq_acc)[EP / 8][4], const float (&ds)[CT][4],
+                                            const __nv_bfloat16* kt, int, int, int lane) {
+  constexpr int KP = Layout<__nv_bfloat16>::kp(EP);
+#pragma unroll
+  for (int kk = 0; kk < CT / 2; ++kk) {
+    uint32_t hi[4], lo[4];
+    frag_a_split_from_c(hi, lo, ds[2 * kk], ds[2 * kk + 1]);
+#pragma unroll
+    for (int n = 0; n < EP / 8; n += 2) {
+      uint32_t b0[2], b1[2];
+      frag_b2_trans_bf16(b0, b1, kt + 16 * kk * KP + 8 * n, KP, lane);
+      mma_split_bf16(dq_acc[n], hi, lo, b0);
+      mma_split_bf16(dq_acc[n + 1], hi, lo, b1);
+    }
+  }
+}
+
+// Elements (col, col + 1) of a dS or P_drop row: f32 as they are; bf16 as
+// their hi (one 32-bit word at p) and lo (at p + plane).
+__device__ __forceinline__ void store_pair(float* p, int, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, int plane, float x0, float x1) {
+  uint32_t hi, lo;
+  split_bf16(x0, x1, hi, lo);
+  *reinterpret_cast<uint32_t*>(p) = hi;
+  *reinterpret_cast<uint32_t*>(p + plane) = lo;
+}
+
+// Slab rows a key-phase step: the k of one MMA.
+template <typename T>
+constexpr int kKeyStep = sizeof(T) == 4 ? 8 : 16;
+
+// One key-phase step: dK += dS^T Q and dV += P_drop^T dO for the warp's 16
+// keys over kKeyStep slab rows. sb, pb: dS and P_drop at the step's first
+// row and the warp's first key (pitch PP, planes `plane` apart); qb, db:
+// the step's first Q and dO rows. f32: split-TF32 (k column t <-> row 2t).
+template <int EP>
+__device__ __forceinline__ void key_step(float (&dk_acc)[EP / 8][4], float (&dv_acc)[EP / 8][4],
+                                         const float* sb, const float* pb, const float* qb,
+                                         const float* db, int PP, int, int g, int t, int) {
+  constexpr int KP = Layout<float>::kp(EP);
+  const int ra = 2 * t, rb = ra + 1;
+  uint32_t sh[4], sl[4], ph[4], pl[4];
+  split_tf32({sb[ra * PP + g], sb[ra * PP + g + 8], sb[rb * PP + g], sb[rb * PP + g + 8]}, sh,
+             sl);
+  split_tf32({pb[ra * PP + g], pb[ra * PP + g + 8], pb[rb * PP + g], pb[rb * PP + g + 8]}, ph,
+             pl);
+#pragma unroll
+  for (int n = 0; n < EP / 8; ++n) {
+    uint32_t bh_[2], bl_[2];
+    split_tf32({qb[ra * KP + 8 * n + g], qb[rb * KP + 8 * n + g]}, bh_, bl_);
+    mma_split_tf32(dk_acc[n], sh, sl, bh_, bl_);
+    split_tf32({db[ra * KP + 8 * n + g], db[rb * KP + 8 * n + g]}, bh_, bl_);
+    mma_split_tf32(dv_acc[n], ph, pl, bh_, bl_);
+  }
+}
+
+// bf16: the hi and lo A fragments of dS^T, then of P_drop^T (two MMAs a
+// product), and the B fragments of Q and dO, by ldmatrix.trans.
+template <int EP>
+__device__ __forceinline__ void key_step(float (&dk_acc)[EP / 8][4], float (&dv_acc)[EP / 8][4],
+                                         const __nv_bfloat16* sb, const __nv_bfloat16* pb,
+                                         const __nv_bfloat16* qb, const __nv_bfloat16* db,
+                                         int PP, int plane, int, int, int lane) {
+  constexpr int KP = Layout<__nv_bfloat16>::kp(EP);
+  uint32_t hi[4], lo[4], b0[2], b1[2];
+  frag_a_trans_bf16(hi, sb, PP, lane);
+  frag_a_trans_bf16(lo, sb + plane, PP, lane);
+#pragma unroll
+  for (int n = 0; n < EP / 8; n += 2) {
+    frag_b2_trans_bf16(b0, b1, qb + 8 * n, KP, lane);
+    mma_split_bf16(dk_acc[n], hi, lo, b0);
+    mma_split_bf16(dk_acc[n + 1], hi, lo, b1);
+  }
+  frag_a_trans_bf16(hi, pb, PP, lane);
+  frag_a_trans_bf16(lo, pb + plane, PP, lane);
+#pragma unroll
+  for (int n = 0; n < EP / 8; n += 2) {
+    frag_b2_trans_bf16(b0, b1, db + 8 * n, KP, lane);
+    mma_split_bf16(dv_acc[n], hi, lo, b0);
+    mma_split_bf16(dv_acc[n + 1], hi, lo, b1);
+  }
+}
+
+// T: float or __nv_bfloat16; EP: E padded to 16, 32 or 64. Lane = 4 * g +
+// t (mma_tf32.cuh).
 template <typename T, int EP, bool DROPOUT, bool VEC>
 __global__ void __launch_bounds__(256)
 bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -89,20 +297,24 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const long long* __restrict__ seed, T* __restrict__ dq,
                         T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk, int E,
                         int QS, float scale, int causal, unsigned thresh, float inv_keep) {
-  constexpr int KP = EP + 4;  // pitch of the K, V, Q, dO and O rows
-  constexpr int NE = EP / 8;  // 8-column tiles of a head row
+  using L = Layout<T>;
+  constexpr int KP = L::kp(EP);  // pitch of the K, V, Q, dO and O rows
+  constexpr int NE = EP / 8;     // 8-column tiles of a head row
+  constexpr int RS = kKeyStep<T>;
+  constexpr int CT = kChunkTiles<T>;  // 8-key tiles of a row-phase chunk
   const int LKR = (Lk + 31) & ~31, LKP = (Lk + 15) & ~15;
-  const int PP = LKP + 4;  // pitch of the dS and P_drop rows
+  const int PP = L::pp(LKP);  // pitch of the dS and P_drop rows
+  const int PS = QS * PP;     // elements of a dS or P_drop plane
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [LKR][KP]
-  float* vs = ks + LKR * KP;                    // [LKR][KP]
-  float* qs = vs + LKR * KP;                    // [QS][KP]
-  float* dos = qs + QS * KP;                    // [QS][KP]
-  float* sbuf = dos + QS * KP;                  // [QS][PP]: dS
-  float* pbuf = sbuf + QS * PP;                 // [QS][PP]: P_drop
-  float* os = sbuf;                             // [QS][KP]: O, until D is read
+  T* ks = reinterpret_cast<T*>(smem4);  // [LKR][KP]
+  T* vs = ks + LKR * KP;                // [LKR][KP]
+  T* qs = vs + LKR * KP;                // [QS][KP]
+  T* dos = qs + QS * KP;                // [QS][KP]
+  T* sbuf = dos + QS * KP;              // [planes][QS][PP]: dS
+  T* pbuf = sbuf + L::planes * PS;      // [planes][QS][PP]: P_drop
+  T* os = sbuf;                         // [QS][KP]: O, until D is read
   unsigned* bits =
-      reinterpret_cast<unsigned*>(sbuf + QS * over_floats(EP, LKP));  // [QS][kMaskWords]
+      reinterpret_cast<unsigned*>(sbuf + QS * L::over(EP, LKP));  // [QS][kMaskWords]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -121,11 +333,11 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (E < EP) {
     for (int x = threadIdx.x; x < (2 * LKR + 2 * QS) * EP; x += blockDim.x) {
       const int r = x / EP, c = x - r * EP;
-      if (c >= E) ks[r * KP + c] = 0.f;
+      if (c >= E) ks[r * KP + c] = from_f32<T>(0.f);
     }
     __syncthreads();
   }
-  auto load = [&](float* dst, const T* src, int rows, int valid) {
+  auto load = [&](T* dst, const T* src, int rows, int valid) {
     load_rows<VEC>(dst, KP, src, row, rows, valid, E, threadIdx.x, blockDim.x);
   };
   load(ks, k + k_off, LKR, Lk);
@@ -165,7 +377,7 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int rr = lr0 + (lane >> 1), e0 = (lane & 1) * (EP / 2);
 #pragma unroll
       for (int e = e0; e < e0 + EP / 2; ++e)
-        if (e < E) dsum = fmaf(dos[rr * KP + e], os[rr * KP + e], dsum);
+        if (e < E) dsum = fmaf(to_f32(dos[rr * KP + e]), to_f32(os[rr * KP + e]), dsum);
       dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
     }
     const float d0 = __shfl_sync(0xffffffffu, dsum, 2 * g);
@@ -178,40 +390,19 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       float dq_acc[NE][4] = {};
 
-      for (int kc = 0; kc < LKP; kc += 32) {
-        float s[4][4], dp[4][4];
+      for (int kc = 0; kc < LKP; kc += 8 * CT) {
+        float s[CT][4], dp[CT][4];
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+        for (int n = 0; n < CT; ++n)
 #pragma unroll
           for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
         if (kc < nk) {
-#pragma unroll
-          for (int ks_ = 0; ks_ < NE; ++ks_) {
-            const float* qa = qs + (lr0 + g) * KP + 8 * ks_ + 2 * t;
-            const float* da = dos + (lr0 + g) * KP + 8 * ks_ + 2 * t;
-            const float2 q0 = *reinterpret_cast<const float2*>(qa);
-            const float2 q1 = *reinterpret_cast<const float2*>(qa + 8 * KP);
-            const float2 o0 = *reinterpret_cast<const float2*>(da);
-            const float2 o1 = *reinterpret_cast<const float2*>(da + 8 * KP);
-            uint32_t qh[4], ql[4], oh[4], ol[4];
-            split_tf32({q0.x, q1.x, q0.y, q1.y}, qh, ql);
-            split_tf32({o0.x, o1.x, o0.y, o1.y}, oh, ol);
-#pragma unroll
-            for (int n = 0; n < 4; ++n) {  // keys past nk are zero rows or masked below
-              const int kr = (kc + 8 * n + g) * KP + 8 * ks_ + 2 * t;
-              const float2 kv = *reinterpret_cast<const float2*>(ks + kr);
-              const float2 vv = *reinterpret_cast<const float2*>(vs + kr);
-              uint32_t bh_[2], bl_[2];
-              split_tf32({kv.x, kv.y}, bh_, bl_);
-              mma_split_tf32(s[n], qh, ql, bh_, bl_);
-              split_tf32({vv.x, vv.y}, bh_, bl_);
-              mma_split_tf32(dp[n], oh, ol, bh_, bl_);
-            }
-          }
+          row_products<EP>(s, dp, qs + lr0 * KP, dos + lr0 * KP, ks + kc * KP, vs + kc * KP, g,
+                           t);
         }
         // P, P_drop and dS; s becomes dS and dp becomes P_drop.
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+        for (int n = 0; n < CT; ++n)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int j = kc + 8 * n + 2 * t + (c & 1);
@@ -229,30 +420,17 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             dp[n][c] = pd;
           }
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < CT; ++n) {
           const int col = kc + 8 * n + 2 * t;
           if (kc + 8 * n >= LKP) break;
-          *reinterpret_cast<float2*>(sbuf + (lr0 + g) * PP + col) = make_float2(s[n][0], s[n][1]);
-          *reinterpret_cast<float2*>(sbuf + (lr0 + g + 8) * PP + col) =
-              make_float2(s[n][2], s[n][3]);
-          *reinterpret_cast<float2*>(pbuf + (lr0 + g) * PP + col) = make_float2(dp[n][0], dp[n][1]);
-          *reinterpret_cast<float2*>(pbuf + (lr0 + g + 8) * PP + col) =
-              make_float2(dp[n][2], dp[n][3]);
+          store_pair(sbuf + (lr0 + g) * PP + col, PS, s[n][0], s[n][1]);
+          store_pair(sbuf + (lr0 + g + 8) * PP + col, PS, s[n][2], s[n][3]);
+          store_pair(pbuf + (lr0 + g) * PP + col, PS, dp[n][0], dp[n][1]);
+          store_pair(pbuf + (lr0 + g + 8) * PP + col, PS, dp[n][2], dp[n][3]);
         }
         // dQ += dS K over this chunk's keys (dS is 0 past nk).
         if (kc < nk) {
-#pragma unroll
-        for (int jn = 0; jn < 4; ++jn) {
-          uint32_t ah[4], al[4];
-          split_tf32({s[jn][0], s[jn][2], s[jn][1], s[jn][3]}, ah, al);  // k column t <-> key 2t
-          const float* k0 = ks + (kc + 8 * jn + 2 * t) * KP + g;
-#pragma unroll
-          for (int n = 0; n < NE; ++n) {
-            uint32_t bh_[2], bl_[2];
-            split_tf32({k0[8 * n], k0[KP + 8 * n]}, bh_, bl_);
-            mma_split_tf32(dq_acc[n], ah, al, bh_, bl_);
-          }
-        }
+          dq_products<EP>(dq_acc, s, ks + kc * KP, g, t, lane);
         }
       }
 #pragma unroll
@@ -267,25 +445,12 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // Key phase: the warp's 16 keys, dK += dS^T Q and dV += P_drop^T dO.
     if (kr0 < LKP) {
-      // Steps of 8 slab rows; with `causal`, rows above every key here add 0.
-      const int ks_end = (min(QS, Lq - s0) + 7) / 8;
+      // Steps of RS slab rows; with `causal`, rows above every key here add 0.
+      const int ks_end = (min(QS, Lq - s0) + RS - 1) / RS;
 #pragma unroll 2
-      for (int ks_ = causal ? max(0, (kr0 - s0) / 8) : 0; ks_ < ks_end; ++ks_) {
-        const int ra = 8 * ks_ + 2 * t, rb = ra + 1;     // k column t <-> row 2t
-        uint32_t sh[4], sl[4], ph[4], pl[4];
-        split_tf32({sbuf[ra * PP + kr0 + g], sbuf[ra * PP + kr0 + g + 8], sbuf[rb * PP + kr0 + g],
-               sbuf[rb * PP + kr0 + g + 8]}, sh, sl);
-        split_tf32({pbuf[ra * PP + kr0 + g], pbuf[ra * PP + kr0 + g + 8], pbuf[rb * PP + kr0 + g],
-               pbuf[rb * PP + kr0 + g + 8]}, ph, pl);
-#pragma unroll
-        for (int n = 0; n < NE; ++n) {
-          uint32_t bh_[2], bl_[2];
-          split_tf32({qs[ra * KP + 8 * n + g], qs[rb * KP + 8 * n + g]}, bh_, bl_);
-          mma_split_tf32(dk_acc[n], sh, sl, bh_, bl_);
-          split_tf32({dos[ra * KP + 8 * n + g], dos[rb * KP + 8 * n + g]}, bh_, bl_);
-          mma_split_tf32(dv_acc[n], ph, pl, bh_, bl_);
-        }
-      }
+      for (int ks_ = causal ? max(0, (kr0 - s0) / RS) : 0; ks_ < ks_end; ++ks_)
+        key_step<EP>(dk_acc, dv_acc, sbuf + RS * ks_ * PP + kr0, pbuf + RS * ks_ * PP + kr0,
+                     qs + RS * ks_ * KP, dos + RS * ks_ * KP, PP, PS, g, t, lane);
     }
     __syncthreads();  // the slab's buffers are free
   }
@@ -314,22 +479,26 @@ struct Args {
   int causal;
   unsigned thresh;
   float inv_keep;
+  bool dropout;
+  int* occ;  // set: report the launch's occupancy into it and launch nothing
 };
 
 template <typename T, int EP, bool DROPOUT, bool VEC>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using L = Layout<T>;
   const int lkr = (a.Lk + 31) & ~31, lkp = (a.Lk + 15) & ~15;
   int qs = min((a.Lq + 15) & ~15, kMaxSlab);
-  while (qs > 16 && sizeof(float) * smem_floats(EP, lkr, lkp, qs) > kSmemBudget) qs -= 16;
-  const size_t smem = sizeof(float) * smem_floats(EP, lkr, lkp, qs);
+  while (qs > 16 && L::bytes(EP, lkr, lkp, qs) > kSmemBudget) qs -= 16;
+  const size_t smem = L::bytes(EP, lkr, lkp, qs);
   auto kernel = bd_attention_bwd_kernel<T, EP, DROPOUT, VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const int warps = max(qs, lkp) / 16;  // a warp per 16 slab rows and per 16 keys
-  kernel<<<a.B * a.H, 32 * warps, smem, stream>>>(
+  const int threads = 32 * (max(qs, lkp) / 16);  // a warp per 16 slab rows and per 16 keys
+  if (a.occ != nullptr) return occupancy(kernel, threads, smem, a.occ);
+  kernel<<<a.B * a.H, threads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse, a.seed,
       static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.Lq, a.Lk,
@@ -339,11 +508,10 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 template <typename T, int EP, bool DROPOUT>
 cudaError_t launch_vec(const Args& a, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 4) {
-    if (a.E % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout) &&
-        aligned16(a.o))
-      return launch<T, EP, DROPOUT, true>(a, stream);
-  }
+  constexpr int C = 16 / sizeof(T);  // elements of a 16-byte piece
+  if (a.E % C == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout) &&
+      aligned16(a.o))
+    return launch<T, EP, DROPOUT, true>(a, stream);
   return launch<T, EP, DROPOUT, false>(a, stream);
 }
 
@@ -356,7 +524,19 @@ cudaError_t launch_e(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_d(const Args& a, cudaStream_t stream) {
-  return a.seed != nullptr ? launch_e<T, true>(a, stream) : launch_e<T, false>(a, stream);
+  return a.dropout ? launch_e<T, true>(a, stream) : launch_e<T, false>(a, stream);
+}
+
+cudaError_t dispatch(const Args& a, int dtype, cudaStream_t stream) {
+  switch (dtype) {
+    case 0: return launch_d<float>(a, stream);
+    case 1: return launch_d<__nv_bfloat16>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool invalid(int B, int H, int Lq, int Lk, int E) {
+  return B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || Lk > kMaxLk || E <= 0 || E > kMaxE;
 }
 
 }  // namespace
@@ -371,14 +551,19 @@ extern "C" int bd_attention_bwd(const void* q, const void* k, const void* v, con
                                 void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,
                                 int E, float scale, int causal, unsigned thresh,
                                 float inv_keep, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || Lk > kMaxLk || E <= 0 || E > kMaxE)
-    return (int)cudaErrorInvalidValue;
+  if (invalid(B, H, Lq, Lk, E)) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, dout, lse, seed, dq, dk, dv, B, H, Lq, Lk, E,
-               scale, causal, thresh, inv_keep};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)launch_d<float>(a, s);
-    case 1: return (int)launch_d<__nv_bfloat16>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+               scale, causal, thresh, inv_keep, seed != nullptr, nullptr};
+  return (int)dispatch(a, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The instance and launch that bd_attention_bwd takes at these sizes (with
+// dropout if `dropout`, 16-byte aligned tensors), not launched: out[5] as
+// occupancy() in bd_attention_common.cuh. Returns a cudaError_t.
+extern "C" int bd_attention_bwd_occupancy(int B, int H, int Lq, int Lk, int E, int dropout,
+                                          int dtype, int* out) {
+  if (invalid(B, H, Lq, Lk, E) || out == nullptr) return (int)cudaErrorInvalidValue;
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               nullptr, nullptr, B, H, Lq, Lk, E, 1.f, 0, 0u, 1.f, dropout != 0, out};
+  return (int)dispatch(a, dtype, nullptr);
 }

@@ -1,6 +1,6 @@
-// Device helpers shared by the attention kernels (bd_attention_fwd.cu,
-// bd_attention_bwd.cu, mha_attention_fwd.cu): dtype conversion and the
-// dropout mask.
+// Helpers shared by the attention kernels (bd_attention_fwd.cu,
+// bd_attention_bwd.cu, mha_attention_fwd.cu): dtype conversion, the
+// dropout mask, and the occupancy report of a launch configuration.
 //
 // The attention-probability dropout draws from Philox4x32-10 (philox.cuh).
 // Its layout is shared with the plain version,
@@ -39,4 +39,24 @@ __device__ __forceinline__ unsigned keep_bits4(int j0, int row, int bh, uint2 ke
                                 key);
   return (w.x < thresh) | ((w.y < thresh) << 1) | ((w.z < thresh) << 2) |
          ((w.w < thresh) << 3);
+}
+
+// What a launch of `kernel` at `threads` threads and `smem` dynamic bytes
+// holds of an SM: out = {blocks resident, threads, dynamic shared bytes,
+// registers a thread, local (spill) bytes a thread}. Set the kernel's
+// dynamic shared memory limit first where smem > 48 KB.
+template <typename K>
+cudaError_t occupancy(K kernel, int threads, size_t smem, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = blocks;
+  out[1] = threads;
+  out[2] = static_cast<int>(smem);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
 }

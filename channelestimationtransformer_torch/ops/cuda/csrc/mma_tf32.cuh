@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the attention kernels
-// (mha_attention_fwd.cu, bd_attention_bwd.cu): split-TF32 and bf16
-// mma.sync products, ldmatrix, and tile copies into shared memory by
+// (mha_attention_fwd.cu, bd_attention_fwd.cu, bd_attention_bwd.cu):
+// split-TF32 and bf16 mma.sync products, bf16 fragment loads from shared
+// tiles (plain and by ldmatrix), and tile copies into shared memory by
 // cp.async.
 //
 // Split TF32. A TF32 operand keeps 10 mantissa bits, so one TF32 pass of
@@ -11,8 +12,12 @@
 // (the dropped a_lo * b_lo is ~2^-22 relative) lands as close to the exact
 // product as an f32 FMA chain. Three TF32 MMAs per product: on an H100 SXM
 // the f32-accurate rate is 495 / 3 = 165 TFLOP/s, against 67 on the CUDA
-// cores. bf16 values are exact in TF32 and bf16 products exact in f32, so
-// bf16 inputs take one bf16 MMA (m16n8k16) with f32 accumulators.
+// cores. bf16 products are exact in f32, so a product of two bf16 inputs
+// takes one bf16 MMA (m16n8k16) with f32 accumulators. A computed f32
+// operand (the attention kernels' P, dS, P_drop) is split into bf16
+// hi + lo, two MMAs: one rounding, as a TPU's matrix unit rounds its
+// operands at default precision, misses the bf16 tolerance at the
+// training batch (tests/test_torch_bf16_mma.py).
 //
 // Fragment layouts of mma.sync (PTX ISA), lane = 4 * g + t:
 //   m16n8k8 tf32   A 16x8 (row): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
@@ -102,6 +107,80 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s)
                : "memory");
+}
+
+// bf16 m16n8k16 fragments from shared tiles (lane = 4 * g + t). The
+// kernels pitch such tiles at 8 elements more than a multiple of 16: rows
+// are an odd number of 16-byte units, so the 8 rows of an ldmatrix matrix,
+// and the 8 rows x 4 lanes of a 32-bit fragment load, fall on distinct
+// banks, and every row starts 16-byte aligned (cp.async, ldmatrix).
+
+// Two adjacent bf16 as one 32-bit word (the lower index in the low half).
+__device__ __forceinline__ uint32_t ld_bf16x2(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A of a row-major tile X [m][k]: p = &X[g][2t] of the 16 x 16 block.
+__device__ __forceinline__ void frag_a_bf16(uint32_t (&a)[4], const __nv_bfloat16* p, int pitch) {
+  a[0] = ld_bf16x2(p);
+  a[1] = ld_bf16x2(p + 8 * pitch);
+  a[2] = ld_bf16x2(p + 8);
+  a[3] = ld_bf16x2(p + 8 * pitch + 8);
+}
+
+// B of a tile stored n-major, X [n][k] (B = X^T): p = &X[g][2t] of the 8 x 16 block.
+__device__ __forceinline__ void frag_b_bf16(uint32_t (&b)[2], const __nv_bfloat16* p) {
+  b[0] = ld_bf16x2(p);
+  b[1] = ld_bf16x2(p + 8);
+}
+
+// A of X^T for a row-major tile X [k][m] (A's rows are X's columns), by
+// ldmatrix.trans: p = &X[0][0] of the 16 x 16 block.
+__device__ __forceinline__ void frag_a_trans_bf16(uint32_t (&a)[4], const __nv_bfloat16* p,
+                                                  int pitch, int lane) {
+  const int i = lane >> 3;  // matrix i: k rows 8 * (i >> 1), m columns 8 * (i & 1)
+  ldmatrix_x4_trans(a, p + ((lane & 7) + 8 * (i >> 1)) * pitch + 8 * (i & 1));
+}
+
+// B of n-tiles 0 and 1 of a row-major tile X [k][n] (B = X), by
+// ldmatrix.trans: p = &X[0][0] of the 16 x 16 block.
+__device__ __forceinline__ void frag_b2_trans_bf16(uint32_t (&b0)[2], uint32_t (&b1)[2],
+                                                   const __nv_bfloat16* p, int pitch, int lane) {
+  uint32_t r[4];
+  ldmatrix_x4_trans(r, p + (lane & 15) * pitch + 8 * (lane >> 4));
+  b0[0] = r[0];
+  b0[1] = r[1];
+  b1[0] = r[2];
+  b1[1] = r[3];
+}
+
+// Split bf16: x = hi + lo with hi = bf16(x) and lo = bf16(x - hi) (x - hi
+// is exact in f32; both rounded to nearest even) keeps ~16 significant
+// bits, ~2^-17 relative, where one bf16 rounding keeps 8. Two bf16 MMAs a
+// product, a_lo * b + a_hi * b.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// The hi and lo A fragments of the C fragments of two adjacent 8-column
+// tiles (k = their 16 columns, in order).
+__device__ __forceinline__ void frag_a_split_from_c(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                                    const float (&c0)[4], const float (&c1)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// c += (a_hi + a_lo) * b, the small product first.
+__device__ __forceinline__ void mma_split_bf16(float (&c)[4], const uint32_t (&a_hi)[4],
+                                               const uint32_t (&a_lo)[4],
+                                               const uint32_t (&b)[2]) {
+  mma_bf16(c, a_lo, b);
+  mma_bf16(c, a_hi, b);
 }
 
 // 16 bytes global -> shared without the register file; `valid` false

@@ -23,7 +23,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    and static shared memory from ``-Xptxas -v`` (the full logs go beside
    ``chip_smoke.json``, as ``ptxas_<name>.txt``) and its count of
    tensor-core MMA instructions (HMMA) in the SASS; the three attention
-   libraries must show HMMA > 0 and no spills;
+   libraries must show HMMA > 0 and no spills, and for each of them a line
+   per dtype gives its instances' registers, spills and HMMA by operand
+   type: every bf16 instance must issue bf16 HMMA only and every f32 one
+   TF32 only (per-instance rows in ``chip_smoke.json``);
 3. kernel, eval: the bd-attention forward kernel (dropout 0) against its
    plain version at the six flagship shape classes in float32 and bfloat16,
    with kernel, plain and ``F.scaled_dot_product_attention`` (yardstick
@@ -57,7 +60,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    (exact), and the backward kernel's dQ/dK/dV against
    ``bd_attention_bwd_reference`` on the kernel forward's output and lse,
    and against the plain backward on the plain forward's, each timed beside
-   its bound and the SDPA yardstick; then the checks of 3, 4 and 7 (the
+   its bound and the SDPA yardstick, with the launch's registers and blocks
+   resident on an SM (the libraries' ``<name>_occupancy`` entries); then
+   the checks of 3, 4 and 7 (the
    kernels' own times alone) at the scale demo's and the int8 A/B's shapes
    that those lists leave out (``scale_kernel_shapes``: the bd kernels at
    E 32 and 64, mha at L 256, E 64), so that every kernel instance the
@@ -105,8 +110,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    (72 codeword and 13 bd launches) against its plain path;
 16. bf16 training path: 12 in bf16: the step through the kernels against
    the plain path and both against the f32 twin's gradients
-   (``BF16_GRAD_*``), 104 forward and 104 backward launches, parameters and
-   Adam state f32, training samples/s in turns with the twin;
+   (``BF16_GRAD_*``; max pooling routed as the kernel path's in both), 104
+   forward and 104 backward launches, parameters and Adam state f32,
+   training samples/s in turns with the twin; then the bd kernels' f32 and
+   bf16 instances side by side, a training step of each: graph-replay and
+   eager us, bound, launches, and per shape registers and blocks an SM;
 17. datagen: ``generate_beamformed_dataset`` (CDL-B 64 x 2, 100 slots, one
    chunk of 128 samples) on the card against the CPU from the same draws
    (``DATAGEN_TOL``, the kept beams equal); the parity recipe's data on the
@@ -445,17 +453,118 @@ def _ptxas_summary(log):
                 spill_loads=sum(int(b) for _, b in spills), smem_max=max(smem, default=0))
 
 
-def _hmma_count(lib):
-    """Tensor-core MMA instructions (HMMA) in a library's SASS, by cuobjdump
-    beside nvcc; None where the toolkit has no cuobjdump."""
+def _ptxas_instances(log):
+    """Each kernel of one ``nvcc -Xptxas -v`` log: its mangled name,
+    registers a thread and spill bytes (stores and loads)."""
+    out = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        out.append(dict(name=chunk.split("'", 1)[0],
+                        registers=int(regs.group(1)) if regs else None,
+                        spill_bytes=int(spill.group(1)) + int(spill.group(2)) if spill else 0))
+    return out
+
+
+def _instance_label(name):
+    """``kernel<dtype, template numbers>`` of a mangled template kernel name
+    and its dtype ("float32", "bfloat16", or None where the kernel takes no
+    type argument)."""
+    # A nested name (_ZN ... E) is a run of <length><text> parts; the
+    # kernel's ends in "_kernel" and its template arguments follow (I ... E).
+    i = 3 if name.startswith("_ZN") else 2
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        base, i = name[j:j + int(name[i:j])], j + int(name[i:j])
+        if base.endswith("_kernel") and name.startswith("I", i) and "EEv" in name[i:]:
+            break
+    else:
+        return name, None
+    args = name[i + 1:name.index("EEv", i)]
+    dtype = ("bfloat16" if args.startswith("13__nv_bfloat16")
+             else "float32" if args.startswith("f") else None)
+    nums = re.findall(r"L[ib](\d+)E", args)
+    return f"{base}<{', '.join(([dtype] if dtype else []) + nums)}>", dtype
+
+
+def _sass_hmma(lib):
+    """Tensor-core MMA instructions (HMMA) in a library's SASS by kernel, by
+    cuobjdump beside nvcc (:func:`_hmma_by_function`); None where the
+    toolkit has no cuobjdump."""
     from channelestimationtransformer_torch.ops.cuda import _build
 
     tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None
-    sass = subprocess.run([str(tool), "--dump-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    return len(re.findall(r"\bHMMA\.", sass))
+    return _hmma_by_function(subprocess.run([str(tool), "--dump-sass", str(lib)], check=True,
+                                            capture_output=True, text=True).stdout)
+
+
+def _hmma_by_function(sass):
+    """{mangled name: {"bf16": n, "tf32": n, "other": n}} of a SASS dump:
+    each function's HMMA instructions by the operand type in their name."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = fn.group(1)
+            counts[name] = dict(bf16=0, tf32=0, other=0)
+            continue
+        op = re.search(r"\bHMMA\.(\S+)", line)
+        if op and name:
+            kind = "bf16" if "BF16" in op.group(1) else "tf32" if "TF32" in op.group(1) else "other"
+            counts[name][kind] += 1
+    return counts
+
+
+def _build_instances(log, hmma):
+    """Per kernel instance of a library: label, dtype, registers, spill
+    bytes and HMMA by operand type (None without cuobjdump)."""
+    rows = []
+    for inst in _ptxas_instances(log):
+        label, dtype = _instance_label(inst["name"])
+        counts = (hmma or {}).get(inst["name"], dict(bf16=0, tf32=0, other=0))
+        rows.append(dict(label=label, dtype=dtype, registers=inst["registers"],
+                         spill_bytes=inst["spill_bytes"],
+                         **({f"hmma_{k}": v for k, v in counts.items()} if hmma is not None
+                            else dict(hmma_bf16=None, hmma_tf32=None, hmma_other=None))))
+    return rows
+
+
+def _mma_faults(instances):
+    """Tensor-core instances that issue the wrong MMAs: a bfloat16 instance
+    with no bf16 HMMA or with any TF32 one, a float32 instance with no TF32
+    HMMA or with any bf16 one; and any whose dtype the name does not say."""
+    want = {"bfloat16": ("hmma_bf16", "hmma_tf32"), "float32": ("hmma_tf32", "hmma_bf16")}
+    return [r["label"] for r in instances if r["dtype"] not in want or (
+        r["hmma_bf16"] is not None
+        and (r[want[r["dtype"]][0]] == 0 or r[want[r["dtype"]][1]] or r["hmma_other"]))]
+
+
+def _occupancy(name, *sizes):
+    """What the launch of library ``name`` at ``sizes`` (its ``<name>_occupancy``
+    entry's arguments) holds of an SM: blocks resident, threads, dynamic
+    shared bytes, registers a thread, local (spill) bytes a thread."""
+    import ctypes
+
+    from channelestimationtransformer_torch.ops.cuda import _build
+
+    fn = getattr(_build.load(name), f"{name}_occupancy")
+    fn.argtypes = [ctypes.c_int] * len(sizes) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(*sizes, out)
+    if err != 0:
+        fail(f"{name}_occupancy{sizes}: cudaError {err}")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "registers", "local_bytes"), out))
+
+
+def _occupancy_text(occ):
+    return (f"{occ['registers']} registers, {occ['local_bytes']} local bytes, "
+            f"{occ['blocks_per_sm']} blocks of {occ['threads']} threads and "
+            f"{occ['smem_bytes']} shared bytes an SM")
 
 
 def _pairs(l_q, l_k, causal):
@@ -596,10 +705,12 @@ def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
 
             def fwd():
                 return ops.bd_attention_fwd(q, k, v, seed, with_lse=True, **kw)
+            code = ops._DTYPE_CODE[dtype]
             row = dict(shape=label, dtype=dtype_name, b=b, h=h, e=e, l_q=l_q, l_k=l_k,
                        causal=causal, calls_per_step=calls, dropout=DROPOUT,
                        max_abs_err=abs_err, max_rel_err=rel_err, lse_max_abs_err=lse_err,
                        mask_equal=mask_ok, ms=time_ms(torch, fwd),
+                       occupancy=_occupancy(ops.FWD_LIB, b, h, l_q, l_k, e, code),
                        **fwd_bound(l_q, l_k, causal, dtype_name, b=b, h=h, e=e,
                                    with_lse=True))
             times = f"kernel {row['ms'] * 1e3:.1f} us"
@@ -615,7 +726,8 @@ def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
             print(f"{prefix} fwd {label:22s} {dtype_name:8s} dropout {DROPOUT}: max_abs "
                   f"{abs_err:.3e} lse {lse_err:.3e} {'ok' if ok and lse_ok else 'MISMATCH'}, "
                   f"mask {'equal' if mask_ok else 'DIFFERS'} | {times}, bound "
-                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']})", flush=True)
+                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}) | "
+                  f"{_occupancy_text(row['occupancy'])}", flush=True)
             if not (ok and lse_ok and mask_ok):
                 fail(f"forward kernel with dropout disagrees at {label} {dtype_name}")
 
@@ -642,6 +754,7 @@ def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
                        pair_max_abs_err=max(err[0] for err in pair_errs),
                        rtol=BWD_TOL[dtype_name][0], atol=BWD_TOL[dtype_name][1],
                        ms=time_ms(torch, bwd),
+                       occupancy=_occupancy(ops.BWD_LIB, b, h, l_q, l_k, e, 1, code),
                        **bwd_bound(l_q, l_k, causal, dtype_name, b=b, h=h, e=e))
             times = f"kernel {row['ms'] * 1e3:.1f} us"
             if timed:
@@ -666,7 +779,8 @@ def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
                   f"{' '.join(f'{err[0]:.2e}' for err in errs)}, vs the plain pair "
                   f"{' '.join(f'{err[0]:.2e}' for err in pair_errs)} (rtol {row['rtol']}, atol "
                   f"{row['atol']}) {'ok' if ok else 'MISMATCH'} | {times}, bound "
-                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']})", flush=True)
+                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}) | "
+                  f"{_occupancy_text(row['occupancy'])}", flush=True)
             if not ok:
                 fail(f"backward kernel disagrees with its plain version at {label} {dtype_name}")
     return fwd_rows, bwd_rows
@@ -935,8 +1049,9 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
     """The training path (``cfg``, by default the f32 flagship): one step
     through the kernels against one through the plain attention path (same
     weights, batch and generator seed, so the same dropout masks and
-    ProbSparse draws; in f32 the plain path's max pooling takes the kernel
-    path's routing, :func:`_maxpool_routing`), the launch counts of
+    ProbSparse draws; the plain path's max pooling, and a bf16 ``cfg``'s
+    f32 twin's, take the kernel path's routing, :func:`_maxpool_routing`),
+    the launch counts of
     ``train_chunk`` (``per_step``
     a step by key of :func:`_counts`; by default the 13 attention calls on
     the bd forward and backward kernels) and its loss, and steady-state
@@ -962,14 +1077,14 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
     if bf16:
         paths["f32"] = _f32_twin(model, cfg)
     results = {}
-    # In f32 the paths after the first take its max-pooling routing.
-    routing, flips = [], []
+    # The paths after the first take its max-pooling routing (in bf16 the f32
+    # twin too).
+    routing, flips = [], {}
     for i, (path, m) in enumerate(paths.items()):
         m.train()
-        with (_maxpool_routing(torch, routing, replay=i > 0) if not bf16
-              else contextlib.nullcontext([])) as path_flips:
+        with _maxpool_routing(torch, routing, replay=i > 0) as path_flips:
             pred = m(x_enc, x_dec, generator=torch.Generator(device="cuda").manual_seed(4))
-        flips += path_flips
+        flips[path] = sum(path_flips)
         loss = nmse(pred, target)
         loss.backward()
         results[path] = (pred.detach(), loss.item(),
@@ -993,7 +1108,9 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
         grad_text = (f"worst max_abs/max {grad_err[worst]:.3e} at {worst} (cap {BF16_GRAD_CAP}, "
                      f"floor {BF16_GRAD_FLOOR} of the largest f32 gradient); against the f32 "
                      f"twin's gradients: kernel path worst {vs_f32['kernel']:.3e}, plain path "
-                     f"{vs_f32['plain']:.3e} (limit {BF16_GRAD_RATIO}x)")
+                     f"{vs_f32['plain']:.3e} (limit {BF16_GRAD_RATIO}x); max pooling routed "
+                     f"as the kernel path's, whose argmax differs from the plain path's and "
+                     f"the twin's own in {flips['plain']} and {flips['f32']} windows")
     else:
         floor = 1e-3 * max(g.abs().max().item() for g in gp.values())
         grad_err = _grad_errors(gk, gp, floor)
@@ -1006,7 +1123,7 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
               and grad_err[worst] <= GRAD_TOL and stat_err <= MAIN_TOL[1])
         grad_text = (f"worst max_abs/max {grad_err[worst]:.3e} at {worst} (limit {GRAD_TOL}; "
                      f"max pooling routed as the kernel path's, whose argmax differs from "
-                     f"the plain path's own in {sum(flips)} windows)")
+                     f"the plain path's own in {flips['plain']} windows)")
     print(f"{name} step, kernel path vs plain path (same weights, batch, masks; {pk.dtype}): "
           f"loss {lk:.6f} vs {lp:.6f}, output {out_text}, {len(grad_err)} gradients, "
           f"{grad_text}, BatchNorm stats max_abs {stat_err:.3e} {'ok' if ok else 'MISMATCH'}",
@@ -1077,7 +1194,7 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
     return dict(loss=loss, split=split, launches_fwd=fwd, launches_bwd=bwd, launches=launches,
                 dtype=cfg.dtype, step_loss=(lk, lp), step_out_max_abs=out_err,
                 step_grad_rel_err=grad_err, step_grad_vs_f32=vs_f32, step_stats_max_abs=stat_err,
-                step_maxpool_flips=sum(flips), **summary)
+                step_maxpool_flips=sum(flips.values()), **summary)
 
 
 def _unfused_names(name):
@@ -3763,7 +3880,9 @@ def gloo_probe(run_local, t0):
     :func:`gloo_probe_rank` on 2 ranks of the card: ``{op: "ok" | "refused"
     | "not tried"}``, and a line that says so. An op is refused only where
     it started and then raised gloo's error, or a rank died inside it with
-    gloo's transport abort (the ops after it are then not tried). Anything
+    gloo's transport abort (the ops after it are then not tried); a rank
+    that dies after rank 0 saw gloo refuse the op it started last (the
+    closing barrier on the pair that op broke) is that refusal. Anything
     else (no op started, a wrong value, another error, a timeout) fails the
     phase."""
     argv = [sys.executable, str(pathlib.Path(__file__).resolve()), "--gloo-probe-rank"]
@@ -3784,10 +3903,12 @@ def gloo_probe(run_local, t0):
     if died is not None:  # a rank that dies in gloo's transport takes its peer with it
         abort = next((line.strip() for line in text.splitlines() if GLOO_ABORT.search(line)),
                      None)
-        if last is None or verdict[last] == "ok" or abort is None:
+        refused = last is not None and verdict[last] == "refused"
+        if last is None or verdict[last] == "ok" or (abort is None and not refused):
             fail(f"gloo probe failed, and not by gloo refusing an op it had started "
                  f"({died}):\n{text}")
-        verdict[last], died = "refused", abort
+        verdict[last] = "refused"
+        died = abort or f"after gloo refused it, the ranks' closing barrier ({died})"
     elif set(verdict.values()) - {"ok", "refused"}:
         fail(f"gloo probe ended without an answer for every op:\n{text}")
     print("two-axis: gloo with CUDA tensors on one card (2 ranks): "
@@ -4384,12 +4505,29 @@ def main(argv):
     build_info = {}
     for name, (lib, log) in zip(libs, builds):
         (OUT / f"ptxas_{name}.txt").write_text(log)
-        info = build_info[name] = dict(**_ptxas_summary(log), hmma=_hmma_count(lib))
+        hmma = _sass_hmma(lib)
+        instances = _build_instances(log, hmma)
+        info = build_info[name] = dict(
+            **_ptxas_summary(log), instances=instances,
+            hmma=None if hmma is None else sum(sum(c.values()) for c in hmma.values()))
         print(f"build: {lib.name} ({build_s:.2f} s for all {len(libs)}): "
               f"{info['kernels']} kernels, registers {info['registers_min']}-"
               f"{info['registers_max']}, spill stores {info['spill_stores']} bytes, spill "
               f"loads {info['spill_loads']} bytes, static shared memory up to "
               f"{info['smem_max']} bytes (ptxas -v); SASS: {info['hmma']} HMMA", flush=True)
+        if name in TENSOR_CORE_LIBS:
+            for dtype_name in ("float32", "bfloat16"):
+                rows = [r for r in instances if r["dtype"] == dtype_name]
+                regs = [r["registers"] for r in rows]
+                hm = {k: (None if hmma is None else sum(r[f"hmma_{k}"] for r in rows))
+                      for k in ("bf16", "tf32", "other")}
+                print(f"build: {name} {dtype_name} instances: {len(rows)}, registers "
+                      f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
+                      f"{sum(r['spill_bytes'] for r in rows)}; HMMA bf16 {hm['bf16']}, TF32 "
+                      f"{hm['tf32']}, other {hm['other']}", flush=True)
+            faults = _mma_faults(instances)
+            if faults:
+                fail(f"{name}: instances issuing MMAs of another dtype: {faults}")
         if name in TENSOR_CORE_LIBS and (info["hmma"] == 0 or info["spill_stores"]
                                          or info["spill_loads"]):
             fail(f"{name}: a tensor-core library with {info['hmma']} HMMA and "
@@ -4459,6 +4597,19 @@ def main(argv):
     bf16_train_path = phase_train_path(torch, wrappers, card, profile,
                                        cfg=InformerConfig(use_pallas=True, dtype="bfloat16"),
                                        name="bf16 train")
+    # The bd kernels' f32 and bf16 instances side by side, a training step each.
+    for kernel, rows, key in ((ops.FWD_LIB, fwd_rows, "launches_fwd"),
+                              (ops.BWD_LIB, bwd_rows, "launches_bwd")):
+        for dtype_name, path in (("float32", train_path), ("bfloat16", bf16_train_path)):
+            rs = [r for r in rows if r["dtype"] == dtype_name]
+            print(f"{kernel} {dtype_name}, one training step ({sum(r['calls_per_step'] for r in rs)}"
+                  f" calls): {_per_path(rs, 'ms', 'calls_per_step') * 1e3:.1f} us by graph "
+                  f"replay, eager {_per_path(rs, 'eager_ms', 'calls_per_step') * 1e3:.1f} us, "
+                  f"bound {_per_path(rs, 'bound_ms', 'calls_per_step') * 1e3:.1f} us, "
+                  f"{path[key]} launches in {TRAIN_STEPS} steps; "
+                  + "; ".join(f"{r['shape']}: {r['occupancy']['registers']} registers, "
+                              f"{r['occupancy']['blocks_per_sm']} blocks an SM" for r in rs),
+                  flush=True)
 
     # The channel generator and the training driver (cli.train_informer).
     datagen = phase_datagen(torch, card)

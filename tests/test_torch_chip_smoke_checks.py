@@ -1,0 +1,127 @@
+"""Checks of ``chip_smoke.py`` that read text, run here on recorded text:
+
+- the build report, on ptxas and SASS text: each kernel instance's label,
+  dtype, registers and spills, its HMMA by operand type, and the check that
+  a bf16 instance issues bf16 HMMA only and an f32 instance TF32 only (the
+  report runs only beside nvcc on the card);
+- the gloo probe's verdict on its two ranks' output, in the ways a card has
+  ended the probe.
+"""
+
+import pathlib
+import sys
+
+import pytest
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+
+# Two anonymous-namespace kernels as nvcc mangles them; the second
+# namespace's hash ends in digits, right before the kernel name's length.
+BF16_FWD = ("_ZN52_GLOBAL__N__1b8f3b67_19_bd_attention_fwd_cu_ee3bb19023bd_attention_fwd_"
+            "kernelI13__nv_bfloat16Li16ELi96EEEvPKT_S4_S4_PS2_PfPKxiiiiiifijfi")
+F32_BWD = ("_ZN52_GLOBAL__N__801e7971_19_bd_attention_bwd_cu_e932194c23bd_attention_bwd_"
+           "kernelIfLi32ELb1ELb0EEEvPKT_S3_S3_S3_S3_PKfPKxPS1_S8_S8_iiiiifijf")
+LOG = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{BF16_FWD}' for 'sm_90a'
+ptxas info    : Function properties for {BF16_FWD}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 94 registers, used 1 barriers, 452 bytes cmem[0]
+ptxas info    : Compiling entry function '{F32_BWD}' for 'sm_90a'
+ptxas info    : Function properties for {F32_BWD}
+    24 bytes stack frame, 20 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+SASS = f"""
+	code for sm_90a
+		Function : {BF16_FWD}
+        /*0400*/                   HMMA.16816.F32.BF16 R24, R4, R16, R24 ;
+        /*0410*/                   HMMA.16816.F32.BF16 R28, R4, R18, R28 ;
+		Function : {F32_BWD}
+        /*0500*/                   HMMA.1688.F32.TF32 R8, R12, R2, R8 ;
+        /*0510*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;
+"""
+
+
+@pytest.mark.parametrize("name,label,dtype", [
+    (BF16_FWD, "bd_attention_fwd_kernel<bfloat16, 16, 96>", "bfloat16"),
+    (F32_BWD, "bd_attention_bwd_kernel<float32, 32, 1, 0>", "float32"),
+    ("_Z14fixed_pt_kernelPfi", "_Z14fixed_pt_kernelPfi", None),
+])
+def test_instance_label_reads_the_mangled_template_arguments(name, label, dtype):
+    assert chip_smoke._instance_label(name) == (label, dtype)
+
+
+def test_build_instances_from_ptxas_and_sass():
+    rows = chip_smoke._build_instances(LOG, chip_smoke._hmma_by_function(SASS))
+    assert [(r["label"], r["registers"], r["spill_bytes"], r["hmma_bf16"], r["hmma_tf32"])
+            for r in rows] == [
+        ("bd_attention_fwd_kernel<bfloat16, 16, 96>", 94, 0, 2, 0),
+        ("bd_attention_bwd_kernel<float32, 32, 1, 0>", 128, 52, 0, 1)]
+    assert chip_smoke._mma_faults(rows) == []
+    # Without cuobjdump the HMMA counts are unknown and only the dtype is checked.
+    assert chip_smoke._mma_faults(chip_smoke._build_instances(LOG, None)) == []
+
+
+def test_mma_faults_name_instances_issuing_the_other_dtype():
+    def row(label, dtype, bf16, tf32, other=0):
+        return dict(label=label, dtype=dtype, hmma_bf16=bf16, hmma_tf32=tf32, hmma_other=other)
+    rows = [row("ok bf16", "bfloat16", 4, 0), row("ok f32", "float32", 0, 12),
+            row("bf16 with tf32", "bfloat16", 4, 3), row("bf16 with none", "bfloat16", 0, 0),
+            row("f32 with bf16", "float32", 2, 12), row("other hmma", "float32", 0, 12, 1),
+            row("no dtype", None, 4, 0)]
+    assert chip_smoke._mma_faults(rows) == ["bf16 with tf32", "bf16 with none", "f32 with bf16",
+                                            "other hmma", "no dtype"]
+
+
+PROBE_OK = "".join(f"probe {op} start\nprobe {op} True\n"
+                   for op in ("all_gather", "all_reduce", "broadcast"))
+
+
+def _probe(outcome):
+    """chip_smoke.gloo_probe on recorded rank output: ``outcome`` is the
+    ranks' text (they exited 0) or (first line, text) of run_local's error."""
+    def run_local(argv, n, timeout):
+        if isinstance(outcome, str):
+            return [outcome]
+        raise RuntimeError(outcome[0] + "\n" + outcome[1])
+    return chip_smoke.gloo_probe(run_local, 0.0)
+
+
+def test_gloo_probe_reads_a_refused_p2p_that_aborts_the_rank():
+    """P2P ends rank 0 inside the op with gloo's uncaught C++ exception."""
+    text = (PROBE_OK + "probe p2p start\nterminate called after throwing an instance of "
+            "'gloo::IoException'\n  what():  [/pytorch/third_party/gloo/gloo/transport/tcp/"
+            "pair.cc:339] writev [127.0.0.1]:28363: Bad address\n")
+    got = _probe(("2 local ranks: rank 0 exited with -6", text))
+    assert {op: got[op] for op in chip_smoke.GLOO_OPS} == dict(
+        all_gather="ok", all_reduce="ok", broadcast="ok", p2p="refused")
+    assert "Bad address" in got["died"]
+
+
+def test_gloo_probe_reads_a_refused_p2p_whose_pair_breaks_the_closing_barrier():
+    """P2P raises gloo's error in rank 0 (refused), and the closing barrier on
+    the pair it broke then ends both ranks."""
+    text = (PROBE_OK + "probe p2p start\nprobe p2p refused: [/pytorch/third_party/gloo/gloo/"
+            "transport/tcp/pair.cc:339] writev [127.0.0.1]:28363: Bad address\n"
+            "[rank0]: RuntimeError: [/pytorch/third_party/gloo/gloo/transport/tcp/pair.cc:339] "
+            "writev [127.0.0.1]:28363: Bad address\n")
+    got = _probe(("2 local ranks: rank 0 exited with 1", text))
+    assert got["p2p"] == "refused" and got["broadcast"] == "ok"
+    assert "closing barrier" in got["died"]
+
+
+@pytest.mark.parametrize("text", [
+    "",  # no op started
+    PROBE_OK,  # the last op started answered ok, then a rank died
+    PROBE_OK + "probe p2p start\n[rank0]: RuntimeError: some other error\n",  # no gloo abort
+])
+def test_gloo_probe_fails_a_death_that_is_no_refusal(text):
+    with pytest.raises(SystemExit):
+        _probe(("2 local ranks: rank 0 exited with 1", text))
+
+
+def test_gloo_probe_takes_every_op():
+    got = _probe(PROBE_OK + "probe p2p start\nprobe p2p True\n")
+    assert all(got[op] == "ok" for op in chip_smoke.GLOO_OPS) and got["died"] is None

@@ -133,15 +133,17 @@ def test_kernel_with_dropout_matches_plain_version(cuda, b, l_q, l_k, h, e, caus
                                                   (2, 512, 100, 2, 24, False),
                                                   (2, 129, 127, 3, 32, True),
                                                   (3, 17, 16, 5, 8, False)])
-def test_kernel_dropout_mask_is_the_plain_mask(cuda, b, l_q, l_k, h, e, causal):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_dropout_mask_is_the_plain_mask(cuda, b, l_q, l_k, h, e, causal, dtype):
     """The kernel's mask read back through one-hot values: with V's row j
     the unit vector of column j - e*g, output column c of pass g is
-    P_drop[:, e*g + c], nonzero exactly where the key is kept."""
-    q, k, _ = _qkv(b, l_q, l_k, h, e, torch.float32, cuda, seed=2)
+    P_drop[:, e*g + c], nonzero exactly where the key is kept (in bf16 too:
+    a kept probability stays nonzero in bf16)."""
+    q, k, _ = _qkv(b, l_q, l_k, h, e, dtype, cuda, seed=2)
     seed = _seed(cuda, 987654321)
     kept = torch.zeros(b, h, l_q, l_k, dtype=torch.bool, device=cuda)
     for g in range(0, l_k, e):
-        v = torch.zeros(b, l_k, h, e, device=cuda)
+        v = torch.zeros(b, l_k, h, e, device=cuda, dtype=dtype)
         cols = torch.arange(g, min(g + e, l_k), device=cuda)
         v[:, cols, :, cols - g] = 1.0
         out = bd_attention(q, k, v, causal=causal, dropout=0.3, seed=seed)
@@ -245,19 +247,48 @@ def test_backward_kernel_tiling_edges(cuda, b, l_q, l_k, h, e, causal, dtype, dr
     test_backward_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, causal, dtype, dropout)
 
 
-def test_backward_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_backward_kernel_is_deterministic(cuda, dtype):
     """Each gradient element is summed by one warp in a fixed order (no
     atomics): two calls on the same inputs give the same bits."""
-    q, k, v = _qkv(64, 90, 90, 8, 16, torch.float32, cuda, seed=8)
+    q, k, v = _qkv(64, 90, 90, 8, 16, dtype, cuda, seed=8)
     seed = _seed(cuda)
     kw = dict(causal=False, scale=0.25, dropout=0.05)
     o, lse = _reference_forward(q, k, v, seed=seed, with_lse=True, **kw)
     o = o.contiguous()
     do = torch.randn(o.shape, generator=torch.Generator(device=cuda).manual_seed(9),
-                     device=cuda)
+                     device=cuda).to(dtype)
     first = bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
     second = bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# The flagship's six attention shape classes (B 256, H 8, E 16).
+FLAGSHIP_SHAPES = [(256, l_q, l_k, 8, 16, causal)
+                   for l_q, l_k, causal in ((90, 90, False), (45, 45, False), (23, 23, False),
+                                            (12, 12, False), (15, 15, True), (15, 24, False))]
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,causal", FLAGSHIP_SHAPES)
+def test_bf16_kernels_with_dropout_match_plain_versions_at_flagship_shapes(
+        cuda, b, l_q, l_k, h, e, causal):
+    """The bf16 datapath (bf16 MMAs; P, dS and P_drop split into bf16 hi +
+    lo for their products) at a training step's shapes, dropout 0.05: the forward
+    and its lse against the plain forward, and the backward on the kernel
+    forward's output and lse against the plain backward on the same."""
+    q, k, v = _qkv(b, l_q, l_k, h, e, torch.bfloat16, cuda, seed=20 + l_q)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(21),
+                     device=cuda).to(torch.bfloat16)
+    seed = _seed(cuda)
+    kw = dict(causal=causal, scale=e ** -0.5, dropout=0.05)
+    o, lse = bd_attention_fwd(q, k, v, seed, with_lse=True, **kw)
+    want, want_lse = _reference_forward(q, k, v, seed=seed, with_lse=True, **kw)
+    _assert_close(o, want, torch.bfloat16)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    got = bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
+    want = bd_attention_bwd_reference(q, k, v, o, do, lse, seed, **kw)
+    for g, w in zip(got, want):
+        _assert_close(g, w, torch.bfloat16)
 
 
 def test_autograd_through_the_kernels_matches_plain_autograd(cuda):
