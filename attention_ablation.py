@@ -5,8 +5,9 @@
 Builds each of ``csrc/mha_attention_fwd.cu``, ``csrc/bd_attention_fwd.cu``
 and ``csrc/bd_attention_bwd.cu`` as it is and with one part cut out, and
 times every build on the path's calls (random inputs; the bd kernels in f32
-and bf16, mha in f32): the ``xl``
-encoder's L 256 and L 128 mha calls (B 64, H 8, E 128), the flagship's
+and bf16, mha in f32 on its mma route and in bf16 on both routes): the
+``xl`` encoder's L 256 and L 128 mha calls (B 64, H 8, E 128; bf16 also
+L 64), the flagship's
 forward calls with dropout 0.05 and the lse (B 256, H 8, E 16: the encoder's
 L 90, 45, 23 and 12, the decoder's causal 15 and its 15 x 24 cross call)
 and its L 90 and L 45 backward calls. A cut build computes wrong results;
@@ -15,6 +16,16 @@ cut part costs where it does not overlap the rest:
 
 - mha ``no_mma``: no Q K^T and no P V (loads, softmax and stores remain);
 - mha ``no_prefetch``: the next K/V tile is not copied (the first is);
+- mha ``wgmma_no_mma``: the wgmma route without its products (the TMA
+  loads, softmax and stores remain);
+- mha ``wgmma_no_prefetch``: the wgmma route's K/V ring holds one stage, so
+  no tile loads while the one before it is in use;
+- mha ``wgmma_one_consumer``: one consumer warpgroup (64 query rows, key
+  tiles of 64, two blocks an SM) in place of two at every length;
+- mha ``wgmma_bk64_4_stages``: not a cut: key tiles of 64 with two
+  consumers in a ring of four stages (the shared memory of two of 128);
+- mha ``wgmma_one_q_buffer``: not a cut: one Q buffer with two consumers,
+  so the next item's Q loads only after this item's last Q K^T;
 - fwd ``no_mma``: no S and no P V products (both dtypes);
 - fwd ``no_dropout_bits``: no Philox calls (every key kept);
 - fwd ``three_blocks``: not a cut: registers held for three blocks an SM
@@ -84,6 +95,13 @@ CUTS = {
                       ("pv<NT, NO, P::v>(acc, s, vt, g, t, lane);", "")],
     (MHA, "no_prefetch"): [("if (tile + kStages - 1 < n_tiles) load_tile(tile + kStages - 1);",
                             "")],
+    (MHA, "wgmma_no_mma"): [("  wgmma_ss<BK>(s,", "  if (false) wgmma_ss<BK>(s,"),
+                            ("  wgmma_rs<WD>(o, p[kk],", "  if (false) wgmma_rs<WD>(o, p[kk],")],
+    (MHA, "wgmma_no_prefetch"): [("constexpr int kWgStages = 2;", "constexpr int kWgStages = 1;")],
+    (MHA, "wgmma_one_consumer"): [("const bool two = a.Lq > 64;", "const bool two = false;")],
+    (MHA, "wgmma_bk64_4_stages"): [("BK = NC == 2 ? 128 : 64;", "BK = 64;"),
+                                   ("kWgStages = 2;", "kWgStages = 4;")],
+    (MHA, "wgmma_one_q_buffer"): [("q_buffers = NC == 2 ? 2 : 1;", "q_buffers = 1;")],
     (FWD, "no_mma"): [("mma_split_tf32(s[n], ah, al, bh, bl);", ""),
                       ("mma_split_tf32(acc[n], ah, al, bh, bl);", ""),
                       ("mma_bf16(s[n], a, b);", ""),
@@ -143,7 +161,7 @@ CUTS = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: pointers, sizes, then the scalars and the stream.
 ARGTYPES = {
-    MHA: [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+    MHA: [_P] * 4 + [_I] * 6 + [_F, _I, _I, _I, _P],
     FWD: [_P] * 6 + [_I] * 5 + [_F, _I, ctypes.c_uint32, _F, _I, _P],
     BWD: [_P] * 10 + [_I] * 5 + [_F, _I, ctypes.c_uint32, _F, _I, _P],
     CODEWORD: [_P] * 3 + [ctypes.c_longlong, _I, _P],
@@ -200,16 +218,19 @@ def _stream(torch):
     return torch.cuda.current_stream().cuda_stream  # the capture stream inside a graph
 
 
-def mha_call(torch, fn, l):
+def mha_call(torch, fn, shape):
+    """An xl encoder call at L ``l`` in ``dtype`` on ``route`` (0 mma, 1 wgmma)."""
+    l, dtype, route = shape
     b, h, e = 64, 8, 128
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(b, l, h, e, generator=g, device="cuda") for _ in range(3))
+    to = torch.float32 if dtype == "f32" else torch.bfloat16
+    q, k, v = (torch.randn(b, l, h, e, generator=g, device="cuda").to(to) for _ in range(3))
     o = torch.empty_like(q)
     return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, l, l, e, e,
-                      e ** -0.5, 0, 0, _stream(torch))
+                      e ** -0.5, 0, DTYPES[dtype], route, _stream(torch))
 
 
-DTYPES = {"f32": 0, "bf16": 1}  # the bd kernels' dtype codes
+DTYPES = {"f32": 0, "bf16": 1}  # the attention kernels' dtype codes
 
 
 def fwd_call(torch, fn, shape):
@@ -366,7 +387,10 @@ def main(argv=None):
     print(f"card: {card}", flush=True)
     fwd_shapes = ((90, 90, 0), (45, 45, 0), (23, 23, 0), (12, 12, 0), (15, 15, 1), (15, 24, 0))
     # (library, entry, [(label, shape)], call maker)
-    sections = [(MHA, MHA, [(f"L {l} f32", l) for l in (256, 128)], mha_call),
+    mha_shapes = ([(f"L {l} f32", (l, "f32", 0)) for l in (256, 128)]
+                  + [(f"L {l} bf16 wgmma", (l, "bf16", 1)) for l in (256, 128, 64)]
+                  + [(f"L {l} bf16 mma", (l, "bf16", 0)) for l in (256, 128)])
+    sections = [(MHA, MHA, mha_shapes, mha_call),
                 (FWD, FWD, [(f"Lq {s[0]} Lk {s[1]}{' causal' if s[2] else ''} {d}, "
                              "dropout and lse", s + (d,)) for d in DTYPES for s in fwd_shapes],
                  fwd_call),

@@ -1,4 +1,8 @@
-// Multi-head attention forward for Hopper (sm_90a), plain C interface.
+// Multi-head attention forward for Hopper (sm_90a), plain C interface, on
+// two routes: "mma" (mma.sync; every dtype and width) and "wgmma" (bf16,
+// Lq > 32, E and D each 64 or 128, 16-byte aligned tensors: warpgroup MMAs
+// fed by TMA, below the mma route's kernel). The caller picks the route
+// (ops/cuda/mha_attention.py:mha_route); neither falls back to the other.
 //
 // Replaces the TPU kernels ops/pallas/attention.py:_attn_kernel_blhe (:70;
 // l_q == l_k, the model's [B, L, H, E] blocks) and _attn_kernel_small (:31;
@@ -21,8 +25,8 @@
 // 104 us. So operations bound the long calls; the xl model's shorter calls
 // (L 128 and below, the 15-row decoder calls) are bound by bytes.
 //
-// Design (FlashAttention-2 on mma.sync). A warp owns 16 query rows, the m16
-// of the MMA. Scores S = Q K^T, the online softmax (row max and sum over the
+// Route "mma", design (FlashAttention-2 on mma.sync). A warp owns 16 query
+// rows, the m16 of the MMA. Scores S = Q K^T, the online softmax (row max and sum over the
 // quad of 4 lanes that share a row of the C fragment) and O += P V all stay
 // in registers; the [Lq, Lk] scores never reach memory and any Lk fits. Q
 // rows and K and V tiles of BK keys go global -> shared by cp.async, K/V in
@@ -47,7 +51,27 @@
 // SDPA in f32 takes 1,141.9. attention_ablation.py puts 164 us of the L 256
 // call in the loop without MMAs (the K/V tiles from L2) and the rest in the
 // split-TF32 products: each warp re-splits the K and V tiles it shares, and
-// 8 warps an SM do not hide the MMA and ALU latencies.
+// 8 warps an SM do not hide the MMA and ALU latencies. Its bf16 instance
+// takes ~150 us at L 256 (SDPA bf16 ~53), hence the wgmma route: it reloads
+// Q and K fragments from shared memory for every key tile of 32 keys, every
+// thread issues copies, and its MMA is Ampere's.
+//
+// Route "wgmma" (bf16; replaces _attn_kernel_blhe on the xl encoder's L 256,
+// 128 and 64 calls). Bound at L 256 (B 64, H 8, E = D 128): 134 MB over HBM,
+// 40 us; 17.2 GFLOP at 989 TFLOP/s, 17 us: bytes bound it, and every call
+// of the route. Design (FlashAttention-3's shape, kept simple): persistent
+// blocks of a producer warpgroup, whose one thread issues TMA loads of
+// 128-byte-swizzled boxes (Q once an item into one of two buffers, K and V
+// tiles into a two-stage ring, full / empty mbarriers), and one or two
+// consumer warpgroups of 64 query rows that run S = Q K^T as wgmma from
+// shared memory, the online softmax on the accumulators, P rounded to bf16
+// in registers as the A operand of O += P V (V through the transpose bit),
+// and store O through shared memory by TMA; setmaxnreg gives the producer's
+// registers to the consumers (168 at entry, 240 after). Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W (attention_ablation.py): 52 us at L 256
+// (SDPA bf16 53), 28 at L 128 (29), 8 at L 64 (17); without its products
+// the L 256 call still takes 51 us, so the loads and stores (77% of the
+// HBM rate) bound it, not the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +81,7 @@
 
 #include "bd_attention_common.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -111,10 +136,6 @@ __device__ __forceinline__ void scores(float (&s)[NT][4], const float* sq, const
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 template <int NT, int QP, int KP, int W>
 __device__ __forceinline__ void scores(float (&s)[NT][4], const __nv_bfloat16* sq,
                                        const __nv_bfloat16* sk, int g, int t) {
@@ -122,12 +143,12 @@ __device__ __forceinline__ void scores(float (&s)[NT][4], const __nv_bfloat16* s
   for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < W / 16; ++ks) {
-    const __nv_bfloat16* a = sq + g * QP + 16 * ks + 2 * t;
-    const uint32_t af[4] = {ld32(a), ld32(a + 8 * QP), ld32(a + 8), ld32(a + 8 * QP + 8)};
+    uint32_t af[4];
+    frag_a_bf16(af, sq + g * QP + 16 * ks + 2 * t, QP);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const __nv_bfloat16* b = sk + (8 * n + g) * KP + 16 * ks + 2 * t;
-      const uint32_t bf[2] = {ld32(b), ld32(b + 8)};
+      uint32_t bf[2];
+      frag_b_bf16(bf, sk + (8 * n + g) * KP + 16 * ks + 2 * t);
       mma_bf16(s[n], af, bf);
     }
   }
@@ -328,12 +349,301 @@ mha_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --- Route "wgmma" ----------------------------------------------------------
+//
+// bf16, Lq > 32, E and D each 64 or 128, q, k, v and out 16-byte aligned.
+// A persistent block: NC consumer warpgroups (warps 0 .. 4NC - 1), each
+// owning 64 query rows of the block's item, and a producer warpgroup whose
+// first warp's lane 0 issues every TMA load. The producer warpgroup gives
+// its registers to the consumers (setmaxnreg, which acts on whole
+// warpgroups: a lone producer warp's release never reached the consumers,
+// whose request then waited forever). An item is (b, h, a tile of
+// BQ = 64 NC query rows); block i takes items i, i + grid, ... so that the
+// q tiles of one (b, h), adjacent items, run at the same time and read its
+// K and V once from HBM and again from L2. The producer runs ahead across
+// items: the next item's Q tile loads into the other Q buffer (NC 2) or once
+// every consumer has issued its last Q K^T (empty_q), its K and V tiles as
+// soon as a stage of the ring is free (empty_kv), while the consumers finish
+// the item and store it.
+
+constexpr int kWgStages = 2;   // K/V ring
+constexpr int kBox = 64;       // columns of a TMA box: 128 bytes of bf16
+constexpr int kBoxBytes = 64 * 128;  // a box of 64 rows
+
+// NC = 2 for Lq > 64 (BQ 128: K and V cross the SM once for 128 rows) with
+// key tiles of 128; NC = 1 for Lq <= 64 (a second warpgroup would have no
+// rows) with key tiles of 64, two blocks an SM.
+template <int WE, int WD, int NC>
+struct WgLayout {
+  static constexpr int BQ = 64 * NC, BK = NC == 2 ? 128 : 64;
+  static constexpr int threads = 128 * (NC + 1), blocks_per_sm = NC == 1 ? 2 : 1;
+  // Registers a thread after setmaxnreg; the launch bounds give 168 (NC 2)
+  // and 128 (NC 1) at entry, and the two counts share out exactly that.
+  static constexpr int producer_regs = 24, consumer_regs = NC == 2 ? 240 : 232;
+  // Shared memory, each part 1024-byte aligned: Q [buffer][NC][WE/64] boxes
+  // of 64 rows; K [stage][WE/64] and V [stage][WD/64] boxes of BK rows; the
+  // output staging O [NC][WD/64] boxes of 64 rows; then the barriers. Two Q
+  // buffers where they fit (NC 2: 225 KB; NC 1 keeps two blocks an SM).
+  static constexpr int q_buffers = NC == 2 ? 2 : 1;
+  static constexpr int q_bytes = NC * (WE / kBox) * kBoxBytes;  // a buffer
+  static constexpr int k_bytes = (WE / kBox) * BK * 128, v_bytes = (WD / kBox) * BK * 128;
+  static constexpr int o_bytes = NC * (WD / kBox) * kBoxBytes;
+  static constexpr int k_off = q_buffers * q_bytes, v_off = k_off + kWgStages * k_bytes;
+  static constexpr int o_off = v_off + kWgStages * v_bytes, bar_off = o_off + o_bytes;
+  // full_q, empty_q [buffer]; full_k, full_v, empty_kv [stage]
+  static constexpr int n_bars = 2 * q_buffers + 3 * kWgStages;
+  static constexpr int smem = bar_off + 8 * n_bars + 1024;  // + the base's alignment
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, acc);
+  else wgmma_ss_n128(d, a, b, acc);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+// Maps (TMA, 4-D: E or D, H, L, B, bf16, 128-byte swizzle): tq and to boxes
+// of 64 rows, tk and tv boxes of BK rows.
+template <typename T, int WE, int WD, int NC>
+__global__ void __launch_bounds__(WgLayout<WE, WD, NC>::threads,
+                                  WgLayout<WE, WD, NC>::blocks_per_sm)
+mha_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to, int BH, int H, int Lq, int Lk,
+                           float scale_log2, int causal) {
+  static_assert(sizeof(T) == 2, "the wgmma route takes bf16");
+  using Lay = WgLayout<WE, WD, NC>;
+  constexpr int BQ = Lay::BQ, BK = Lay::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sq = smem;
+  uint8_t* sk = smem + Lay::k_off;
+  uint8_t* sv = smem + Lay::v_off;
+  uint8_t* so = smem + Lay::o_off;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + Lay::bar_off);
+  uint64_t* empty_q = full_q + Lay::q_buffers;
+  uint64_t* full_k = empty_q + Lay::q_buffers;
+  uint64_t* full_v = full_k + kWgStages;
+  uint64_t* empty_kv = full_v + kWgStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < Lay::q_buffers; ++qb) {
+      mbar_init(full_q + qb, 1);
+      mbar_init(empty_q + qb, 4 * NC);  // lane 0 of every consumer warp
+    }
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(full_k + st, 1);
+      mbar_init(full_v + st, 1);
+      mbar_init(empty_kv + st, 4 * NC);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int n_qt = (Lq + BQ - 1) / BQ, n_items = BH * n_qt;
+
+  if (warp >= 4 * NC) {
+    // Producer. Its phases: empty waits pass at once in a buffer's first round.
+    setmaxnreg_dec<Lay::producer_regs>();
+    if (warp == 4 * NC && lane == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      int it = 0, n = 0;  // K/V tiles and items so far
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
+        const int bh = item / n_qt, q0 = (item - bh * n_qt) * BQ;
+        const int b = bh / H, h = bh - b * H;
+        const int qb = n % Lay::q_buffers;
+        mbar_wait(empty_q + qb, ((n / Lay::q_buffers) & 1) ^ 1);
+        mbar_arrive_expect_tx(full_q + qb, Lay::q_bytes);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int x = 0; x < WE / kBox; ++x)
+            tma_load_4d(sq + qb * Lay::q_bytes + (c * (WE / kBox) + x) * kBoxBytes, &tq,
+                        full_q + qb, kBox * x, h, q0 + 64 * c, b);
+        const int n_keys = causal ? min(Lk, q0 + BQ) : Lk;
+        for (int j0 = 0; j0 < n_keys; j0 += BK, ++it) {
+          const int st = it % kWgStages;
+          mbar_wait(empty_kv + st, ((it / kWgStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(full_k + st, Lay::k_bytes);
+#pragma unroll
+          for (int x = 0; x < WE / kBox; ++x)
+            tma_load_4d(sk + st * Lay::k_bytes + x * BK * 128, &tk, full_k + st, kBox * x, h, j0,
+                        b);
+          mbar_arrive_expect_tx(full_v + st, Lay::v_bytes);
+#pragma unroll
+          for (int x = 0; x < WD / kBox; ++x)
+            tma_load_4d(sv + st * Lay::v_bytes + x * BK * 128, &tv, full_v + st, kBox * x, h, j0,
+                        b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg, warp wl in it, rows 16 wl + g and + 8 of the
+    // group's 64 (lane = 4 g + t).
+    setmaxnreg_inc<Lay::consumer_regs>();
+    const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+    const int tid = threadIdx.x & 127;
+    uint8_t* my_o = so + wg * (WD / kBox) * kBoxBytes;
+    int it = 0, n = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
+      const int bh = item / n_qt, q0 = (item - bh * n_qt) * BQ;
+      const int b = bh / H, h = bh - b * H;
+      const int r0 = q0 + 64 * wg;  // the warpgroup's first row
+      const int n_keys = causal ? min(Lk, q0 + BQ) : Lk;
+      const int n_tiles = (n_keys + BK - 1) / BK;
+      // Tiles this warpgroup reads: up to its last visible key, none past Lq.
+      const int my_tiles = r0 < Lq ? ((causal ? min(Lk, r0 + 64) : Lk) + BK - 1) / BK : 0;
+      const int i0 = r0 + 16 * wl + g, i1 = i0 + 8;
+      // Keys below these are visible to rows i0 and i1.
+      const int lim0 = causal ? min(Lk, i0 + 1) : Lk, lim1 = causal ? min(Lk, i1 + 1) : Lk;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+      float o[WD / 2];
+#pragma unroll
+      for (int i = 0; i < WD / 2; ++i) o[i] = 0.f;
+
+      // Arrivals on empty_q and empty_kv follow the waits on full_q and
+      // full_k / full_v: a phase an arrival counts toward has then begun.
+      const int qb = n % Lay::q_buffers;
+      const uint32_t q_base = smem_addr(sq + qb * Lay::q_bytes + wg * (WE / kBox) * kBoxBytes);
+      mbar_wait(full_q + qb, (n / Lay::q_buffers) & 1);
+      if (my_tiles == 0 && lane == 0) mbar_arrive(empty_q + qb);
+      for (int tile = 0; tile < n_tiles; ++tile, ++it) {
+        const int st = it % kWgStages;
+        const uint32_t phase = (it / kWgStages) & 1;
+        mbar_wait(full_k + st, phase);
+        if (tile < my_tiles) {
+          const int j0 = tile * BK;
+          // S = Q K^T over E: k16 step ks is box ks / 4, 32 bytes a step within it.
+          const uint32_t k_base = smem_addr(sk + st * Lay::k_bytes);
+          float s[BK / 2];
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < WE / 16; ++ks)
+            wgmma_ss<BK>(s,
+                         sw128_desc(q_base + (ks >> 2) * kBoxBytes + (ks & 3) * 32, 16, 1024),
+                         sw128_desc(k_base + (ks >> 2) * BK * 128 + (ks & 3) * 32, 16, 1024),
+                         ks > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s);
+          if (tile == my_tiles - 1 && lane == 0) mbar_arrive(empty_q + qb);
+
+          // Online softmax in log2 units over rows i0 (registers 4j, 4j + 1)
+          // and i1 (4j + 2, 4j + 3); masks only on a tile past Lk or across
+          // the diagonal.
+          const bool masked = j0 + BK > Lk || (causal && j0 + BK - 1 > r0);
+          float mt0 = -INFINITY, mt1 = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int key = j0 + 8 * j + 2 * t + (c & 1);
+              float x = s[4 * j + c] * scale_log2;
+              if (masked && key >= (c < 2 ? lim0 : lim1)) x = -INFINITY;
+              s[4 * j + c] = x;
+              if (c < 2) mt0 = fmaxf(mt0, x);
+              else mt1 = fmaxf(mt1, x);
+            }
+          const float mn0 = fmaxf(m0, quad_max(mt0)), mn1 = fmaxf(m1, quad_max(mt1));
+          const float base0 = mn0 == -INFINITY ? 0.f : mn0;  // no key seen yet: no inf - inf
+          const float base1 = mn1 == -INFINITY ? 0.f : mn1;
+          const float alpha0 = exp2f(m0 - base0), alpha1 = exp2f(m1 - base1);
+          m0 = mn0;
+          m1 = mn1;
+          float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+            s[4 * j] = exp2f(s[4 * j] - base0);
+            s[4 * j + 1] = exp2f(s[4 * j + 1] - base0);
+            s[4 * j + 2] = exp2f(s[4 * j + 2] - base1);
+            s[4 * j + 3] = exp2f(s[4 * j + 3] - base1);
+            ps0 += s[4 * j] + s[4 * j + 1];
+            ps1 += s[4 * j + 2] + s[4 * j + 3];
+          }
+          l0 = l0 * alpha0 + ps0;  // this lane's keys; summed over the quad at the end
+          l1 = l1 * alpha1 + ps1;
+#pragma unroll
+          for (int j = 0; j < WD / 8; ++j) {
+            o[4 * j] *= alpha0;
+            o[4 * j + 1] *= alpha0;
+            o[4 * j + 2] *= alpha1;
+            o[4 * j + 3] *= alpha1;
+          }
+          // P rounded to bf16 once: keys 16 kk .. 16 kk + 15 are the A operand
+          // of k16 step kk of P V.
+          uint32_t p[BK / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+            p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+            p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+            p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+          }
+
+          // O += P V: V's tile [BK][WD] is B MN-major; k16 step kk starts 16
+          // rows (2,048 bytes) on, and its second 64 columns one box on.
+          mbar_wait(full_v + st, phase);
+          const uint32_t v_base = smem_addr(sv + st * Lay::v_bytes);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_rs<WD>(o, p[kk], sw128_desc(v_base + kk * 2048, BK * 128, 1024));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) fence_regs(p[kk]);
+        } else {
+          mbar_wait(full_v + st, phase);  // its bytes have landed before the stage is refilled
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_kv + st);
+      }
+      if (my_tiles == 0) continue;
+
+      // Epilogue: O / l in bf16 into the staging boxes (swizzled as TMA
+      // reads them, 4-byte stores on 32 distinct banks a warp), then one TMA
+      // store a box, which drops the rows past Lq.
+      const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+      if (tid == 0) tma_store_wait_read<0>();  // the previous item's store has read the boxes
+      named_barrier(1 + wg, 128);
+      const int ra = 16 * wl + g;  // rows ra and ra + 8 of the boxes; both are g modulo 8
+#pragma unroll
+      for (int j = 0; j < WD / 8; ++j) {
+        uint8_t* box = my_o + (j >> 3) * kBoxBytes + (((j & 7) ^ g) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(box + ra * 128) = pack_bf16(o[4 * j] * inv0,
+                                                                 o[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(box + (ra + 8) * 128) =
+            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int x = 0; x < WD / kBox; ++x)
+          tma_store_4d(&to, my_o + x * kBoxBytes, kBox * x, h, r0, b);
+        tma_store_commit();
+      }
+    }
+    if (tid == 0) tma_store_wait_all();
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   void* o;
   int B, H, Lq, Lk, E, D;
   float scale_log2;
   int causal;
+  int* occ;  // set: report the launch's occupancy into it and launch nothing
 };
 
 template <typename T, int W, int WG, int BK, bool VEC>
@@ -346,6 +656,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
+  if (a.occ != nullptr) return occupancy(kernel, kThreads, smem, a.occ);
   const long long items = (long long)((a.Lq + 16 * WG - 1) / (16 * WG)) * a.B * a.H;
   const long long blocks = (items + G - 1) / G;
   if (items > INT_MAX) return cudaErrorInvalidValue;
@@ -372,21 +683,137 @@ cudaError_t launch_dtype(const Args& a, cudaStream_t stream) {
   return vec ? launch_rows<T, 128, true>(a, stream) : launch_rows<T, 128, false>(a, stream);
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a contiguous bf16 [B, L, H, W] tensor as dims (W, H, L, B),
+// boxes of 64 columns x `rows` rows, 128-byte swizzle; reads past L fill
+// zeros, stores past L are dropped.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int L, int H, int W,
+                       int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * W, 2ull * W * H, 2ull * W * H * L};  // bytes, dims 1-3
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int WE, int WD, int NC>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  using Lay = WgLayout<WE, WD, NC>;
+  auto kernel = mha_attention_wgmma_kernel<__nv_bfloat16, WE, WD, NC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::smem);
+  if (err != cudaSuccess) return err;
+  if (a.occ != nullptr) return occupancy(kernel, Lay::threads, Lay::smem, a.occ);
+  // The consumers' setmaxnreg waits until the producer's release covers it:
+  // refuse a build whose allocation at entry could not (it would hang).
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  if (attr.numRegs * Lay::threads < (Lay::consumer_regs * NC + Lay::producer_regs) * 128)
+    return cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Lay::threads,
+                                                           Lay::smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  CUtensorMap mq, mk, mv, mo;
+  if ((err = tensor_map(&mq, a.q, a.B, a.Lq, a.H, WE, 64)) != cudaSuccess ||
+      (err = tensor_map(&mk, a.k, a.B, a.Lk, a.H, WE, Lay::BK)) != cudaSuccess ||
+      (err = tensor_map(&mv, a.v, a.B, a.Lk, a.H, WD, Lay::BK)) != cudaSuccess ||
+      (err = tensor_map(&mo, a.o, a.B, a.Lq, a.H, WD, 64)) != cudaSuccess)
+    return err;
+  const long long items = (long long)((a.Lq + Lay::BQ - 1) / Lay::BQ) * a.B * a.H;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  const long long grid = items < (long long)sms * per_sm ? items : (long long)sms * per_sm;
+  kernel<<<(unsigned)grid, Lay::threads, Lay::smem, stream>>>(
+      mq, mk, mv, mo, a.B * a.H, a.H, a.Lq, a.Lk, a.scale_log2, a.causal);
+  return cudaGetLastError();
+}
+
+template <int WE>
+cudaError_t launch_wgmma_d(const Args& a, cudaStream_t stream) {
+  const bool two = a.Lq > 64;
+  if (a.D == 64)
+    return two ? launch_wgmma<WE, 64, 2>(a, stream) : launch_wgmma<WE, 64, 1>(a, stream);
+  return two ? launch_wgmma<WE, 128, 2>(a, stream) : launch_wgmma<WE, 128, 1>(a, stream);
+}
+
+// The wgmma route's conditions (mha_attention.py:mha_route), held again here.
+cudaError_t launch_wgmma_route(const Args& a, cudaStream_t stream) {
+  const bool width = (a.E == 64 || a.E == 128) && (a.D == 64 || a.D == 128);
+  if (!width || a.Lq <= 32 || !aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
+      !aligned16(a.o))
+    return cudaErrorInvalidValue;
+  return a.E == 64 ? launch_wgmma_d<64>(a, stream) : launch_wgmma_d<128>(a, stream);
+}
+
+cudaError_t dispatch(const Args& a, int dtype, int route, cudaStream_t stream) {
+  if (a.B <= 0 || a.H <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.E <= 0 || a.E > kMaxW || a.D <= 0 ||
+      a.D > kMaxW)
+    return cudaErrorInvalidValue;
+  if (route == 1) return dtype == 1 ? launch_wgmma_route(a, stream) : cudaErrorInvalidValue;
+  if (route != 0) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch_dtype<float>(a, stream);
+    case 1: return launch_dtype<__nv_bfloat16>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q [B, Lq, H, E],
-// k [B, Lk, H, E], v [B, Lk, H, D], o [B, Lq, H, D]. Returns a cudaError_t (0
-// on success); launches on `stream` and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16; route: 0 = "mma" (every dtype and
+// width), 1 = "wgmma" (bf16, Lq > 32, E and D each 64 or 128, 16-byte
+// aligned tensors; else cudaErrorInvalidValue). Tensors are contiguous: q
+// [B, Lq, H, E], k [B, Lk, H, E], v [B, Lk, H, D], o [B, Lq, H, D]. Returns
+// a cudaError_t (0 on success); launches on `stream` and does not
+// synchronise.
 extern "C" int mha_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                  int H, int Lq, int Lk, int E, int D, float scale, int causal,
-                                 int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || E <= 0 || E > kMaxW || D <= 0 || D > kMaxW)
-    return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, B, H, Lq, Lk, E, D, scale * kLog2e, causal};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)launch_dtype<float>(a, s);
-    case 1: return (int)launch_dtype<__nv_bfloat16>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                                 int dtype, int route, void* stream) {
+  const Args a{q, k, v, o, B, H, Lq, Lk, E, D, scale * kLog2e, causal, nullptr};
+  return (int)dispatch(a, dtype, route, static_cast<cudaStream_t>(stream));
+}
+
+// What a launch of `route` at these sizes holds of an SM, nothing
+// launched: out[5] as occupancy() in bd_attention_common.cuh (the wgmma
+// route's instances are chosen without the tensors' alignment).
+extern "C" int mha_attention_fwd_occupancy(int B, int H, int Lq, int Lk, int E, int D, int dtype,
+                                           int route, int* out) {
+  // Any 16-byte aligned address stands for the tensors: nothing is read.
+  const void* aligned = reinterpret_cast<const void*>(static_cast<uintptr_t>(256));
+  const Args a{aligned, aligned, aligned, const_cast<void*>(aligned), B, H, Lq, Lk, E, D,
+               1.f, 0, out};
+  return (int)dispatch(a, dtype, route, nullptr);
 }

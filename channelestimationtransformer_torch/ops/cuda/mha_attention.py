@@ -13,9 +13,15 @@ It is the model's eval route for the shapes that ``bd_attention`` does not
 take (``models/attention.py``). Forward only, as the TPU kernels: it raises
 where autograd would need its gradient.
 
-CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise, never falling back. Each launch adds one to
-``mha_attention_fwd.launches``.
+The kernel has two routes, chosen by :func:`mha_route` and passed to its C
+entry: "wgmma" (bf16, Lq > 32, E and D each 64 or 128, 16-byte aligned
+tensors), a Hopper kernel of warpgroup MMAs fed by TMA from a producer warpgroup,
+and "mma" (every other call), the ``mma.sync`` kernel.
+
+CPU tensors take the plain version; CUDA tensors launch the kernel on their
+route or raise, never falling back to the other route or the plain version.
+Each launch adds one to ``mha_attention_fwd.launches`` and to its route's
+count in ``mha_attention_fwd.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,24 @@ from .bd_attention import bd_attention_reference
 LIB = "mha_attention_fwd"
 MAX_WIDTH = 128  # E and D limit of the kernel's shared-memory tiles
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("mma", "wgmma")  # the C entry's route codes, in order
+WGMMA_WIDTHS = (64, 128)  # E and D of the wgmma route: one or two 128-byte TMA boxes
+
+
+def mha_route(dtype, l_q: int, l_k: int, e: int, d: int, aligned: bool) -> str:
+    """The kernel route of a call: "wgmma" for bf16 with ``l_q > 32`` (a
+    consumer warpgroup takes 64 query rows), E and D each 64 or 128, and q,
+    k, v ``aligned`` to 16 bytes (TMA's rule); "mma" for every other call
+    (f32, short queries, other widths). ``l_k`` takes any length on either
+    route."""
+    wgmma = (dtype == torch.bfloat16 and l_q > 32 and e in WGMMA_WIDTHS
+             and d in WGMMA_WIDTHS and aligned)
+    return "wgmma" if wgmma else "mma"
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def mha_attention_reference(q, k, v, *, causal: bool = False, scale: float | None = None):
@@ -43,7 +67,8 @@ def _lib():
     fn = getattr(_build.load(LIB), LIB)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -73,8 +98,10 @@ def _check(q, k, v):
 def mha_attention_fwd(q, k, v, *, causal: bool, scale: float):
     """The kernel's wrapper: ``out`` ``[B, Lq, H, D]`` in q's dtype. CPU
     tensors take :func:`mha_attention_reference`; CUDA tensors launch the
-    kernel on the current stream without synchronising, and each launch
-    adds one to ``mha_attention_fwd.launches``."""
+    kernel on :func:`mha_route`'s route, on the current stream without
+    synchronising, and each launch adds one to
+    ``mha_attention_fwd.launches`` and to its route's count in
+    ``mha_attention_fwd.launches_by_route``."""
     if q.device.type == "cpu":
         return mha_attention_reference(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
@@ -83,18 +110,22 @@ def mha_attention_fwd(q, k, v, *, causal: bool, scale: float):
         raise ValueError("mha_attention kernel takes contiguous [B, L, H, E] tensors")
     b, l_q, h, e = q.shape
     l_k, d = k.shape[1], v.shape[3]
+    route = mha_route(q.dtype, l_q, l_k, e, d, aligned16(q, k, v))
     out = torch.empty(b, l_q, h, d, device=q.device, dtype=q.dtype)
     with torch.cuda.device(q.device):
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, l_q, l_k,
-                     e, d, scale, int(bool(causal)), _DTYPE_CODE[q.dtype],
+                     e, d, scale, int(bool(causal)), _DTYPE_CODE[q.dtype], ROUTES.index(route),
                      torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"mha_attention_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"mha_attention_fwd launch failed on the {route} route: "
+                           f"cudaError {err}")
     mha_attention_fwd.launches += 1
+    mha_attention_fwd.launches_by_route[route] += 1
     return out
 
 
 mha_attention_fwd.launches = 0
+mha_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def mha_attention(q, k, v, *, causal: bool = False, scale: float | None = None) -> torch.Tensor:

@@ -22,11 +22,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    from the sources here; per library its kernels' registers, spill bytes
    and static shared memory from ``-Xptxas -v`` (the full logs go beside
    ``chip_smoke.json``, as ``ptxas_<name>.txt``) and its count of
-   tensor-core MMA instructions (HMMA) in the SASS; the three attention
-   libraries must show HMMA > 0 and no spills, and for each of them a line
-   per dtype gives its instances' registers, spills and HMMA by operand
-   type: every bf16 instance must issue bf16 HMMA only and every f32 one
-   TF32 only (per-instance rows in ``chip_smoke.json``);
+   tensor-core MMA instructions in the SASS (mma.sync's HMMA and wgmma's
+   HGMMA); the three attention libraries must show MMAs and no spills, and
+   for each of them a line per dtype gives its instances' registers, spills
+   and MMAs by operand type: every bf16 instance must issue bf16 MMAs only,
+   every f32 one TF32 only, and the mha library's wgmma instances HGMMA,
+   each on a line of its own (per-instance rows in ``chip_smoke.json``);
 3. kernel, eval: the bd-attention forward kernel (dropout 0) against its
    plain version at the six flagship shape classes in float32 and bfloat16,
    with kernel, plain and ``F.scaled_dot_product_attention`` (yardstick
@@ -34,7 +35,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. kernel, xl eval: the mha-attention forward kernel against its plain
    version at the six shape classes of the xl model (B 64, H 8, E 128) and
    two shapes beyond the model (D != E; a long non-square causal shape), in
-   float32 and bfloat16, timed likewise;
+   float32 and bfloat16, timed likewise; each row names its route ("wgmma":
+   bf16 at Lq > 32, E and D 64 or 128; "mma" the rest), checks that its
+   launch counted on that route, and gives the launch's registers and
+   blocks an SM (``mha_attention_fwd_occupancy``);
 5. quant fixed: the fixed-point kernel against its plain version bit for
    bit at 128 x 128, 128 x 64, 2^20, 2^24 and 1,000,003 elements, formats
    (wl, fl) (8, 4), (4, 0), (15, 11), (2, -2), symmetric and clamp on and
@@ -65,8 +69,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    the checks of 3, 4 and 7 (the
    kernels' own times alone) at the scale demo's and the int8 A/B's shapes
    that those lists leave out (``scale_kernel_shapes``: the bd kernels at
-   E 32 and 64, mha at L 256, E 64), so that every kernel instance the
-   scale phases launch is held against its plain version;
+   E 32 and 64, mha at L 256, E 64, its rows timed beside SDPA with their
+   routes as in 4), so that every kernel instance the scale phases launch
+   is held against its plain version;
 8. eval path: ``build_informer(InformerConfig(use_pallas=True))`` at full
    width and ``eval_chunk`` over 8 batches of 256 from a 65,536-sample
    dataset resident on the card, with the kernels' launch counts (all 104
@@ -76,7 +81,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 9. xl eval path: the same at the xl width (d_model 1024, d_ff 4096, seq_len
    256; ``experiments/scale_demo.py``'s "xl" row), 8 batches of 64 from a
    4,096 x 266 x 16 dataset: all 104 attention calls through the mha
-   kernel, none through the bd kernels;
+   kernel (its mma route), none through the bd kernels;
 10. ptq eval path: the flagship's FP32 weights quantized at wl 8, fl 4
    (nearest, then stochastic) by ``apply_weight_quant`` with one
    ``FixedPointWeightQuant``: one grouped fixed-point launch a
@@ -105,7 +110,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    f32 twin's (same weights and batch) with cuBLAS's bf16 reductions off
    and on, eval samples/s in turns with the twin;
 14. bf16 xl eval path: the xl row in bf16 (``scale_demo.py``'s default
-   dtype) as in 9: 104 mha launches, no bd launch, the same checks;
+   dtype) as in 9: 104 mha launches, 40 on the wgmma route (L 256, 128
+   and 64) and 64 on mma, no bd launch, the same checks;
 15. bf16 lsq-fibbinary eval batch: one batch of the model of 11 in bf16
    (72 codeword and 13 bd launches) against its plain path;
 16. bf16 training path: 12 in bf16: the step through the kernels against
@@ -216,7 +222,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    the routing's counts (``attention_calls``), FLOPs a step and the share of
    the card's peak;
 34. int8 A/B: ``cli.int8_scale_ab`` at its four sizes, repetitions cut: bd,
-   mha and GEMM launches against the routing's counts, finite timings.
+   mha (by route) and GEMM launches against the routing's counts, finite
+   timings.
 35. analysis: the bd forward against its plain version at every shape of
    ``cli.timing_analysis``'s full sweep that no phase above holds (E 8, 16,
    32; the sweep's lengths); ``utils.profiling.trace`` over one flagship eval
@@ -280,7 +287,10 @@ the later paths and drivers (``int8_eval_launches``,
 backward's and the mha kernel's entries do theirs
 (``ring_eval_launches_world1``). Each
 attention kernel's entry carries its bf16 instance (time, launches, bound at
-bf16 bytes or tensor-core FLOPs, SDPA) under ``bfloat16``.
+bf16 bytes or tensor-core FLOPs, SDPA) under ``bfloat16``; the mha entry its
+launches by route, and the mha kernel's wgmma route has an entry of its
+own (``mha_attention_fwd[wgmma]``: the bf16 xl batch's calls on that route,
+with each shape's time, bound, SDPA and occupancy).
 
 With ``--profile`` each path's line also gives its device kernel launches
 per chunk. The last three lines are the card's name and power limit, the kernels' JSON
@@ -490,9 +500,9 @@ def _instance_label(name):
 
 
 def _sass_hmma(lib):
-    """Tensor-core MMA instructions (HMMA) in a library's SASS by kernel, by
-    cuobjdump beside nvcc (:func:`_hmma_by_function`); None where the
-    toolkit has no cuobjdump."""
+    """Tensor-core MMA instructions (HMMA and Hopper's HGMMA) in a library's
+    SASS by kernel, by cuobjdump beside nvcc (:func:`_hmma_by_function`);
+    None where the toolkit has no cuobjdump."""
     from channelestimationtransformer_torch.ops.cuda import _build
 
     tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
@@ -503,44 +513,52 @@ def _sass_hmma(lib):
 
 
 def _hmma_by_function(sass):
-    """{mangled name: {"bf16": n, "tf32": n, "other": n}} of a SASS dump:
-    each function's HMMA instructions by the operand type in their name."""
+    """{mangled name: {"bf16": n, "tf32": n, "other": n, "hgmma": n}} of a
+    SASS dump: each function's tensor-core MMAs (mma.sync's HMMA and
+    wgmma's HGMMA) by the operand type in their name, and how many of them
+    are HGMMA."""
     counts, name = {}, None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             name = fn.group(1)
-            counts[name] = dict(bf16=0, tf32=0, other=0)
+            counts[name] = dict(bf16=0, tf32=0, other=0, hgmma=0)
             continue
-        op = re.search(r"\bHMMA\.(\S+)", line)
+        op = re.search(r"\b(HG?MMA)\.(\S+)", line)
         if op and name:
-            kind = "bf16" if "BF16" in op.group(1) else "tf32" if "TF32" in op.group(1) else "other"
+            kind = "bf16" if "BF16" in op.group(2) else "tf32" if "TF32" in op.group(2) else "other"
             counts[name][kind] += 1
+            counts[name]["hgmma"] += op.group(1) == "HGMMA"
     return counts
 
 
 def _build_instances(log, hmma):
     """Per kernel instance of a library: label, dtype, registers, spill
-    bytes and HMMA by operand type (None without cuobjdump)."""
+    bytes, tensor-core MMAs by operand type (``hmma_*``: HMMA and HGMMA)
+    and its HGMMA (``hgmma``); the counts None without cuobjdump."""
     rows = []
     for inst in _ptxas_instances(log):
         label, dtype = _instance_label(inst["name"])
-        counts = (hmma or {}).get(inst["name"], dict(bf16=0, tf32=0, other=0))
+        counts = (hmma or {}).get(inst["name"], dict(bf16=0, tf32=0, other=0, hgmma=0))
         rows.append(dict(label=label, dtype=dtype, registers=inst["registers"],
                          spill_bytes=inst["spill_bytes"],
-                         **({f"hmma_{k}": v for k, v in counts.items()} if hmma is not None
-                            else dict(hmma_bf16=None, hmma_tf32=None, hmma_other=None))))
+                         **({f"hmma_{k}": counts[k] for k in ("bf16", "tf32", "other")}
+                            if hmma is not None
+                            else dict(hmma_bf16=None, hmma_tf32=None, hmma_other=None)),
+                         hgmma=counts["hgmma"] if hmma is not None else None))
     return rows
 
 
 def _mma_faults(instances):
     """Tensor-core instances that issue the wrong MMAs: a bfloat16 instance
-    with no bf16 HMMA or with any TF32 one, a float32 instance with no TF32
-    HMMA or with any bf16 one; and any whose dtype the name does not say."""
+    with no bf16 MMA (HMMA or HGMMA) or with any TF32 one, a float32
+    instance with no TF32 MMA or with any bf16 one, a wgmma instance (its
+    name says so) with no HGMMA; and any whose dtype the name does not say."""
     want = {"bfloat16": ("hmma_bf16", "hmma_tf32"), "float32": ("hmma_tf32", "hmma_bf16")}
     return [r["label"] for r in instances if r["dtype"] not in want or (
         r["hmma_bf16"] is not None
-        and (r[want[r["dtype"]][0]] == 0 or r[want[r["dtype"]][1]] or r["hmma_other"]))]
+        and (r[want[r["dtype"]][0]] == 0 or r[want[r["dtype"]][1]] or r["hmma_other"]
+             or ("wgmma" in r["label"] and not r.get("hgmma"))))]
 
 
 def _occupancy(name, *sizes):
@@ -613,19 +631,41 @@ def _inputs(torch, gen, dtype, l_q, l_k, *, b=B, h=H, e=E, d=None):
                  for l, w in ((l_q, e), (l_k, e), (l_k, e if d is None else d)))
 
 
+def _mha_route(mha, q, k, v, code):
+    """The mha route of a call and what its launch holds of an SM."""
+    b, l_q, h, e = q.shape
+    l_k, d = k.shape[1], v.shape[3]
+    route = mha.mha_route(q.dtype, l_q, l_k, e, d, mha.aligned16(q, k, v))
+    return route, _occupancy(mha.LIB, b, h, l_q, l_k, e, d, code, mha.ROUTES.index(route))
+
+
 def phase_kernel(torch, F, kernel_fn, reference, shapes, prefix="kernel", seed=0,
-                 timed=True):
+                 timed=True, mha=None):
     """An eval forward kernel against its plain version at ``shapes``
     ((label, l_q, l_k, causal, calls per eval batch, b, h, e, d)) in float32
     and bfloat16, with kernel, plain and ``F.scaled_dot_product_attention``
-    times (``timed=False``: the kernel's graph time alone)."""
+    times (``timed=False``: the kernel's graph time alone). With ``mha``
+    (the mha wrapper's module) each row names its route, checks that the
+    launch counted on that route, and reports the launch's occupancy."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for code, (dtype_name, dtype) in enumerate((("float32", torch.float32),
+                                                ("bfloat16", torch.bfloat16))):
         for label, l_q, l_k, causal, calls, b, h, e, d in shapes:
             q, k, v = _inputs(torch, gen, dtype, l_q, l_k, b=b, h=h, e=e, d=d)
+            routed = {}
+            if mha is not None:
+                route, occ = _mha_route(mha, q, k, v, code)
+                before = dict(mha.mha_attention_fwd.launches_by_route)
+                routed = dict(route=route, occupancy=occ)
             got = kernel_fn(q, k, v, causal=causal)
             torch.cuda.synchronize()
+            if mha is not None:
+                counted = {r: n - before[r]
+                           for r, n in mha.mha_attention_fwd.launches_by_route.items()}
+                if counted != {r: int(r == route) for r in counted}:
+                    fail(f"{prefix} {label} {dtype_name}: launches by route {counted}, "
+                         f"not one on the {route} route")
             want = reference(q.float(), k.float(), v.float(), causal=causal)
             rtol, atol = TOL[dtype_name]
             abs_err, rel_err, ok = _compare(torch, got, want.to(dtype), TOL[dtype_name])
@@ -636,7 +676,7 @@ def phase_kernel(torch, F, kernel_fn, reference, shapes, prefix="kernel", seed=0
             row = dict(shape=label, dtype=dtype_name, b=b, h=h, e=e, d=d, l_q=l_q, l_k=l_k,
                        causal=causal, calls_per_batch=calls, max_abs_err=abs_err,
                        max_rel_err=rel_err, rtol=rtol, atol=atol, ms=time_ms(torch, kernel),
-                       **fwd_bound(l_q, l_k, causal, dtype_name, b=b, h=h, e=e, d=d))
+                       **fwd_bound(l_q, l_k, causal, dtype_name, b=b, h=h, e=e, d=d), **routed)
             times = f"kernel {row['ms'] * 1e3:.1f} us"
             if timed:
                 row.update(eager_ms=eager_ms(torch, kernel),
@@ -646,6 +686,8 @@ def phase_kernel(torch, F, kernel_fn, reference, shapes, prefix="kernel", seed=0
                 times += (f" (eager {row['eager_ms'] * 1e3:.1f}), plain "
                           f"{row['plain_ms'] * 1e3:.1f} us, sdpa {row['library_ms'] * 1e3:.1f} us")
             rows.append(row)
+            if routed:
+                times += f" | {routed['route']} route: {_occupancy_text(routed['occupancy'])}"
             print(f"{prefix} {label:24s} {dtype_name:8s} max_abs {abs_err:.3e} max_rel "
                   f"{rel_err:.3e} (rtol {rtol}, atol {atol}) {'ok' if ok else 'MISMATCH'} | "
                   f"{times}, bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']})",
@@ -851,6 +893,8 @@ COUNT_LABELS = dict(bd_fwd="bd", bd_bwd="bd backward", mha="mha", fixed="fixed",
 def _zero_counts(wrappers):
     for fn in wrappers.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def _counts(wrappers):
@@ -904,10 +948,12 @@ def _profile(torch, run, label, card, out_name):
 
 
 def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
-                    samples=65536, slots=None, batch=256, expected=None, beside=None):
+                    samples=65536, slots=None, batch=256, expected=None, beside=None,
+                    expected_routes=None):
     """``eval_chunk`` of 8 batches through the kernels: the launch counts
     ``expected`` (by key of :func:`_counts`; by default every attention call
-    on the bd forward kernel) and none elsewhere, a finite NMSE, one batch
+    on the bd forward kernel) and none elsewhere, the mha launches by route
+    ``expected_routes`` where given, a finite NMSE, one batch
     against the plain path (each model given a generator of the same seed,
     so a ProbSparse model draws the same ``index_sample``), and samples/s of
     both paths and of the ``beside`` models (name -> model, or a function
@@ -935,13 +981,17 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
     res = run(model, 1)
     torch.cuda.synchronize()
     launches = _counts(wrappers)
+    routes = dict(wrappers["mha"].launches_by_route)
     expected = {key: (expected or {"bd_fwd": 13 * n_batches}).get(key, 0) for key in launches}
     nmse, split = res["nmse"].item(), res["split"].cpu().tolist()
     print(f"{name}: eval_chunk {n_batches} x {batch}: nmse {nmse:.6f}, split "
-          f"{[round(s, 6) for s in split]}, launches {_launch_report(launches, expected)}",
-          flush=True)
+          f"{[round(s, 6) for s in split]}, launches {_launch_report(launches, expected)}"
+          + (f"; mha by route {routes} (expected {expected_routes})" if expected_routes
+             else ""), flush=True)
     if launches != expected:
         fail(f"kernels launched {launches} times on the {name}, not {expected}")
+    if expected_routes is not None and routes != expected_routes:
+        fail(f"mha launched {routes} times by route on the {name}, not {expected_routes}")
     if not (math.isfinite(nmse) and len(split) == cfg.pred_len
             and all(math.isfinite(s) for s in split)):
         fail(f"non-finite NMSE on the {name}")
@@ -1000,8 +1050,9 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
     if profile:
         summary.update(_profile(torch, lambda path: run(model if path == "kernel" else plain, 7),
                                 "eval_chunk", card, f"profile_{name.replace(' ', '_')}.txt"))
-    return dict(nmse=nmse, split=split, launches=launches, vs_plain_max_abs=err,
-                parameters=n_params, batch_flops=batch_flops, dtype=cfg.dtype,
+    return dict(nmse=nmse, split=split, launches=launches, launches_by_route=routes,
+                vs_plain_max_abs=err, parameters=n_params, batch_flops=batch_flops,
+                dtype=cfg.dtype,
                 vs_f32_nmse=vs_f32.get(False), vs_f32_nmse_reduced=vs_f32.get(True), **summary)
 
 
@@ -2817,6 +2868,50 @@ def routed_calls(cfg, training):
     return bd, mha
 
 
+def weight_only_call_dtypes(torch, cfg):
+    """The dtype of each attention call (:func:`attention_calls`' order) of
+    ``cfg``'s bf16 model under weight-only int8 serving: a served distil
+    conv's BatchNorm runs on its f32 running statistics, so an encoder
+    stack's calls after its first distil conv see f32, and so does its
+    output; the decoder's first self call sees its bf16 embedding, its cross
+    calls the encoder's output, and every later call the result of those."""
+    dtypes, enc_out = [], torch.bfloat16
+    for n_layers in cfg.e_layers:
+        dtype = torch.bfloat16
+        for j in range(n_layers):
+            dtypes.append(dtype)
+            if cfg.distil and j < n_layers - 1:
+                dtype = torch.float32
+        enc_out = torch.promote_types(enc_out, dtype)
+    dec = torch.bfloat16
+    for _ in range(cfg.d_layers):
+        dtypes.append(dec)
+        dec = torch.promote_types(dec, enc_out)
+        dtypes.append(dec)
+    return dtypes
+
+
+def mha_routes(cfg, dtype, forwards=1):
+    """Launches of each mha route that ``forwards`` eval forwards of
+    ``cfg``'s model send (the calls of :func:`routed_calls` on mha, at
+    ``dtype``, or at each call's dtype where ``dtype`` is a list; the
+    model's q, k, v are fresh contiguous copies, so aligned)."""
+    from channelestimationtransformer_torch.ops.cuda.bd_attention import MAX_E, MAX_LK, MAX_LQ
+    from channelestimationtransformer_torch.ops.cuda.mha_attention import (
+        MAX_WIDTH,
+        ROUTES,
+        mha_route,
+    )
+
+    calls = attention_calls(cfg)
+    dtypes = dtype if isinstance(dtype, list) else [dtype] * len(calls)
+    counts = dict.fromkeys(ROUTES, 0)
+    for (l_q, l_k, e), dt in zip(calls, dtypes):
+        if e <= MAX_WIDTH and not (l_k <= MAX_LK and l_q <= MAX_LQ and e <= MAX_E):
+            counts[mha_route(dt, l_q, l_k, e, e, True)] += forwards
+    return counts
+
+
 def scale_kernel_shapes():
     """The attention calls of the scale demo's and the int8 A/B's sizes that
     ``SHAPES`` and ``XL_SHAPES`` leave out, each distinct (l_q, l_k, causal,
@@ -2899,8 +2994,11 @@ INT8_AB_SCAN, INT8_AB_REPS = 2, 2
 def phase_int8_scale_ab(torch, wrappers, gemms, card):
     """``cli.int8_scale_ab`` at its four sizes (``--scan`` and ``--reps``
     cut), one size a call: bd and mha launches against the routing's eval
-    counts for all four variants, int8 GEMMs (W8A8) and bf16 -> f32 GEMMs
-    (weight-only) one a served layer a forward, finite timings."""
+    counts for all four variants, mha's by route (the f32 and W8A8 variants'
+    attention in f32, the bf16 one's in bf16, the weight-only one's at
+    :func:`weight_only_call_dtypes`), int8 GEMMs
+    (W8A8) and bf16 -> f32 GEMMs (weight-only) one a served layer a
+    forward, finite timings."""
     from channelestimationtransformer_torch.cli import int8_scale_ab
     from channelestimationtransformer_torch.core.config import InformerConfig
     from channelestimationtransformer_torch.models.informer import InformerStack
@@ -2916,6 +3014,10 @@ def phase_int8_scale_ab(torch, wrappers, gemms, card):
             served = len(build_int8_table(InformerStack(cfg)))
         expected = {key: 0 for key in wrappers}
         expected.update(bd_fwd=4 * forwards * bd, mha=4 * forwards * mha)
+        variants = (mha_routes(cfg, torch.float32, 2 * forwards),
+                    mha_routes(cfg, torch.bfloat16, forwards),
+                    mha_routes(cfg, weight_only_call_dtypes(torch, cfg), forwards))
+        want_routes = {r: sum(v[r] for v in variants) for r in variants[0]}
         want_gemm = dict(int8=forwards * served, bf16_f32=forwards * served)
         _zero_counts(wrappers)
         _zero_counts(gemms)
@@ -2926,18 +3028,21 @@ def phase_int8_scale_ab(torch, wrappers, gemms, card):
                                          str(folder / f"int8_scale_ab_{name}.json")])
         secs = time.perf_counter() - t0
         launches, gemm = _counts(wrappers), _counts(gemms)
+        routes = dict(wrappers["mha"].launches_by_route)
         ms = {v: row[f"ms_{v}"] for v in ("float32", "bfloat16", "int8", "int8_wo")}
         print(f"int8 A/B {name} (d_model {d_model}, seq_len {seq_len}, batch {batch}): "
-              f"{secs:.1f} s; launches {_launch_report(launches, expected)}; GEMMs {gemm} "
+              f"{secs:.1f} s; launches {_launch_report(launches, expected)}; mha by route "
+              f"{routes} (expected {want_routes}); GEMMs {gemm} "
               f"(expected {want_gemm}, {served} served layers); ms a forward {ms}; "
               f"int8 {row['int8_speedup_vs_f32']}x f32, weight-only "
               f"{row['int8_wo_speedup_vs_bf16']}x bf16 | {card}", flush=True)
-        if launches != expected or gemm != want_gemm:
-            fail(f"int8 A/B {name} launched {launches}, {gemm}; expected {expected}, "
-                 f"{want_gemm}")
+        if launches != expected or gemm != want_gemm or routes != want_routes:
+            fail(f"int8 A/B {name} launched {launches}, {gemm}, mha by route {routes}; "
+                 f"expected {expected}, {want_gemm}, {want_routes}")
         if not all(math.isfinite(t) and t > 0 for t in ms.values()):
             fail(f"int8 A/B {name}: a timing is not finite")
-        rows[name] = dict(row=row, seconds=secs, launches=launches, gemm_launches=gemm)
+        rows[name] = dict(row=row, seconds=secs, launches=launches, gemm_launches=gemm,
+                          mha_launches_by_route=routes)
     return rows
 
 
@@ -4443,12 +4548,12 @@ def _per_path(rows, key, weight):
     return sum(r[key] * r[weight] for r in rows if r[weight])
 
 
-def _kernel_entry(name, replaces, launches, rows, weight, per):
+def _kernel_entry(name, replaces, launches, rows, weight, per, source=None):
     tpu = "channelestimationtransformer_tpu/ops/pallas/"
     return {
         "name": name,
         "route": "cuda",
-        "source": f"channelestimationtransformer_torch/ops/cuda/csrc/{name}.cu",
+        "source": f"channelestimationtransformer_torch/ops/cuda/csrc/{source or name}.cu",
         "replaces": ", ".join(tpu + r for r in replaces),
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows if r[weight]),
@@ -4509,22 +4614,31 @@ def main(argv):
         instances = _build_instances(log, hmma)
         info = build_info[name] = dict(
             **_ptxas_summary(log), instances=instances,
-            hmma=None if hmma is None else sum(sum(c.values()) for c in hmma.values()))
+            hmma=None if hmma is None else sum(c[k] for c in hmma.values()
+                                               for k in ("bf16", "tf32", "other")),
+            hgmma=None if hmma is None else sum(c["hgmma"] for c in hmma.values()))
         print(f"build: {lib.name} ({build_s:.2f} s for all {len(libs)}): "
               f"{info['kernels']} kernels, registers {info['registers_min']}-"
               f"{info['registers_max']}, spill stores {info['spill_stores']} bytes, spill "
               f"loads {info['spill_loads']} bytes, static shared memory up to "
-              f"{info['smem_max']} bytes (ptxas -v); SASS: {info['hmma']} HMMA", flush=True)
+              f"{info['smem_max']} bytes (ptxas -v); SASS: {info['hmma']} tensor-core MMAs "
+              f"(HMMA and HGMMA), {info['hgmma']} of them HGMMA", flush=True)
         if name in TENSOR_CORE_LIBS:
             for dtype_name in ("float32", "bfloat16"):
                 rows = [r for r in instances if r["dtype"] == dtype_name]
                 regs = [r["registers"] for r in rows]
                 hm = {k: (None if hmma is None else sum(r[f"hmma_{k}"] for r in rows))
                       for k in ("bf16", "tf32", "other")}
+                hg = None if hmma is None else sum(r["hgmma"] for r in rows)
                 print(f"build: {name} {dtype_name} instances: {len(rows)}, registers "
                       f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
-                      f"{sum(r['spill_bytes'] for r in rows)}; HMMA bf16 {hm['bf16']}, TF32 "
-                      f"{hm['tf32']}, other {hm['other']}", flush=True)
+                      f"{sum(r['spill_bytes'] for r in rows)}; MMA bf16 {hm['bf16']}, TF32 "
+                      f"{hm['tf32']}, other {hm['other']} (HGMMA {hg})", flush=True)
+                for r in rows:
+                    if "wgmma" in r["label"]:
+                        print(f"build: {name} {r['label']}: {r['registers']} registers, "
+                              f"{r['spill_bytes']} spill bytes, HGMMA {r['hgmma']}, bf16 "
+                              f"{r['hmma_bf16']}, TF32 {r['hmma_tf32']}", flush=True)
             faults = _mma_faults(instances)
             if faults:
                 fail(f"{name}: instances issuing MMAs of another dtype: {faults}")
@@ -4548,7 +4662,7 @@ def main(argv):
                              [s + (B, H, E, E) for s in SHAPES])
     mha_rows = phase_kernel(torch, F, mha.mha_attention, mha.mha_attention_reference,
                             [s + (XL_B, XL_H, XL_E, XL_E) for s in XL_SHAPES]
-                            + MHA_EXTRA_SHAPES, prefix="mha kernel", seed=2)
+                            + MHA_EXTRA_SHAPES, prefix="mha kernel", seed=2, mha=mha)
     fixed_rows = phase_fixed_kernel(torch, quant, ops.draw_seed)
     grouped_rows = phase_fixed_grouped(torch, quant, ops.draw_seed)
     codeword_rows = phase_codeword_kernel(torch, quant, codebooks)
@@ -4561,7 +4675,7 @@ def main(argv):
         eval=phase_kernel(torch, F, ops.bd_attention, ops.bd_attention_reference, scale_bd,
                           prefix="scale kernel", seed=3, timed=False),
         mha=phase_kernel(torch, F, mha.mha_attention, mha.mha_attention_reference, scale_mha,
-                         prefix="scale mha kernel", seed=4, timed=False))
+                         prefix="scale mha kernel", seed=4, mha=mha))
     scale_rows["train_fwd"], scale_rows["train_bwd"] = phase_kernel_train(
         torch, F, ops, [s[:-1] for s in scale_bd], prefix="scale train", timed=False)
     print(f"scale kernels: {len(scale_bd)} bd shapes (eval, train forward and backward) and "
@@ -4571,7 +4685,8 @@ def main(argv):
     xl_cfg = InformerConfig(d_model=1024, d_ff=4096, seq_len=256, use_pallas=True)
     xl_eval_path = phase_eval_path(torch, wrappers, card, profile, name="xl eval path",
                                    cfg=xl_cfg, samples=4096, slots=xl_cfg.seq_len + 10,
-                                   batch=64, expected={"mha": 13 * 8})
+                                   batch=64, expected={"mha": 13 * 8},
+                                   expected_routes=mha_routes(xl_cfg, torch.float32, 8))
     ptq_path = phase_ptq_path(torch, wrappers, card)
     from channelestimationtransformer_torch.models.informer import build_informer
 
@@ -4590,7 +4705,8 @@ def main(argv):
     bf16_xl_eval_path = phase_eval_path(
         torch, wrappers, card, profile, name="bf16 xl eval path",
         cfg=dataclasses.replace(xl_cfg, dtype="bfloat16"), samples=4096,
-        slots=xl_cfg.seq_len + 10, batch=64, expected={"mha": 13 * 8})
+        slots=xl_cfg.seq_len + 10, batch=64, expected={"mha": 13 * 8},
+        expected_routes=mha_routes(xl_cfg, torch.bfloat16, 8))  # wgmma 40, mma 64
     bf16_lsq_batch = phase_one_batch(
         torch, wrappers, "bf16 lsq-fibbinary eval batch",
         dataclasses.replace(lsq_cfg, dtype="bfloat16"), {"bd_fwd": 13, "codeword": 72})
@@ -4728,6 +4844,19 @@ def main(argv):
              "one bf16 xl eval batch: the 13 calls at their xl shapes (B 64, H 8, E 128)")):
         entry = _kernel_entry(kernel["name"], [], launches, bf16(rows), weight, per)
         kernel["bfloat16"] = {k: entry[k] for k in bf16_keys}
+    # The mha launches by route, and the wgmma route (bf16, Lq > 32, E and D 64 or
+    # 128) as an entry of its own: its 5 calls of the bf16 xl batch.
+    kernels[2].update(launches_by_route=xl_eval_path["launches_by_route"])
+    kernels[2]["bfloat16"].update(launches_by_route=bf16_xl_eval_path["launches_by_route"])
+    wgmma_rows = [r for r in bf16(mha_rows) if r["route"] == "wgmma"]
+    kernels.append(_kernel_entry(
+        "mha_attention_fwd[wgmma]", ["attention.py:70"],
+        bf16_xl_eval_path["launches_by_route"]["wgmma"], wgmma_rows, "calls_per_batch",
+        "one bf16 xl eval batch: the wgmma route's calls (L 256, 128 and 64; B 64, H 8, "
+        "E 128)", source="mha_attention_fwd"))
+    kernels[5].update(rows={r["shape"]: dict(ms=r["ms"], bound_ms=r["bound_ms"],
+                                             library_ms=r["library_ms"],
+                                             occupancy=r["occupancy"]) for r in wgmma_rows})
     kernels[0]["bfloat16"].update(
         eval_launches=bf16_eval_path["launches"]["bd_fwd"],
         eval_ms=_per_path(bf16(eval_rows), "ms", "calls_per_batch"),

@@ -1,8 +1,9 @@
 """Checks of ``chip_smoke.py`` that read text, run here on recorded text:
 
 - the build report, on ptxas and SASS text: each kernel instance's label,
-  dtype, registers and spills, its HMMA by operand type, and the check that
-  a bf16 instance issues bf16 HMMA only and an f32 instance TF32 only (the
+  dtype, registers and spills, its tensor-core MMAs (HMMA and Hopper's
+  HGMMA) by operand type, and the check that a bf16 instance issues bf16
+  MMAs only, an f32 instance TF32 only and a wgmma instance HGMMA (the
   report runs only beside nvcc on the card);
 - the gloo probe's verdict on its two ranks' output, in the ways a card has
   ended the probe.
@@ -44,9 +45,32 @@ SASS = f"""
 """
 
 
+# The mha library's wgmma instance as nvcc mangles it (E 128, D 128, two
+# consumer warpgroups; four tensor maps by value), and lines of its SASS as
+# cuobjdump printed them on the card: S = Q K^T from shared memory, then
+# P V with P from registers and V's transpose bit.
+WGMMA = ("_ZN53_GLOBAL__N__bdef217f_20_mha_attention_fwd_cu_6d00fbc326mha_attention_wgmma_"
+         "kernelI13__nv_bfloat16Li128ELi128ELi2EEEv14CUtensorMap_stS2_S2_S2_iiiifi")
+WGMMA_LOG = f"""ptxas info    : Compiling entry function '{WGMMA}' for 'sm_90a'
+ptxas info    : Function properties for {WGMMA}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+"""
+WGMMA_SASS = f"""
+		Function : {WGMMA}
+        /*13e0*/                   WARPGROUP.ARRIVE ;
+        /*1440*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*1c70*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;
+        /*1d30*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+        /*4230*/                   WARPGROUP.ARRIVE ;
+        /*42f0*/                   HGMMA.64x128x16.F32.BF16 R88, R24, gdesc[UR4].tnspB, R88 ;
+"""
+
+
 @pytest.mark.parametrize("name,label,dtype", [
     (BF16_FWD, "bd_attention_fwd_kernel<bfloat16, 16, 96>", "bfloat16"),
     (F32_BWD, "bd_attention_bwd_kernel<float32, 32, 1, 0>", "float32"),
+    (WGMMA, "mha_attention_wgmma_kernel<bfloat16, 128, 128, 2>", "bfloat16"),
     ("_Z14fixed_pt_kernelPfi", "_Z14fixed_pt_kernelPfi", None),
 ])
 def test_instance_label_reads_the_mangled_template_arguments(name, label, dtype):
@@ -62,6 +86,30 @@ def test_build_instances_from_ptxas_and_sass():
     assert chip_smoke._mma_faults(rows) == []
     # Without cuobjdump the HMMA counts are unknown and only the dtype is checked.
     assert chip_smoke._mma_faults(chip_smoke._build_instances(LOG, None)) == []
+
+
+def test_hgmma_counts_as_bf16_tensor_core_work():
+    counts = chip_smoke._hmma_by_function(WGMMA_SASS + SASS)
+    assert counts[WGMMA] == dict(bf16=3, tf32=0, other=0, hgmma=3)
+    assert counts[BF16_FWD] == dict(bf16=2, tf32=0, other=0, hgmma=0)
+    rows = chip_smoke._build_instances(WGMMA_LOG + LOG, counts)
+    assert [(r["label"], r["registers"], r["spill_bytes"], r["hmma_bf16"], r["hgmma"])
+            for r in rows] == [
+        ("mha_attention_wgmma_kernel<bfloat16, 128, 128, 2>", 168, 0, 3, 3),
+        ("bd_attention_fwd_kernel<bfloat16, 16, 96>", 94, 0, 2, 0),
+        ("bd_attention_bwd_kernel<float32, 32, 1, 0>", 128, 52, 0, 0)]
+    assert chip_smoke._mma_faults(rows) == []
+
+
+def test_mma_faults_flag_a_wgmma_instance_without_hgmma_or_with_tf32():
+    def row(label, bf16, tf32, hgmma):
+        return dict(label=label, dtype="bfloat16", hmma_bf16=bf16, hmma_tf32=tf32, hmma_other=0,
+                    hgmma=hgmma)
+    rows = [row("mha_attention_wgmma_kernel<bfloat16, 64, 64, 1>", 8, 0, 8),
+            row("mha_attention_wgmma_kernel<bfloat16, 64, 64, 2>", 8, 0, 0),
+            row("mha_attention_wgmma_kernel<bfloat16, 128, 64, 1>", 0, 0, 0),
+            row("mha_attention_wgmma_kernel<bfloat16, 128, 64, 2>", 8, 4, 8)]
+    assert chip_smoke._mma_faults(rows) == [r["label"] for r in rows[1:]]
 
 
 def test_mma_faults_name_instances_issuing_the_other_dtype():

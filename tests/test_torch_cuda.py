@@ -1,7 +1,7 @@
 """The CUDA kernels (bd-attention forward, with and without dropout, and
-backward; the mha-attention forward; fixed-point quantization and the
-nearest-codeword snap, plain and in its LSQ mode) against their plain
-versions, on the card.
+backward; the mha-attention forward on both its routes; fixed-point
+quantization and the nearest-codeword snap, plain and in its LSQ mode)
+against their plain versions, on the card.
 
 Marked ``cuda``; each test skips when no card is present. This file imports
 only torch and numpy, so it also runs where JAX is not installed:
@@ -33,10 +33,12 @@ from channelestimationtransformer_torch.ops.cuda.bd_attention import (
     bd_attention_reference,
     dropout_keep_mask,
 )
+from channelestimationtransformer_torch.ops.cuda import mha_attention as mha_module
 from channelestimationtransformer_torch.ops.cuda.mha_attention import (
     mha_attention,
     mha_attention_fwd,
     mha_attention_reference,
+    mha_route,
 )
 
 pytestmark = pytest.mark.cuda
@@ -374,6 +376,54 @@ MHA_EDGE_SHAPES = [
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_mha_kernel_tiling_edges(cuda, b, l_q, l_k, h, e, d, causal, dtype):
     test_mha_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, d, causal, dtype)
+
+
+# The wgmma route (bf16, Lq > 32, E and D 64 or 128): the xl encoder's L 256,
+# 128 and 64 (B cut to 8), E 64, and ragged lengths (65, 100, 129, 333: past
+# a 64-row warpgroup, a 128-row block, a 128-key tile), causal and not,
+# D != E both ways.
+MHA_WGMMA_SHAPES = [
+    (8, 256, 256, 8, 128, 128, False),
+    (8, 128, 128, 8, 128, 128, False),
+    (8, 64, 64, 8, 128, 128, False),
+    (8, 256, 256, 8, 64, 64, False),
+    (2, 256, 256, 2, 128, 128, True),
+    (2, 65, 65, 2, 128, 128, True),
+    (2, 65, 129, 2, 128, 128, False),
+    (2, 100, 100, 2, 128, 64, False),
+    (2, 100, 333, 2, 128, 64, True),
+    (2, 129, 129, 3, 64, 128, True),
+    (2, 333, 333, 2, 128, 128, False),
+    (2, 333, 65, 2, 64, 64, True),
+]
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,d,causal", MHA_WGMMA_SHAPES)
+def test_mha_wgmma_route_matches_plain_version(cuda, b, l_q, l_k, h, e, d, causal):
+    q, k, _ = _qkv(b, l_q, l_k, h, e, torch.bfloat16, cuda, seed=8)
+    v = torch.randn(b, l_k, h, d, generator=torch.Generator(device=cuda).manual_seed(9),
+                    device=cuda).to(torch.bfloat16)
+    assert mha_route(q.dtype, l_q, l_k, e, d, True) == "wgmma"
+    before = dict(mha_attention_fwd.launches_by_route)
+    got = mha_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert mha_attention_fwd.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
+    assert got.shape == (b, l_q, h, d)
+    _assert_close(got, mha_attention_reference(q.float(), k.float(), v.float(), causal=causal),
+                  torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,l_q", [(torch.float32, 128), (torch.bfloat16, 32)])
+def test_mha_wgmma_route_failure_raises(cuda, monkeypatch, dtype, l_q):
+    """A call the wgmma route does not take (f32; Lq <= 32), forced onto it,
+    is refused by the kernel's entry, and the wrapper raises: it never
+    falls back to the mma route."""
+    monkeypatch.setattr(mha_module, "mha_route", lambda *args: "wgmma")
+    q, k, v = _qkv(2, l_q, l_q, 2, 128, dtype, cuda)
+    before = dict(mha_attention_fwd.launches_by_route)
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        mha_attention(q, k, v)
+    assert mha_attention_fwd.launches_by_route == before
 
 
 def test_mha_kernel_raises_instead_of_falling_back(cuda):
