@@ -95,8 +95,8 @@ CUTS = {
                       ("pv<NT, NO, P::v>(acc, s, vt, g, t, lane);", "")],
     (MHA, "no_prefetch"): [("if (tile + kStages - 1 < n_tiles) load_tile(tile + kStages - 1);",
                             "")],
-    (MHA, "wgmma_no_mma"): [("  wgmma_ss<BK>(s,", "  if (false) wgmma_ss<BK>(s,"),
-                            ("  wgmma_rs<WD>(o, p[kk],", "  if (false) wgmma_rs<WD>(o, p[kk],")],
+    (MHA, "wgmma_no_mma"): [("  wgmma_ss<T, BK>(s,", "  if (false) wgmma_ss<T, BK>(s,"),
+                            ("  wgmma_rs<T, WD>(o, p[kk],", "  if (false) wgmma_rs<T, WD>(o, p[kk],")],
     (MHA, "wgmma_no_prefetch"): [("constexpr int kWgStages = 2;", "constexpr int kWgStages = 1;")],
     (MHA, "wgmma_one_consumer"): [("const bool two = a.Lq > 64;", "const bool two = false;")],
     (MHA, "wgmma_bk64_4_stages"): [("BK = NC == 2 ? 128 : 64;", "BK = 64;"),
@@ -104,9 +104,9 @@ CUTS = {
     (MHA, "wgmma_one_q_buffer"): [("q_buffers = NC == 2 ? 2 : 1;", "q_buffers = 1;")],
     (FWD, "no_mma"): [("mma_split_tf32(s[n], ah, al, bh, bl);", ""),
                       ("mma_split_tf32(acc[n], ah, al, bh, bl);", ""),
-                      ("mma_bf16(s[n], a, b);", ""),
-                      ("mma_split_bf16(acc[n], hi, lo, b0);\n      "
-                       "mma_split_bf16(acc[n + 1], hi, lo, b1);", "")],
+                      ("mma_b16<H>(s[n], a, b);", ""),
+                      ("mma_operand<H>(acc[n], hi, lo, b0);\n      "
+                       "mma_operand<H>(acc[n + 1], hi, lo, b1);", "")],
     (FWD, "no_dropout_bits"): [("const bool dropout = seed != nullptr;",
                                 "const bool dropout = false;")],
     (FWD, "three_blocks"): [("EP * NK >= 2048 ? 1 : 2", "EP * NK >= 2048 ? 1 : 3")],

@@ -15,8 +15,8 @@ FLOPs: XLA's ``cost_analysis`` has no counterpart, so one training step is
 counted by ``torch.utils.flop_counter.FlopCounterMode`` on the plain path of
 the same config (``use_pallas=False``; the counter cannot see inside the
 hand-written kernels). It counts matmuls and convolutions, not elementwise
-work. The peak is the H100's (``PEAK_TFLOPS``: dense bf16 on the tensor
-cores, f32 on the CUDA cores with TF32 off), not JAX's v5e figure; the share
+work. The peak is the H100's (``PEAK_TFLOPS``: dense bf16 and fp16 on the
+tensor cores, f32 on the CUDA cores with TF32 off), not JAX's v5e figure; the share
 keeps JAX's key ``mxu_fraction``. On the card the model takes the attention
 kernels where they take the shape (``models/attention.py``). A size that
 fails raises. Writes ``--out`` (default ``weights/scale_demo.json``).
@@ -41,7 +41,8 @@ from ..models.informer import build_informer
 from ..train.trainer import _update, create_train_state, train_chunk
 from ._study import add_device_arg
 
-PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 67.0}  # H100 SXM dense bf16; f32 without TF32
+# H100 SXM dense bf16 and fp16; f32 without TF32
+PEAK_TFLOPS = {"bfloat16": 989.0, "float16": 989.0, "float32": 67.0}
 
 SIZES = [
     # (name, d_model, d_ff, seq_len, batch)

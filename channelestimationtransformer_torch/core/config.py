@@ -10,6 +10,7 @@ hyperparameters (distil on, gelu activation) are the defaults.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -17,26 +18,35 @@ import torch
 
 # Activation dtypes the port runs (``InformerConfig.dtype``). Parameters and
 # optimizer state stay float32 whatever the dtype, as flax keeps them.
-ACTIVATION_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ACTIVATION_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                     "float16": torch.float16}
 
 
 def activation_dtype(name: str) -> torch.dtype:
-    """The ``torch.dtype`` of an ``InformerConfig.dtype`` string. A float
-    dtype the port does not run (float16, float64: the JAX package's
-    ``jnp.dtype`` takes them) raises ``NotImplementedError``; a string that
-    names no float dtype raises ``ValueError``."""
+    """The ``torch.dtype`` of an ``InformerConfig.dtype`` string, as the JAX
+    package's ``jnp.dtype`` reads it: any name numpy reads as float16
+    ("float16", "half", "f2") is float16; a name numpy reads as float64
+    ("float64", "double") is float32 with a ``UserWarning``, as JAX runs it
+    with x64 off; another float dtype raises ``NotImplementedError``; a
+    string that names no float dtype raises ``ValueError``."""
     if name in ACTIVATION_DTYPES:
         return ACTIVATION_DTYPES[name]
     try:
-        floating = np.issubdtype(np.dtype(name), np.floating)
+        np_dtype = np.dtype(name)
     except TypeError:
-        floating = False
-    if floating:
+        np_dtype = None
+    if np_dtype == np.float16:
+        return torch.float16
+    if np_dtype == np.float64:
+        warnings.warn(f"dtype={name!r}: float64 runs as float32, as the JAX package runs it "
+                      "with x64 off", UserWarning, stacklevel=2)
+        return torch.float32
+    if np_dtype is not None and np.issubdtype(np_dtype, np.floating):
         raise NotImplementedError(
-            f"dtype={name!r}: the port runs float32 and bfloat16 activations only "
-            "(ROADMAP Queue 1, standing limits: float16 and the other float dtypes are not "
-            "ported)")
-    raise ValueError(f"dtype must name a float dtype ('float32' or 'bfloat16'), got {name!r}")
+            f"dtype={name!r}: the port runs float32, bfloat16 and float16 activations "
+            "(float64 as float32)")
+    raise ValueError(f"dtype must name a float dtype ('float32', 'bfloat16' or 'float16'), "
+                     f"got {name!r}")
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
@@ -63,7 +73,7 @@ class InformerConfig:
     mix: bool = True  # transpose heads<->seq on decoder self-attn output
     output_attention: bool = False
     pre_norm: bool = False
-    dtype: str = "float32"  # activations: "float32" | "bfloat16" (activation_dtype)
+    dtype: str = "float32"  # activations: "float32" | "bfloat16" | "float16" (activation_dtype)
     # Hand-written kernels: attention (ops/cuda/bd_attention.py where it takes
     # the shape, else ops/cuda/mha_attention.py in eval mode; routing in
     # models/attention.py) and, with lsq_fibbinary, the nearest-codeword snap

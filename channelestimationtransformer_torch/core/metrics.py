@@ -4,9 +4,10 @@
 - ``nmse_split`` (per horizon) normalises by the power of the *prediction*
   ``x_hat``: the reference's quirk, kept for metric parity.
 
-A bf16 prediction against the f32 target promotes as in JAX: ``x - x_hat``
-and so both results are f32, while ``nmse_split``'s power term is a sum in
-the prediction's dtype (accumulated in f32, rounded to bf16).
+A bf16 or f16 prediction against the f32 target promotes as in JAX:
+``x - x_hat`` and so both results are f32, while ``nmse_split``'s power
+term is a sum in the prediction's dtype (accumulated in f32, rounded to
+it).
 """
 
 from __future__ import annotations

@@ -36,10 +36,11 @@ from the step's generator and drop attention probabilities with that
 seed's Philox mask (``dropout_keep_mask``), so the two draw the same masks
 from the same generator.
 
-With ``dtype`` bfloat16 the projections compute in bf16 (:class:`Dense`)
-and q, k, v reach every route in bf16: the kernels take them as they are
-(f32 math inside, output in bf16), and :func:`full_attention` runs its
-einsums and softmax in bf16, as the JAX package's XLA path does.
+With ``dtype`` bfloat16 or float16 the projections compute in that dtype
+(:class:`Dense`) and q, k, v reach every route in it: the kernels take them
+as they are (f32 math inside, output in the dtype), and
+:func:`full_attention` runs its einsums and softmax in it, as the JAX
+package's XLA path does.
 """
 
 from __future__ import annotations
@@ -63,8 +64,8 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 
 @functools.cache
 def neg_inf(dtype: torch.dtype) -> float:
-    """``NEG_INF`` rounded to ``dtype``: -inf in bf16, as JAX's cast gives
-    (``masked_fill`` refuses a value the dtype cannot hold)."""
+    """``NEG_INF`` rounded to ``dtype``: -inf in bf16 and f16, as JAX's cast
+    gives (``masked_fill`` refuses a value the dtype cannot hold)."""
     return float(torch.tensor(NEG_INF).to(dtype))
 
 
@@ -116,7 +117,7 @@ def full_attention(q, k, v, *, mask_flag: bool, scale: Optional[float] = None,
                    return_attn: bool = False):
     """Dense softmax attention over ``[B, L, H, E]`` tensors (reference
     ``FullAttention.forward``, ``attn.py:54-82``), in the inputs' dtype (in
-    bf16 the masked scores are -inf: ``NEG_INF`` rounds to it, as in JAX
+    bf16 and f16 the masked scores are -inf: ``NEG_INF`` rounds to it, as in JAX
     ``models/attention.py:47-75``). With ``dropout`` > 0 the
     probabilities are dropped by the Philox mask of a seed drawn from
     ``generator`` and kept ones scaled by ``1 / (1 - dropout)`` (JAX

@@ -46,7 +46,7 @@ def activation_fn(name: str):
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` on the input in f32, rounded back to the input's
     dtype (flax ``nn.LayerNorm(dtype=...)``); at f32 it is ``nn.LayerNorm``.
-    torch's CUDA ``layer_norm`` takes no bf16 input with f32 weights."""
+    torch's CUDA ``layer_norm`` takes no bf16 or f16 input with f32 weights."""
 
     def forward(self, x):
         return super().forward(x.float()).to(x.dtype)
@@ -60,10 +60,10 @@ class BatchNorm(nn.BatchNorm1d):
     ``running = (1 - momentum) * running + momentum * batch``, momentum 0.1
     here being flax's 0.9. ``nn.BatchNorm1d`` updates ``running_var`` with
     the unbiased variance instead. Eval mode is ``nn.BatchNorm1d``'s, which
-    takes a bf16 input with the f32 statistics and parameters, computes in
-    f32 and returns bf16. In train mode a bf16 input is reduced and
-    normalised in f32 and the result rounded to bf16; the statistics stay
-    f32.
+    takes a bf16 or f16 input with the f32 statistics and parameters,
+    computes in f32 and returns the input's dtype. In train mode a bf16 or
+    f16 input is reduced and normalised in f32 and the result rounded to its
+    dtype; the statistics stay f32.
 
     With ``group`` set (:func:`batch_stats_group`), the batch is split over
     that data-parallel group in equal parts, and the train-mode mean and

@@ -10,8 +10,9 @@ statistics; in ``eval()`` mode the forward is deterministic.
 
 ``config.dtype`` is flax's compute dtype: parameters (and so the optimizer
 state) and BatchNorm statistics are f32 whatever it is; with "bfloat16"
-every activation is bf16, the inputs are cast by the embeddings, and the
-prediction comes out bf16, as the JAX package's does.
+or "float16" every activation is in that dtype, the inputs are cast by the
+embeddings, and the prediction comes out in it, as the JAX package's does
+(no loss scaling in float16, as there is none there).
 
 ``attn="ring"`` shards the encoder's self-attention over the ``seq`` axis
 of the ``mesh`` passed to the model (``parallel/ring.py``); the decoder's

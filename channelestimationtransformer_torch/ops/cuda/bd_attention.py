@@ -46,7 +46,7 @@ BWD_LIB = "bd_attention_bwd"
 MAX_LK = 128  # key length limit (the TPU kernel's LP)
 MAX_LQ = 512  # query length limit, as in the TPU kernel's _supported
 MAX_E = 64  # head width limit of the CUDA kernels' shared-memory staging
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -203,7 +203,7 @@ def _check_cuda(tensors, seed):
     if q.device.type != "cuda":
         raise ValueError(f"bd_attention runs on cpu or cuda tensors, not {q.device}")
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"bd_attention kernel takes float32 or bfloat16, not {q.dtype}")
+        raise TypeError(f"bd_attention kernel takes float32, bfloat16 or float16, not {q.dtype}")
     for t in tensors:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("q, k, v (and o, do) must share one device and dtype")

@@ -10,11 +10,11 @@
 //     dS  = P * (dP' - D) * scale,  D = rowsum(dO * O)
 //     dQ  = dS K,   dK = dS^T Q,   dV = (keep * inv_keep * P)^T dO
 //
-// over [B, L, H, E] tensors, f32 or bf16 in, f32 accumulation, gradients in
-// the input dtype. D equals the TPU kernel's sum(dp * p), dropout included.
-// The TPU kernel's block-diagonal packing, 128-row key padding and the fold
-// of the packed dK/dV (bd_attention.py:211-222) exist only to fill the MXU
-// and are not carried over.
+// over [B, L, H, E] tensors, f32, bf16 or f16 in, f32 accumulation,
+// gradients in the input dtype. D equals the TPU kernel's sum(dp * p),
+// dropout included. The TPU kernel's block-diagonal packing, 128-row key
+// padding and the fold of the packed dK/dV (bd_attention.py:211-222) exist
+// only to fill the MXU and are not carried over.
 //
 // Bound on an H100 SXM (3.35 TB/s; products at 165 TFLOP/s in f32, the
 // split-TF32 rate of the tensor cores, 495 / 3, and at 989 in bf16): at the
@@ -61,6 +61,24 @@
 //   and V fragments as 32-bit loads; the key phase's dS^T and P_drop^T
 //   fragments and every B fragment of K, Q and dO come by ldmatrix.trans;
 //   tiles are pitched at 8 elements past a multiple of 16.
+//   f16: the bf16 instance's code with f16 MMAs (m16n8k16 .f16), except
+//   that dS and P_drop are rounded to f16 once (one MMA a product, one
+//   plane each in shared memory): with f16's 11 significant bits that
+//   keeps rtol/atol 4e-3 at about a tenth of it at B 256
+//   (tests/test_torch_f16_mma.py). P_drop lies in [0, 1 / keep_prob]; dS
+//   does not keep to f16's range: in training it is the product of small
+//   cotangents with P, ~1e-8 at the flagship's batch of 256, below f16's
+//   normal range (2^-14) and down to its last subnormals (2^-24), where one
+//   rounding loses most of its bits (the emulation puts the unscaled dQ
+//   and dK at 2-90x their tolerance). So each slab's dS is multiplied by
+//   sc, a power of two (exact), before it is rounded, and dQ and dK by 1/sc
+//   after the products. sc takes the bound
+//       |dS_ij| <= scale * max_i |dO_i|_1 * (inv_keep * max |V| + max_i |O_i|_inf)
+//   (P <= 1, |dO_i . V_j| <= |dO_i|_1 max|V|, |D_i| <= |dO_i|_1 |O_i|_inf)
+//   into [2^14, 2^15): below f16's largest value, 65504, and ~2^7 above the
+//   bound's usual slack. The sums ride along with D: two lanes a row, the
+//   warps' maxima through shared memory, V's once a block. dK accumulates
+//   across slabs in the current slab's units (rescaled by sc_new / sc_old).
 // Each (row, key) pair is computed once; masked entries are exactly 0 in P
 // and dS. Each gradient element is summed by one warp in a fixed order: no
 // atomics, the result is deterministic.
@@ -78,6 +96,7 @@
 // an SM.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -92,17 +111,20 @@ constexpr int kMaskWords = kMaxLk / 32;  // keep bits per query row
 constexpr int kMaxE = 64;
 constexpr int kMaxSlab = 128;               // query rows a slab
 constexpr size_t kSmemBudget = 200 * 1024;  // bytes a block
+constexpr int kMaxWarps = 8;                // warps a block: 16 rows or keys each
 
 // Shared layout in elements of T, for padded width EP, Lk rounded up to 32
 // (lkr, whole 32-key chunks) and to 16 (lkp): K and V [lkr][KP], Q and dO
 // [QS][KP], dS and P_drop [planes][QS][PP] each, with O [QS][KP] over them
-// until D is read, then the bits [QS][4] (32-bit words). f32: KP = EP + 4,
+// until D is read, then the bits [QS][4] (32-bit words) and, f16, the
+// warps' parts of dS's bound [3][kMaxWarps] (floats). f32: KP = EP + 4,
 // PP = lkp + 4, one plane; bf16: EP + 8 and lkp + 8 (mma_tf32.cuh), two
-// planes (the bf16 hi and lo of each value).
+// planes (the bf16 hi and lo of each value); f16: EP + 8 and lkp + 8, one
+// plane.
 template <typename T>
 struct Layout {
   static constexpr int pad = sizeof(T) == 4 ? 4 : 8;
-  static constexpr int planes = sizeof(T) == 4 ? 1 : 2;
+  static constexpr int planes = sizeof(T) == 4 || is_f16<T> ? 1 : 2;
   __host__ __device__ static constexpr int kp(int ep) { return ep + pad; }
   __host__ __device__ static constexpr int pp(int lkp) { return lkp + pad; }
   __host__ __device__ static constexpr int over(int ep, int lkp) {  // a row
@@ -111,12 +133,13 @@ struct Layout {
   static constexpr size_t bytes(int ep, int lkr, int lkp, int qs) {
     return sizeof(T) * (2 * (size_t)lkr * kp(ep) + 2 * (size_t)qs * kp(ep) +
                         (size_t)qs * over(ep, lkp)) +
-           sizeof(unsigned) * (size_t)qs * kMaskWords;
+           sizeof(unsigned) * (size_t)qs * kMaskWords +
+           (is_f16<T> ? sizeof(float) * 3 * kMaxWarps : 0);
   }
 };
 
-// 8-key tiles of a row-phase chunk: f32 32 keys; bf16 16 keys (one MMA k
-// step), which keeps every bf16 instance within its registers.
+// 8-key tiles of a row-phase chunk: f32 32 keys; bf16 and f16 16 keys (one
+// MMA k step), which keeps every 16-bit instance within its registers.
 template <typename T>
 constexpr int kChunkTiles = sizeof(T) == 4 ? 4 : 2;
 
@@ -153,26 +176,25 @@ __device__ __forceinline__ void row_products(float (&s)[4][4], float (&dp)[4][4]
   }
 }
 
-// bf16: one MMA a 16-column step and 8 keys, exact products.
-template <int EP, int CT>
-__device__ __forceinline__ void row_products(float (&s)[CT][4], float (&dp)[CT][4],
-                                             const __nv_bfloat16* qa, const __nv_bfloat16* da,
-                                             const __nv_bfloat16* kt, const __nv_bfloat16* vt,
-                                             int g, int t) {
-  constexpr int KP = Layout<__nv_bfloat16>::kp(EP);
+// bf16 and f16 (H): one MMA a 16-column step and 8 keys, exact products.
+template <int EP, int CT, typename H>
+__device__ __forceinline__ b16_void<H> row_products(float (&s)[CT][4], float (&dp)[CT][4],
+                                                    const H* qa, const H* da, const H* kt,
+                                                    const H* vt, int g, int t) {
+  constexpr int KP = Layout<H>::kp(EP);
 #pragma unroll
   for (int kk = 0; kk < EP / 16; ++kk) {
     uint32_t qf[4], of[4];
-    frag_a_bf16(qf, qa + g * KP + 16 * kk + 2 * t, KP);
-    frag_a_bf16(of, da + g * KP + 16 * kk + 2 * t, KP);
+    frag_a_b16(qf, qa + g * KP + 16 * kk + 2 * t, KP);
+    frag_a_b16(of, da + g * KP + 16 * kk + 2 * t, KP);
 #pragma unroll
     for (int n = 0; n < CT; ++n) {
       const int kr = (8 * n + g) * KP + 16 * kk + 2 * t;
       uint32_t b[2];
-      frag_b_bf16(b, kt + kr);
-      mma_bf16(s[n], qf, b);
-      frag_b_bf16(b, vt + kr);
-      mma_bf16(dp[n], of, b);
+      frag_b_b16(b, kt + kr);
+      mma_b16<H>(s[n], qf, b);
+      frag_b_b16(b, vt + kr);
+      mma_b16<H>(dp[n], of, b);
     }
   }
 }
@@ -198,37 +220,39 @@ __device__ __forceinline__ void dq_products(float (&dq_acc)[EP / 8][4], const fl
   }
 }
 
-// bf16: dS split into bf16 hi and lo (two MMAs), the C fragments of two
-// 8-key tiles as the A fragments of a 16-key step; K's B fragments by
-// ldmatrix.trans.
-template <int EP, int CT>
-__device__ __forceinline__ void dq_products(float (&dq_acc)[EP / 8][4], const float (&ds)[CT][4],
-                                            const __nv_bfloat16* kt, int, int, int lane) {
-  constexpr int KP = Layout<__nv_bfloat16>::kp(EP);
+// bf16: dS split into bf16 hi and lo (two MMAs); f16: dS (scaled) rounded
+// once (one MMA). The C fragments of two 8-key tiles are the A fragments of
+// a 16-key step; K's B fragments come by ldmatrix.trans.
+template <int EP, int CT, typename H>
+__device__ __forceinline__ b16_void<H> dq_products(float (&dq_acc)[EP / 8][4],
+                                                   const float (&ds)[CT][4], const H* kt, int,
+                                                   int, int lane) {
+  constexpr int KP = Layout<H>::kp(EP);
 #pragma unroll
   for (int kk = 0; kk < CT / 2; ++kk) {
     uint32_t hi[4], lo[4];
-    frag_a_split_from_c(hi, lo, ds[2 * kk], ds[2 * kk + 1]);
+    operand_from_c<H>(hi, lo, ds[2 * kk], ds[2 * kk + 1]);
 #pragma unroll
     for (int n = 0; n < EP / 8; n += 2) {
       uint32_t b0[2], b1[2];
-      frag_b2_trans_bf16(b0, b1, kt + 16 * kk * KP + 8 * n, KP, lane);
-      mma_split_bf16(dq_acc[n], hi, lo, b0);
-      mma_split_bf16(dq_acc[n + 1], hi, lo, b1);
+      frag_b2_trans_b16(b0, b1, kt + 16 * kk * KP + 8 * n, KP, lane);
+      mma_operand<H>(dq_acc[n], hi, lo, b0);
+      mma_operand<H>(dq_acc[n + 1], hi, lo, b1);
     }
   }
 }
 
 // Elements (col, col + 1) of a dS or P_drop row: f32 as they are; bf16 as
-// their hi (one 32-bit word at p) and lo (at p + plane).
+// their hi (one 32-bit word at p) and lo (at p + plane); f16 rounded once.
 __device__ __forceinline__ void store_pair(float* p, int, float x0, float x1) {
   *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
 }
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, int plane, float x0, float x1) {
+template <typename H>
+__device__ __forceinline__ void store_pair(H* p, int plane, float x0, float x1) {
   uint32_t hi, lo;
-  split_bf16(x0, x1, hi, lo);
+  operand_b16<H>(x0, x1, hi, lo);
   *reinterpret_cast<uint32_t*>(p) = hi;
-  *reinterpret_cast<uint32_t*>(p + plane) = lo;
+  if constexpr (!is_f16<H>) *reinterpret_cast<uint32_t*>(p + plane) = lo;
 }
 
 // Slab rows a key-phase step: the k of one MMA.
@@ -261,47 +285,58 @@ __device__ __forceinline__ void key_step(float (&dk_acc)[EP / 8][4], float (&dv_
 }
 
 // bf16: the hi and lo A fragments of dS^T, then of P_drop^T (two MMAs a
-// product), and the B fragments of Q and dO, by ldmatrix.trans.
-template <int EP>
-__device__ __forceinline__ void key_step(float (&dk_acc)[EP / 8][4], float (&dv_acc)[EP / 8][4],
-                                         const __nv_bfloat16* sb, const __nv_bfloat16* pb,
-                                         const __nv_bfloat16* qb, const __nv_bfloat16* db,
-                                         int PP, int plane, int, int, int lane) {
-  constexpr int KP = Layout<__nv_bfloat16>::kp(EP);
+// product); f16: their one plane (one MMA). The B fragments of Q and dO
+// come by ldmatrix.trans.
+template <int EP, typename H>
+__device__ __forceinline__ b16_void<H> key_step(float (&dk_acc)[EP / 8][4],
+                                                float (&dv_acc)[EP / 8][4], const H* sb,
+                                                const H* pb, const H* qb, const H* db, int PP,
+                                                int plane, int, int, int lane) {
+  constexpr int KP = Layout<H>::kp(EP);
   uint32_t hi[4], lo[4], b0[2], b1[2];
-  frag_a_trans_bf16(hi, sb, PP, lane);
-  frag_a_trans_bf16(lo, sb + plane, PP, lane);
+  frag_a_trans_b16(hi, sb, PP, lane);
+  if constexpr (!is_f16<H>) frag_a_trans_b16(lo, sb + plane, PP, lane);
 #pragma unroll
   for (int n = 0; n < EP / 8; n += 2) {
-    frag_b2_trans_bf16(b0, b1, qb + 8 * n, KP, lane);
-    mma_split_bf16(dk_acc[n], hi, lo, b0);
-    mma_split_bf16(dk_acc[n + 1], hi, lo, b1);
+    frag_b2_trans_b16(b0, b1, qb + 8 * n, KP, lane);
+    mma_operand<H>(dk_acc[n], hi, lo, b0);
+    mma_operand<H>(dk_acc[n + 1], hi, lo, b1);
   }
-  frag_a_trans_bf16(hi, pb, PP, lane);
-  frag_a_trans_bf16(lo, pb + plane, PP, lane);
+  frag_a_trans_b16(hi, pb, PP, lane);
+  if constexpr (!is_f16<H>) frag_a_trans_b16(lo, pb + plane, PP, lane);
 #pragma unroll
   for (int n = 0; n < EP / 8; n += 2) {
-    frag_b2_trans_bf16(b0, b1, db + 8 * n, KP, lane);
-    mma_split_bf16(dv_acc[n], hi, lo, b0);
-    mma_split_bf16(dv_acc[n + 1], hi, lo, b1);
+    frag_b2_trans_b16(b0, b1, db + 8 * n, KP, lane);
+    mma_operand<H>(dv_acc[n], hi, lo, b0);
+    mma_operand<H>(dv_acc[n + 1], hi, lo, b1);
   }
 }
 
-// T: float or __nv_bfloat16; EP: E padded to 16, 32 or 64. Lane = 4 * g +
-// t (mma_tf32.cuh).
+// f16: the power of two sc that takes a bound m on |dS| into [2^14, 2^15)
+// (the header), 1 where m is 0 or not finite; sc stays within 2^+-120.
+__device__ __forceinline__ float ds_scale(float m) {
+  if (!(m > 0.f) || isinf(m)) return 1.f;
+  return ldexpf(1.f, max(-120, min(120, 14 - ilogbf(m))));
+}
+
+// The kernel's body (bd_attention_bwd_kernel and bd_attention_bwd_f16_kernel
+// below). T: float, __nv_bfloat16 or __half; EP: E padded to 16, 32 or 64.
+// Lane = 4 * g + t (mma_tf32.cuh).
 template <typename T, int EP, bool DROPOUT, bool VEC>
-__global__ void __launch_bounds__(256)
-bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        const long long* __restrict__ seed, T* __restrict__ dq,
-                        T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk, int E,
-                        int QS, float scale, int causal, unsigned thresh, float inv_keep) {
+__device__ __forceinline__ void bwd_body(const T* __restrict__ q, const T* __restrict__ k,
+                                         const T* __restrict__ v, const T* __restrict__ o,
+                                         const T* __restrict__ dout,
+                                         const float* __restrict__ lse,
+                                         const long long* __restrict__ seed, T* __restrict__ dq,
+                                         T* __restrict__ dk, T* __restrict__ dv, int H, int Lq,
+                                         int Lk, int E, int QS, float scale, int causal,
+                                         unsigned thresh, float inv_keep) {
   using L = Layout<T>;
   constexpr int KP = L::kp(EP);  // pitch of the K, V, Q, dO and O rows
   constexpr int NE = EP / 8;     // 8-column tiles of a head row
   constexpr int RS = kKeyStep<T>;
   constexpr int CT = kChunkTiles<T>;  // 8-key tiles of a row-phase chunk
+  constexpr bool kScaled = is_f16<T>;  // dS scaled before it is rounded (the header)
   const int LKR = (Lk + 31) & ~31, LKP = (Lk + 15) & ~15;
   const int PP = L::pp(LKP);  // pitch of the dS and P_drop rows
   const int PS = QS * PP;     // elements of a dS or P_drop plane
@@ -315,6 +350,7 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* os = sbuf;                         // [QS][KP]: O, until D is read
   unsigned* bits =
       reinterpret_cast<unsigned*>(sbuf + QS * L::over(EP, LKP));  // [QS][kMaskWords]
+  float* parts = reinterpret_cast<float*>(bits + QS * kMaskWords);  // f16: [3][kMaxWarps]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -345,6 +381,7 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int kr0 = 16 * warp;  // the key phase's 16 keys
   float dk_acc[NE][4] = {}, dv_acc[NE][4] = {};
+  float sc_keys = 1.f;  // f16: the scale of dk_acc's units
 
   for (int s0 = 0; s0 < Lq; s0 += QS) {
     load(qs, q + q_off + s0 * row, QS, Lq - s0);
@@ -372,17 +409,65 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // D = rowsum(dO * O): two lanes a row, then to the lanes that hold it.
-    float dsum = 0.f;
+    // f16: also the warp's max |dO_i|_1 and max |O_i|_inf, and V's max |v|.
+    float dsum = 0.f, dabs = 0.f, omax = 0.f;
     if (rows_here) {
       const int rr = lr0 + (lane >> 1), e0 = (lane & 1) * (EP / 2);
 #pragma unroll
       for (int e = e0; e < e0 + EP / 2; ++e)
-        if (e < E) dsum = fmaf(to_f32(dos[rr * KP + e]), to_f32(os[rr * KP + e]), dsum);
+        if (e < E) {
+          const float x = to_f32(dos[rr * KP + e]), y = to_f32(os[rr * KP + e]);
+          dsum = fmaf(x, y, dsum);
+          if constexpr (kScaled) {
+            dabs += fabsf(x);
+            omax = fmaxf(omax, fabsf(y));
+          }
+        }
       dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
     }
     const float d0 = __shfl_sync(0xffffffffu, dsum, 2 * g);
     const float d1 = __shfl_sync(0xffffffffu, dsum, 2 * g + 16);
+    if constexpr (kScaled) {
+      dabs += __shfl_xor_sync(0xffffffffu, dabs, 1);  // the row's two halves
+      float vmax = 0.f;
+      if (s0 == 0)  // V's rows, 8 columns a 16-byte load (the pad columns are 0)
+        for (int x = threadIdx.x; x < Lk * (EP / 8); x += blockDim.x) {
+          const int r = x / (EP / 8), c = 8 * (x % (EP / 8));
+          const uint4 w = *reinterpret_cast<const uint4*>(vs + r * KP + c);
+          const __half2* h2 = reinterpret_cast<const __half2*>(&w);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 f = __half22float2(__habs2(h2[i]));
+            vmax = fmaxf(vmax, fmaxf(f.x, f.y));
+          }
+        }
+#pragma unroll
+      for (int m = 1; m < 32; m <<= 1) {
+        if (m > 1) dabs = fmaxf(dabs, __shfl_xor_sync(0xffffffffu, dabs, m));
+        omax = fmaxf(omax, __shfl_xor_sync(0xffffffffu, omax, m));
+        vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, m));
+      }
+      if (lane == 0) {
+        parts[warp] = dabs;
+        parts[kMaxWarps + warp] = omax;
+        if (s0 == 0) parts[2 * kMaxWarps + warp] = vmax;
+      }
+    }
     __syncthreads();  // O is read: dS and P_drop go over it
+
+    // f16: this slab's scale of dS, from the block's bound; dK's units follow it.
+    float sc = 1.f;
+    if constexpr (kScaled) {
+      float dmax = 0.f, om = 0.f, vm = 0.f;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+        dmax = fmaxf(dmax, parts[w]);
+        om = fmaxf(om, parts[kMaxWarps + w]);
+        vm = fmaxf(vm, parts[2 * kMaxWarps + w]);
+      }
+      sc = ds_scale(scale * dmax * ((DROPOUT ? inv_keep : 1.f) * vm + om));
+      if (s0 > 0) sc = fminf(sc, sc_keys * 0x1p60f);  // dk_acc * (sc / sc_keys) stays finite
+    }
+    const float ds_mul = kScaled ? scale * sc : scale;
 
     // Row phase.
     if (rows_here) {
@@ -416,7 +501,7 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               dpv = kept ? dpv * inv_keep : 0.f;
               pd = kept ? p * inv_keep : 0.f;
             }
-            s[n][c] = p * (dpv - (c < 2 ? d0 : d1)) * scale;
+            s[n][c] = p * (dpv - (c < 2 ? d0 : d1)) * ds_mul;
             dp[n][c] = pd;
           }
 #pragma unroll
@@ -438,12 +523,22 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int i = c < 2 ? i0 : i1, e = 8 * n + 2 * t + (c & 1);
-          if (i < Lq && e < E) dq[q_off + (size_t)i * row + e] = from_f32<T>(dq_acc[n][c]);
+          if (i < Lq && e < E)
+            dq[q_off + (size_t)i * row + e] =
+                from_f32<T>(kScaled ? dq_acc[n][c] * (1.f / sc) : dq_acc[n][c]);
         }
     }
     __syncthreads();  // dS and P_drop are in shared memory
 
     // Key phase: the warp's 16 keys, dK += dS^T Q and dV += P_drop^T dO.
+    if constexpr (kScaled) {  // dk_acc into this slab's units
+      const float r = sc / sc_keys;
+      sc_keys = sc;
+#pragma unroll
+      for (int n = 0; n < NE; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dk_acc[n][c] *= r;
+    }
     if (kr0 < LKP) {
       // Steps of RS slab rows; with `causal`, rows above every key here add 0.
       const int ks_end = (min(QS, Lq - s0) + RS - 1) / RS;
@@ -462,11 +557,48 @@ bd_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const int j = kr0 + g + (c < 2 ? 0 : 8), e = 8 * n + 2 * t + (c & 1);
         if (j < Lk && e < E) {
-          dk[k_off + (size_t)j * row + e] = from_f32<T>(dk_acc[n][c]);
+          dk[k_off + (size_t)j * row + e] =
+              from_f32<T>(kScaled ? dk_acc[n][c] * (1.f / sc_keys) : dk_acc[n][c]);
           dv[k_off + (size_t)j * row + e] = from_f32<T>(dv_acc[n][c]);
         }
       }
   }
+}
+
+#define BWD_PARAMS                                                                       \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v,             \
+      const T *__restrict__ o, const T *__restrict__ dout, const float *__restrict__ lse, \
+      const long long *__restrict__ seed, T *__restrict__ dq, T *__restrict__ dk,        \
+      T *__restrict__ dv, int H, int Lq, int Lk, int E, int QS, float scale, int causal, \
+      unsigned thresh, float inv_keep
+#define BWD_ARGS q, k, v, o, dout, lse, seed, dq, dk, dv, H, Lq, Lk, E, QS, scale, causal, \
+                 thresh, inv_keep
+
+// f32 and bf16.
+template <typename T, int EP, bool DROPOUT, bool VEC>
+__global__ void __launch_bounds__(256) bd_attention_bwd_kernel(BWD_PARAMS) {
+  bwd_body<T, EP, DROPOUT, VEC>(BWD_ARGS);
+}
+
+// f16 (T = __half), with launch bounds of its own: under (256) alone ptxas
+// gives the instances with dropout at E 16 (the flagship's training calls)
+// 80 registers a thread and spills 20-32 bytes; with one block an SM as the
+// stated minimum it gives them 128-135 and spills nothing. (Stated in
+// bd_attention_bwd_kernel, it would move the f32 and bf16 instances'
+// registers, which ptxas sets without spills.)
+template <typename T, int EP, bool DROPOUT, bool VEC>
+__global__ void __launch_bounds__(256, 1) bd_attention_bwd_f16_kernel(BWD_PARAMS) {
+  bwd_body<T, EP, DROPOUT, VEC>(BWD_ARGS);
+}
+
+#undef BWD_PARAMS
+#undef BWD_ARGS
+
+// The kernel of an instance: f16's or the other dtypes'.
+template <typename T, int EP, bool DROPOUT, bool VEC>
+constexpr auto bwd_kernel() {
+  if constexpr (is_f16<T>) return bd_attention_bwd_f16_kernel<T, EP, DROPOUT, VEC>;
+  else return bd_attention_bwd_kernel<T, EP, DROPOUT, VEC>;
 }
 
 struct Args {
@@ -490,7 +622,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   int qs = min((a.Lq + 15) & ~15, kMaxSlab);
   while (qs > 16 && L::bytes(EP, lkr, lkp, qs) > kSmemBudget) qs -= 16;
   const size_t smem = L::bytes(EP, lkr, lkp, qs);
-  auto kernel = bd_attention_bwd_kernel<T, EP, DROPOUT, VEC>;
+  auto kernel = bwd_kernel<T, EP, DROPOUT, VEC>();
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -531,6 +663,7 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t stream) {
   switch (dtype) {
     case 0: return launch_d<float>(a, stream);
     case 1: return launch_d<__nv_bfloat16>(a, stream);
+    case 2: return launch_d<__half>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -541,11 +674,11 @@ bool invalid(int B, int H, int Lq, int Lk, int E) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. `seed` null means no dropout, else the
-// forward's mask (Philox word < `thresh`) and scale `inv_keep`. dq is
-// [B, Lq, H, E], dk and dv [B, Lk, H, E]; every element is written. Returns
-// a cudaError_t (0 on success); launches on `stream` and does not
-// synchronise.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. `seed` null means no
+// dropout, else the forward's mask (Philox word < `thresh`) and scale
+// `inv_keep`. dq is [B, Lq, H, E], dk and dv [B, Lk, H, E]; every element is
+// written. Returns a cudaError_t (0 on success); launches on `stream` and
+// does not synchronise.
 extern "C" int bd_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                 const void* dout, const float* lse, const long long* seed,
                                 void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk,

@@ -1,6 +1,7 @@
 // Helpers shared by the attention kernels (bd_attention_fwd.cu,
-// bd_attention_bwd.cu, mha_attention_fwd.cu): dtype conversion, the
-// dropout mask, and the occupancy report of a launch configuration.
+// bd_attention_bwd.cu, mha_attention_fwd.cu): dtype conversion (f32, bf16
+// and f16), the dropout mask, and the occupancy report of a launch
+// configuration.
 //
 // The attention-probability dropout draws from Philox4x32-10 (philox.cuh).
 // Its layout is shared with the plain version,
@@ -13,12 +14,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -27,6 +30,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // The keep bits of columns j0 .. j0 + 3 of `row` (bit t for column j0 + t);

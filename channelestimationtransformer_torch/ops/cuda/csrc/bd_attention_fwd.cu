@@ -5,7 +5,7 @@
 //
 //     out = dropout(softmax(scale * Q K^T, masked)) V
 //
-// over [B, L, H, E] tensors (E == D), f32 or bf16 in, f32 softmax and
+// over [B, L, H, E] tensors (E == D), f32, bf16 or f16 in, f32 softmax and
 // accumulation, output in the input dtype. Keys at positions >= l_k do not
 // exist here (no padding in device memory); with `causal`, key column >
 // query row is excluded. With a seed (training), probabilities are dropped
@@ -54,6 +54,12 @@
 //   rtol/atol 1e-2 at B 256 (tests/test_torch_bf16_mma.py; chip_smoke.py
 //   holds that pair). Q and K fragments are 32-bit loads, V's come by
 //   ldmatrix.trans; all three tiles are pitched EP + 8 elements.
+//   f16: the bf16 instance's code with f16 MMAs (m16n8k16 .f16), except
+//   that P is rounded to f16 once (one MMA): with 3 more significant bits
+//   than bf16 one rounding keeps the output, and the backward fed by it,
+//   within the f16 tolerance (rtol/atol 2e-3 forward, 4e-3 backward) at
+//   about a third of it at B 256 (tests/test_torch_f16_mma.py). P lies in
+//   [0, 1], within f16's range.
 // The dropout bits are drawn in registers where they are used: the two
 // lanes that share a 4-key group of a warp's rows i0 and i1 each make one
 // row's Philox call (keyed as in the backward, which regenerates them) and
@@ -75,6 +81,7 @@
 // blocks an SM.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -94,7 +101,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Row pitches (elements) of the shared tiles Q [QS], K [NK] and V [NK]. f32:
 // Q and K EP + 8, so the 8-byte fragment loads of 8 rows x 4 lanes hit
 // distinct banks, V EP + 4 for the 4-byte loads of rows 2t and 2t + 1.
-// bf16: EP + 8 for all three (mma_tf32.cuh).
+// bf16 and f16: EP + 8 for all three (mma_tf32.cuh).
 template <typename T, int EP>
 struct Pitch {
   static constexpr int q = EP + 8, k = EP + 8, v = sizeof(T) == 4 ? EP + 4 : EP + 8;
@@ -126,12 +133,12 @@ __device__ __forceinline__ void store2(float* p, float x0, float x1, bool both, 
   }
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1, bool both,
-                                       bool even) {
-  if (both && even) *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+template <typename H>
+__device__ __forceinline__ void store2(H* p, float x0, float x1, bool both, bool even) {
+  if (both && even) *reinterpret_cast<uint32_t*>(p) = pack_b16<H>(x0, x1);
   else {
-    p[0] = __float2bfloat16(x0);
-    if (both) p[1] = __float2bfloat16(x1);
+    p[0] = from_f32<H>(x0);
+    if (both) p[1] = from_f32<H>(x1);
   }
 }
 
@@ -170,22 +177,22 @@ __device__ __forceinline__ void scores(float (&s)[NT][4], const float* qa, const
   }
 }
 
-// bf16: one MMA a 16-column step and 8 keys, exact products.
-template <int EP, int NT>
-__device__ __forceinline__ void scores(float (&s)[NT][4], const __nv_bfloat16* qa,
-                                       const __nv_bfloat16* ks, int g, int t) {
-  constexpr int QP = Pitch<__nv_bfloat16, EP>::q, KP = Pitch<__nv_bfloat16, EP>::k;
+// bf16 and f16 (H): one MMA a 16-column step and 8 keys, exact products.
+template <int EP, int NT, typename H>
+__device__ __forceinline__ b16_void<H> scores(float (&s)[NT][4], const H* qa, const H* ks,
+                                              int g, int t) {
+  constexpr int QP = Pitch<H, EP>::q, KP = Pitch<H, EP>::k;
 #pragma unroll
   for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < EP / 16; ++kk) {
     uint32_t a[4];
-    frag_a_bf16(a, qa + g * QP + 16 * kk + 2 * t, QP);
+    frag_a_b16(a, qa + g * QP + 16 * kk + 2 * t, QP);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       uint32_t b[2];
-      frag_b_bf16(b, ks + (8 * n + g) * KP + 16 * kk + 2 * t);
-      mma_bf16(s[n], a, b);
+      frag_b_b16(b, ks + (8 * n + g) * KP + 16 * kk + 2 * t);
+      mma_b16<H>(s[n], a, b);
     }
   }
 }
@@ -213,32 +220,32 @@ __device__ __forceinline__ void pv(float (&acc)[EP / 8][4], const float (&s)[NT]
   }
 }
 
-// bf16: P split into bf16 hi and lo (two MMAs), the C fragments of two
-// 8-key tiles as the A fragments of a 16-key step; V's B fragments by
-// ldmatrix.trans.
-template <int EP, int NT>
-__device__ __forceinline__ void pv(float (&acc)[EP / 8][4], const float (&s)[NT][4],
-                                   const __nv_bfloat16* vs, int, int, int lane) {
-  constexpr int VP = Pitch<__nv_bfloat16, EP>::v, NE = EP / 8;
+// bf16: P split into bf16 hi and lo (two MMAs); f16: P rounded once (one
+// MMA). The C fragments of two 8-key tiles are the A fragments of a 16-key
+// step; V's B fragments come by ldmatrix.trans.
+template <int EP, int NT, typename H>
+__device__ __forceinline__ b16_void<H> pv(float (&acc)[EP / 8][4], const float (&s)[NT][4],
+                                          const H* vs, int, int, int lane) {
+  constexpr int VP = Pitch<H, EP>::v, NE = EP / 8;
 #pragma unroll
   for (int n = 0; n < NE; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
     uint32_t hi[4], lo[4];
-    frag_a_split_from_c(hi, lo, s[2 * kk], s[2 * kk + 1]);
+    operand_from_c<H>(hi, lo, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
     for (int n = 0; n < NE; n += 2) {
       uint32_t b0[2], b1[2];
-      frag_b2_trans_bf16(b0, b1, vs + 16 * kk * VP + 8 * n, VP, lane);
-      mma_split_bf16(acc[n], hi, lo, b0);
-      mma_split_bf16(acc[n + 1], hi, lo, b1);
+      frag_b2_trans_b16(b0, b1, vs + 16 * kk * VP + 8 * n, VP, lane);
+      mma_operand<H>(acc[n], hi, lo, b0);
+      mma_operand<H>(acc[n + 1], hi, lo, b1);
     }
   }
 }
 
-// T: float or __nv_bfloat16; EP: E padded to 16, 32 or 64; NK: keys padded
-// to a multiple of 16 (>= Lk). vec: rows by 16-byte cp.async. Lane = 4 * g
-// + t (mma_tf32.cuh). Two blocks an SM (<= 128 registers a thread) where
+// T: float, __nv_bfloat16 or __half; EP: E padded to 16, 32 or 64; NK:
+// keys padded to a multiple of 16 (>= Lk). vec: rows by 16-byte cp.async.
+// Lane = 4 * g + t (mma_tf32.cuh). Two blocks an SM (<= 128 registers a thread) where
 // the scores and the accumulators fit in that; one above, where 128 would
 // spill.
 template <typename T, int EP, int NK>
@@ -412,18 +419,22 @@ cudaError_t launch_e(const Args& a, cudaStream_t stream) {
 }
 
 cudaError_t dispatch(const Args& a, int dtype, cudaStream_t stream) {
-  return dtype == 0 ? launch_e<float>(a, stream) : launch_e<__nv_bfloat16>(a, stream);
+  switch (dtype) {
+    case 0: return launch_e<float>(a, stream);
+    case 1: return launch_e<__nv_bfloat16>(a, stream);
+    default: return launch_e<__half>(a, stream);
+  }
 }
 
 bool invalid(int B, int H, int Lq, int Lk, int E, int dtype) {
   return B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || Lk > kMaxLk || E <= 0 || E > kMaxE ||
-         (dtype != 0 && dtype != 1);
+         dtype < 0 || dtype > 2;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. `lse` may be null (not written); `seed`
-// null means no dropout, else keep iff the Philox word < `thresh` and scale
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. `lse` may be null (not
+// written); `seed` null means no dropout, else keep iff the Philox word < `thresh` and scale
 // kept probabilities by `inv_keep`. Returns a cudaError_t (0 on success);
 // launches on `stream` and does not synchronise.
 extern "C" int bd_attention_fwd(const void* q, const void* k, const void* v, void* o,

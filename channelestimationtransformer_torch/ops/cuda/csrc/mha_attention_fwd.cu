@@ -1,6 +1,6 @@
 // Multi-head attention forward for Hopper (sm_90a), plain C interface, on
-// two routes: "mma" (mma.sync; every dtype and width) and "wgmma" (bf16,
-// Lq > 32, E and D each 64 or 128, 16-byte aligned tensors: warpgroup MMAs
+// two routes: "mma" (mma.sync; every dtype and width) and "wgmma" (bf16 or
+// f16, Lq > 32, E and D each 64 or 128, 16-byte aligned tensors: warpgroup MMAs
 // fed by TMA, below the mma route's kernel). The caller picks the route
 // (ops/cuda/mha_attention.py:mha_route); neither falls back to the other.
 //
@@ -13,8 +13,8 @@
 //     out = softmax(scale * Q K^T, masked) V
 //
 // q [B, Lq, H, E], k [B, Lk, H, E], v [B, Lk, H, D] and out [B, Lq, H, D] are
-// read and written in place through their strides, with no transposes; f32
-// or bf16 in, f32 accumulation, output in the input dtype. With `causal` the
+// read and written in place through their strides, with no transposes; f32,
+// bf16 or f16 in, f32 accumulation, output in the input dtype. With `causal` the
 // mask is top-left aligned: key j is kept for query i iff j <= i (the TPU
 // kernels' mask and full_attention's triu(1)), also when Lq != Lk.
 //
@@ -40,7 +40,8 @@
 // split-TF32 product (mma_tf32.cuh) for Q K^T and P V; its k order (2t,
 // 2t + 1) makes a C fragment of S the A fragment of P in place. bf16 inputs
 // take bf16 MMAs, P rounded to bf16 for P V as FlashAttention does, V's B
-// fragments by ldmatrix.trans. Where E or D is not a multiple of 16 bytes,
+// fragments by ldmatrix.trans; f16 inputs the same with f16 MMAs, P rounded
+// to f16. Where E or D is not a multiple of 16 bytes,
 // the tiles are loaded by plain loads instead of cp.async. The products run
 // over the padded width W (64 or 128), whose columns past E and D are zero
 // in shared memory.
@@ -56,24 +57,27 @@
 // Q and K fragments from shared memory for every key tile of 32 keys, every
 // thread issues copies, and its MMA is Ampere's.
 //
-// Route "wgmma" (bf16; replaces _attn_kernel_blhe on the xl encoder's L 256,
-// 128 and 64 calls). Bound at L 256 (B 64, H 8, E = D 128): 134 MB over HBM,
+// Route "wgmma" (bf16 and f16; replaces _attn_kernel_blhe on the xl
+// encoder's L 256, 128 and 64 calls). Bound at L 256 (B 64, H 8, E = D 128): 134 MB over HBM,
 // 40 us; 17.2 GFLOP at 989 TFLOP/s, 17 us: bytes bound it, and every call
 // of the route. Design (FlashAttention-3's shape, kept simple): persistent
 // blocks of a producer warpgroup, whose one thread issues TMA loads of
 // 128-byte-swizzled boxes (Q once an item into one of two buffers, K and V
 // tiles into a two-stage ring, full / empty mbarriers), and one or two
 // consumer warpgroups of 64 query rows that run S = Q K^T as wgmma from
-// shared memory, the online softmax on the accumulators, P rounded to bf16
-// in registers as the A operand of O += P V (V through the transpose bit),
+// shared memory, the online softmax on the accumulators, P rounded to the
+// input's 16-bit type in registers as the A operand of O += P V (V through the transpose bit),
 // and store O through shared memory by TMA; setmaxnreg gives the producer's
 // registers to the consumers (168 at entry, 240 after). Measured on an
 // NVIDIA H100 80GB HBM3 at 700 W (attention_ablation.py): 52 us at L 256
 // (SDPA bf16 53), 28 at L 128 (29), 8 at L 64 (17); without its products
 // the L 256 call still takes 51 us, so the loads and stores (77% of the
-// HBM rate) bound it, not the tensor cores.
+// HBM rate) bound it, not the tensor cores. The f16 instances are the bf16
+// ones with f16 wgmma, f16 tensor maps and P rounded to f16 (10 stored
+// significand bits to bf16's 7; P lies in [0, 1]).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -92,9 +96,9 @@ constexpr int kStages = 2;  // K/V pipeline stages (3 measured slower: fewer blo
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Row pitches (elements) of the shared tiles. Q and K rows W + 8: the 8-byte
-// (f32) or 4-byte (bf16) fragment loads of 8 rows x 4 lanes hit distinct
-// banks. V rows W + 4 for f32 (4-byte loads of rows 2t and 2t + 1) and
-// W + 8 for bf16 (ldmatrix rows 16 bytes apart modulo 128).
+// (f32) or 4-byte (bf16, f16) fragment loads of 8 rows x 4 lanes hit
+// distinct banks. V rows W + 4 for f32 (4-byte loads of rows 2t and 2t + 1)
+// and W + 8 for bf16 and f16 (ldmatrix rows 16 bytes apart modulo 128).
 template <typename T, int W>
 struct Pitch {
   static constexpr int q = W + 8, k = W + 8, v = sizeof(T) == 4 ? W + 4 : W + 8;
@@ -136,20 +140,21 @@ __device__ __forceinline__ void scores(float (&s)[NT][4], const float* sq, const
   }
 }
 
-template <int NT, int QP, int KP, int W>
-__device__ __forceinline__ void scores(float (&s)[NT][4], const __nv_bfloat16* sq,
-                                       const __nv_bfloat16* sk, int g, int t) {
+// bf16 and f16 (H): one MMA a 16-column step and 8 keys, exact products.
+template <int NT, int QP, int KP, int W, typename H>
+__device__ __forceinline__ b16_void<H> scores(float (&s)[NT][4], const H* sq, const H* sk,
+                                              int g, int t) {
 #pragma unroll
   for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < W / 16; ++ks) {
     uint32_t af[4];
-    frag_a_bf16(af, sq + g * QP + 16 * ks + 2 * t, QP);
+    frag_a_b16(af, sq + g * QP + 16 * ks + 2 * t, QP);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       uint32_t bf[2];
-      frag_b_bf16(bf, sk + (8 * n + g) * KP + 16 * ks + 2 * t);
-      mma_bf16(s[n], af, bf);
+      frag_b_b16(bf, sk + (8 * n + g) * KP + 16 * ks + 2 * t);
+      mma_b16<H>(s[n], af, bf);
     }
   }
 }
@@ -173,22 +178,23 @@ __device__ __forceinline__ void pv(float (&acc)[NO][4], const float (&p)[NT][4],
   }
 }
 
-template <int NT, int NO, int VP>
-__device__ __forceinline__ void pv(float (&acc)[NO][4], const float (&p)[NT][4],
-                                   const __nv_bfloat16* sv, int, int, int lane) {
+// bf16 and f16 (H): P rounded to H once.
+template <int NT, int NO, int VP, typename H>
+__device__ __forceinline__ b16_void<H> pv(float (&acc)[NO][4], const float (&p)[NT][4],
+                                          const H* sv, int, int, int lane) {
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    const __nv_bfloat16* row = sv + (16 * kk + (lane & 15)) * VP + 8 * (lane >> 4);
+    const uint32_t a[4] = {pack_b16<H>(p[2 * kk][0], p[2 * kk][1]),
+                           pack_b16<H>(p[2 * kk][2], p[2 * kk][3]),
+                           pack_b16<H>(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_b16<H>(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const H* row = sv + (16 * kk + (lane & 15)) * VP + 8 * (lane >> 4);
 #pragma unroll
     for (int n = 0; n < NO; n += 2) {
       uint32_t r[4];
       ldmatrix_x4_trans(r, row + 8 * n);
-      mma_bf16(acc[n], a, {r[0], r[1]});
-      mma_bf16(acc[n + 1], a, {r[2], r[3]});
+      mma_b16<H>(acc[n], a, {r[0], r[1]});
+      mma_b16<H>(acc[n + 1], a, {r[2], r[3]});
     }
   }
 }
@@ -351,7 +357,8 @@ mha_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // --- Route "wgmma" ----------------------------------------------------------
 //
-// bf16, Lq > 32, E and D each 64 or 128, q, k, v and out 16-byte aligned.
+// bf16 or f16, Lq > 32, E and D each 64 or 128, q, k, v and out 16-byte
+// aligned.
 // A persistent block: NC consumer warpgroups (warps 0 .. 4NC - 1), each
 // owning 64 query rows of the block's item, and a producer warpgroup whose
 // first warp's lane 0 issues every TMA load. The producer warpgroup gives
@@ -367,7 +374,7 @@ mha_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // the item and store it.
 
 constexpr int kWgStages = 2;   // K/V ring
-constexpr int kBox = 64;       // columns of a TMA box: 128 bytes of bf16
+constexpr int kBox = 64;       // columns of a TMA box: 128 bytes of 16-bit values
 constexpr int kBoxBytes = 64 * 128;  // a box of 64 rows
 
 // NC = 2 for Lq > 64 (BQ 128: K and V cross the SM once for 128 rows) with
@@ -395,20 +402,20 @@ struct WgLayout {
   static constexpr int smem = bar_off + 8 * n_bars + 1024;  // + the base's alignment
 };
 
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  if constexpr (N == 64) wgmma_ss_n64(d, a, b, acc);
-  else wgmma_ss_n128(d, a, b, acc);
+  if constexpr (N == 64) wgmma_ss_n64<T>(d, a, b, acc);
+  else wgmma_ss_n128<T>(d, a, b, acc);
 }
 
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-  else wgmma_rs_n128(d, a, b);
+  if constexpr (N == 64) wgmma_rs_n64<T>(d, a, b);
+  else wgmma_rs_n128<T>(d, a, b);
 }
 
-// Maps (TMA, 4-D: E or D, H, L, B, bf16, 128-byte swizzle): tq and to boxes
-// of 64 rows, tk and tv boxes of BK rows.
+// T: __nv_bfloat16 or __half. Maps (TMA, 4-D: E or D, H, L, B, T, 128-byte
+// swizzle): tq and to boxes of 64 rows, tk and tv boxes of BK rows.
 template <typename T, int WE, int WD, int NC>
 __global__ void __launch_bounds__(WgLayout<WE, WD, NC>::threads,
                                   WgLayout<WE, WD, NC>::blocks_per_sm)
@@ -417,7 +424,7 @@ mha_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap to, int BH, int H, int Lq, int Lk,
                            float scale_log2, int causal) {
-  static_assert(sizeof(T) == 2, "the wgmma route takes bf16");
+  static_assert(sizeof(T) == 2, "the wgmma route takes bf16 or f16");
   using Lay = WgLayout<WE, WD, NC>;
   constexpr int BQ = Lay::BQ, BK = Lay::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -527,7 +534,7 @@ mha_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < WE / 16; ++ks)
-            wgmma_ss<BK>(s,
+            wgmma_ss<T, BK>(s,
                          sw128_desc(q_base + (ks >> 2) * kBoxBytes + (ks & 3) * 32, 16, 1024),
                          sw128_desc(k_base + (ks >> 2) * BK * 128 + (ks & 3) * 32, 16, 1024),
                          ks > 0);
@@ -577,15 +584,15 @@ mha_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             o[4 * j + 2] *= alpha1;
             o[4 * j + 3] *= alpha1;
           }
-          // P rounded to bf16 once: keys 16 kk .. 16 kk + 15 are the A operand
+          // P rounded to T once: keys 16 kk .. 16 kk + 15 are the A operand
           // of k16 step kk of P V.
           uint32_t p[BK / 16][4];
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk) {
-            p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-            p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-            p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-            p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+            p[kk][0] = pack_b16<T>(s[8 * kk], s[8 * kk + 1]);
+            p[kk][1] = pack_b16<T>(s[8 * kk + 2], s[8 * kk + 3]);
+            p[kk][2] = pack_b16<T>(s[8 * kk + 4], s[8 * kk + 5]);
+            p[kk][3] = pack_b16<T>(s[8 * kk + 6], s[8 * kk + 7]);
           }
 
           // O += P V: V's tile [BK][WD] is B MN-major; k16 step kk starts 16
@@ -595,7 +602,7 @@ mha_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma_rs<WD>(o, p[kk], sw128_desc(v_base + kk * 2048, BK * 128, 1024));
+            wgmma_rs<T, WD>(o, p[kk], sw128_desc(v_base + kk * 2048, BK * 128, 1024));
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(o);
@@ -609,7 +616,7 @@ mha_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       if (my_tiles == 0) continue;
 
-      // Epilogue: O / l in bf16 into the staging boxes (swizzled as TMA
+      // Epilogue: O / l in T into the staging boxes (swizzled as TMA
       // reads them, 4-byte stores on 32 distinct banks a warp), then one TMA
       // store a box, which drops the rows past Lq.
       const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
@@ -619,10 +626,10 @@ mha_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 0; j < WD / 8; ++j) {
         uint8_t* box = my_o + (j >> 3) * kBoxBytes + (((j & 7) ^ g) << 4) + 4 * t;
-        *reinterpret_cast<uint32_t*>(box + ra * 128) = pack_bf16(o[4 * j] * inv0,
-                                                                 o[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(box + ra * 128) = pack_b16<T>(o[4 * j] * inv0,
+                                                                   o[4 * j + 1] * inv0);
         *reinterpret_cast<uint32_t*>(box + (ra + 8) * 128) =
-            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+            pack_b16<T>(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
       fence_proxy_async();
       named_barrier(1 + wg, 128);
@@ -708,28 +715,28 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous bf16 [B, L, H, W] tensor as dims (W, H, L, B),
-// boxes of 64 columns x `rows` rows, 128-byte swizzle; reads past L fill
-// zeros, stores past L are dropped.
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int L, int H, int W,
-                       int rows) {
+// The map of a contiguous 16-bit [B, L, H, W] tensor of `type` (bf16 or
+// f16) as dims (W, H, L, B), boxes of 64 columns x `rows` rows, 128-byte
+// swizzle; reads past L fill zeros, stores past L are dropped.
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int B,
+                       int L, int H, int W, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[3] = {2ull * W, 2ull * W * H, 2ull * W * H * L};  // bytes, dims 1-3
   const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int WE, int WD, int NC>
+template <typename T, int WE, int WD, int NC>
 cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   using Lay = WgLayout<WE, WD, NC>;
-  auto kernel = mha_attention_wgmma_kernel<__nv_bfloat16, WE, WD, NC>;
+  auto kernel = mha_attention_wgmma_kernel<T, WE, WD, NC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::smem);
   if (err != cudaSuccess) return err;
@@ -747,11 +754,13 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
                                                            Lay::smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  constexpr CUtensorMapDataType type =
+      is_f16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv, mo;
-  if ((err = tensor_map(&mq, a.q, a.B, a.Lq, a.H, WE, 64)) != cudaSuccess ||
-      (err = tensor_map(&mk, a.k, a.B, a.Lk, a.H, WE, Lay::BK)) != cudaSuccess ||
-      (err = tensor_map(&mv, a.v, a.B, a.Lk, a.H, WD, Lay::BK)) != cudaSuccess ||
-      (err = tensor_map(&mo, a.o, a.B, a.Lq, a.H, WD, 64)) != cudaSuccess)
+  if ((err = tensor_map(&mq, type, a.q, a.B, a.Lq, a.H, WE, 64)) != cudaSuccess ||
+      (err = tensor_map(&mk, type, a.k, a.B, a.Lk, a.H, WE, Lay::BK)) != cudaSuccess ||
+      (err = tensor_map(&mv, type, a.v, a.B, a.Lk, a.H, WD, Lay::BK)) != cudaSuccess ||
+      (err = tensor_map(&mo, type, a.o, a.B, a.Lq, a.H, WD, 64)) != cudaSuccess)
     return err;
   const long long items = (long long)((a.Lq + Lay::BQ - 1) / Lay::BQ) * a.B * a.H;
   if (items > INT_MAX) return cudaErrorInvalidValue;
@@ -761,41 +770,49 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int WE>
+template <typename T, int WE>
 cudaError_t launch_wgmma_d(const Args& a, cudaStream_t stream) {
   const bool two = a.Lq > 64;
   if (a.D == 64)
-    return two ? launch_wgmma<WE, 64, 2>(a, stream) : launch_wgmma<WE, 64, 1>(a, stream);
-  return two ? launch_wgmma<WE, 128, 2>(a, stream) : launch_wgmma<WE, 128, 1>(a, stream);
+    return two ? launch_wgmma<T, WE, 64, 2>(a, stream) : launch_wgmma<T, WE, 64, 1>(a, stream);
+  return two ? launch_wgmma<T, WE, 128, 2>(a, stream) : launch_wgmma<T, WE, 128, 1>(a, stream);
 }
 
 // The wgmma route's conditions (mha_attention.py:mha_route), held again here.
+template <typename T>
 cudaError_t launch_wgmma_route(const Args& a, cudaStream_t stream) {
   const bool width = (a.E == 64 || a.E == 128) && (a.D == 64 || a.D == 128);
   if (!width || a.Lq <= 32 || !aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
       !aligned16(a.o))
     return cudaErrorInvalidValue;
-  return a.E == 64 ? launch_wgmma_d<64>(a, stream) : launch_wgmma_d<128>(a, stream);
+  return a.E == 64 ? launch_wgmma_d<T, 64>(a, stream) : launch_wgmma_d<T, 128>(a, stream);
 }
 
 cudaError_t dispatch(const Args& a, int dtype, int route, cudaStream_t stream) {
   if (a.B <= 0 || a.H <= 0 || a.Lq <= 0 || a.Lk <= 0 || a.E <= 0 || a.E > kMaxW || a.D <= 0 ||
       a.D > kMaxW)
     return cudaErrorInvalidValue;
-  if (route == 1) return dtype == 1 ? launch_wgmma_route(a, stream) : cudaErrorInvalidValue;
+  if (route == 1) {
+    switch (dtype) {
+      case 1: return launch_wgmma_route<__nv_bfloat16>(a, stream);
+      case 2: return launch_wgmma_route<__half>(a, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   if (route != 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case 0: return launch_dtype<float>(a, stream);
     case 1: return launch_dtype<__nv_bfloat16>(a, stream);
+    case 2: return launch_dtype<__half>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; route: 0 = "mma" (every dtype and
-// width), 1 = "wgmma" (bf16, Lq > 32, E and D each 64 or 128, 16-byte
-// aligned tensors; else cudaErrorInvalidValue). Tensors are contiguous: q
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; route: 0 = "mma" (every
+// dtype and width), 1 = "wgmma" (bf16 or f16, Lq > 32, E and D each 64 or
+// 128, 16-byte aligned tensors; else cudaErrorInvalidValue). Tensors are contiguous: q
 // [B, Lq, H, E], k [B, Lk, H, E], v [B, Lk, H, D], o [B, Lq, H, D]. Returns
 // a cudaError_t (0 on success); launches on `stream` and does not
 // synchronise.

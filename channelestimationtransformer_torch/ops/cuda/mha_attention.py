@@ -14,8 +14,8 @@ take (``models/attention.py``). Forward only, as the TPU kernels: it raises
 where autograd would need its gradient.
 
 The kernel has two routes, chosen by :func:`mha_route` and passed to its C
-entry: "wgmma" (bf16, Lq > 32, E and D each 64 or 128, 16-byte aligned
-tensors), a Hopper kernel of warpgroup MMAs fed by TMA from a producer warpgroup,
+entry: "wgmma" (bf16 or float16, Lq > 32, E and D each 64 or 128, 16-byte
+aligned tensors), a Hopper kernel of warpgroup MMAs fed by TMA from a producer warpgroup,
 and "mma" (every other call), the ``mma.sync`` kernel.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel on their
@@ -36,18 +36,19 @@ from .bd_attention import bd_attention_reference
 
 LIB = "mha_attention_fwd"
 MAX_WIDTH = 128  # E and D limit of the kernel's shared-memory tiles
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROUTES = ("mma", "wgmma")  # the C entry's route codes, in order
 WGMMA_WIDTHS = (64, 128)  # E and D of the wgmma route: one or two 128-byte TMA boxes
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)  # the wgmma route's 16-bit inputs
 
 
 def mha_route(dtype, l_q: int, l_k: int, e: int, d: int, aligned: bool) -> str:
-    """The kernel route of a call: "wgmma" for bf16 with ``l_q > 32`` (a
-    consumer warpgroup takes 64 query rows), E and D each 64 or 128, and q,
-    k, v ``aligned`` to 16 bytes (TMA's rule); "mma" for every other call
-    (f32, short queries, other widths). ``l_k`` takes any length on either
-    route."""
-    wgmma = (dtype == torch.bfloat16 and l_q > 32 and e in WGMMA_WIDTHS
+    """The kernel route of a call: "wgmma" for bf16 or float16 with
+    ``l_q > 32`` (a consumer warpgroup takes 64 query rows), E and D each 64
+    or 128, and q, k, v ``aligned`` to 16 bytes (TMA's rule); "mma" for
+    every other call (f32, short queries, other widths). ``l_k`` takes any
+    length on either route."""
+    wgmma = (dtype in WGMMA_DTYPES and l_q > 32 and e in WGMMA_WIDTHS
              and d in WGMMA_WIDTHS and aligned)
     return "wgmma" if wgmma else "mma"
 
@@ -86,8 +87,8 @@ def _check(q, k, v):
     if not (0 < e <= MAX_WIDTH and 0 < d <= MAX_WIDTH):
         raise ValueError(f"mha_attention takes E and D up to {MAX_WIDTH}; got E {e}, D {d}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"mha_attention takes float32 or bfloat16 q, k, v of one dtype; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"mha_attention takes float32, bfloat16 or float16 q, k, v of one dtype; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must share one device")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

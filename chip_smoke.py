@@ -1,5 +1,5 @@
 """Drive the PyTorch port's serving, quantized serving and training paths
-on one NVIDIA card, in float32 and in bfloat16 activations, its channel
+on one NVIDIA card, in float32, bfloat16 and float16 activations, its channel
 generator and training drivers, ProbSparse attention, fused QKV projections,
 LSQ training, the quantization study (QAT, pruning and their drivers), int8
 serving, blockwise streaming and the baseline models with their drivers,
@@ -16,8 +16,8 @@ multi-chip dry run (``cli/multichip.py``).
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs,
-   and cuBLAS's bf16 reduced-precision reductions off (bf16 GEMMs accumulate
-   in f32, as the JAX package's dots);
+   and cuBLAS's bf16 and fp16 reduced-precision reductions off (16-bit GEMMs
+   accumulate in f32, as the JAX package's dots);
 2. build: the five CUDA kernel libraries, compiled in parallel with nvcc
    from the sources here; per library its kernels' registers, spill bytes
    and static shared memory from ``-Xptxas -v`` (the full logs go beside
@@ -26,17 +26,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    HGMMA); the three attention libraries must show MMAs and no spills, and
    for each of them a line per dtype gives its instances' registers, spills
    and MMAs by operand type: every bf16 instance must issue bf16 MMAs only,
-   every f32 one TF32 only, and the mha library's wgmma instances HGMMA,
+   every f32 one TF32 only, every f16 one f16 only (``HMMA.16816.F32``,
+   ``HGMMA...F32``: no operand suffix), and the mha library's wgmma
+   instances HGMMA,
    each on a line of its own (per-instance rows in ``chip_smoke.json``);
 3. kernel, eval: the bd-attention forward kernel (dropout 0) against its
-   plain version at the six flagship shape classes in float32 and bfloat16,
+   plain version at the six flagship shape classes in float32, bfloat16 and
+   float16,
    with kernel, plain and ``F.scaled_dot_product_attention`` (yardstick
    only) times;
 4. kernel, xl eval: the mha-attention forward kernel against its plain
    version at the six shape classes of the xl model (B 64, H 8, E 128) and
    two shapes beyond the model (D != E; a long non-square causal shape), in
-   float32 and bfloat16, timed likewise; each row names its route ("wgmma":
-   bf16 at Lq > 32, E and D 64 or 128; "mma" the rest), checks that its
+   float32, bfloat16 and float16, timed likewise; each row names its route
+   ("wgmma": bf16 or f16 at Lq > 32, E and D 64 or 128; "mma" the rest),
+   checks that its
    launch counted on that route, and gives the launch's registers and
    blocks an SM (``mha_attention_fwd_occupancy``);
 5. quant fixed: the fixed-point kernel against its plain version bit for
@@ -121,6 +125,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    training samples/s in turns with the twin; then the bd kernels' f32 and
    bf16 instances side by side, a training step of each: graph-replay and
    eager us, bound, launches, and per shape registers and blocks an SM;
+16a. float16: 13-16 in float16 (``F16_TOL``, ``F16_GRAD_*``; the xl path
+   at ``F16_MHA_TOL``, where the plain path's attention over E 128 runs in
+   f16): the flagship eval path (104 bd launches), the xl eval path (40
+   wgmma, 64 mma), one LSQ-fibbinary batch and the training path (104 + 104;
+   the f16 instances' step beside the others'). The kernel phases 3, 4, 10,
+   11 and the scale rows hold the f16 instances too, and the training rows
+   also hold the f16 backward at a training step's cotangents (dO times
+   2^-17: dS below f16's normal range unless the kernel scales it), relative
+   to each gradient's max;
 17. datagen: ``generate_beamformed_dataset`` (CDL-B 64 x 2, 100 slots, one
    chunk of 128 samples) on the card against the CPU from the same draws
    (``DATAGEN_TOL``, the kept beams equal); the parity recipe's data on the
@@ -286,11 +299,12 @@ the later paths and drivers (``int8_eval_launches``,
 ``tp_train_launches_world1``, ``drivers16_launches``, ...), as the bd
 backward's and the mha kernel's entries do theirs
 (``ring_eval_launches_world1``). Each
-attention kernel's entry carries its bf16 instance (time, launches, bound at
-bf16 bytes or tensor-core FLOPs, SDPA) under ``bfloat16``; the mha entry its
-launches by route, and the mha kernel's wgmma route has an entry of its
-own (``mha_attention_fwd[wgmma]``: the bf16 xl batch's calls on that route,
-with each shape's time, bound, SDPA and occupancy).
+attention kernel's entry carries its bf16 and f16 instances (time,
+launches, bound at 16-bit bytes or tensor-core FLOPs, SDPA) under
+``bfloat16`` and ``float16``; the mha entry its launches by route, and the
+mha kernel's wgmma route has an entry of its own (``mha_attention_fwd[wgmma]``:
+the bf16 xl batch's calls on that route, with each shape's time, bound,
+SDPA and occupancy, and the f16 batch's under ``float16``).
 
 With ``--profile`` each path's line also gives its device kernel launches
 per chunk. The last three lines are the card's name and power limit, the kernels' JSON
@@ -316,7 +330,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 tensor cores
+# f32 CUDA cores; bf16 and fp16 tensor cores (dense)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 TENSOR_CORE_LIBS = ("bd_attention_fwd", "bd_attention_bwd", "mha_attention_fwd")
 # Attention products (the bound of every attention row, forward and
 # backward). The tensor cores are the card's fastest f32-accurate route: a
@@ -324,7 +339,8 @@ TENSOR_CORE_LIBS = ("bd_attention_fwd", "bd_attention_bwd", "mha_attention_fwd")
 # split operands (hi*hi + hi*lo + lo*hi, csrc/mma_tf32.cuh), 495 / 3
 # TFLOP/s. The quant kernels' work is comparisons and stays at the f32
 # CUDA-core rate.
-ATTN_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+ATTN_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12}
+KERNEL_DTYPES = ("float32", "bfloat16", "float16")  # the attention kernels' instances
 # (label, l_q, l_k, causal, calls per eval batch or training step) at B 256, H 8, E 16
 SHAPES = [
     ("enc L=90", 90, 90, False, 1),
@@ -368,8 +384,14 @@ CODEWORD_BIG = ("lsq_fibbinary(11)", ("2^24", 1 << 24, 0))
 LSQ_SHAPES = [("128x128", (128, 128), 52), ("64x128", (64, 128), 10), ("128x64", (128, 64), 10)]
 LSQ_STEP = 2.0 ** -5  # a power of two: grad_scale's value is the step itself, ties stay exact
 DROPOUT = 0.05  # InformerConfig().dropout
-TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}  # (rtol, atol), forward
-BWD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # longer sums in dK, dV
+# (rtol, atol), forward; float16 rounds its result at 2^-11 (bf16: 2^-8)
+TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2), "float16": (2e-3, 2e-3)}
+# longer sums in dK, dV; tests/test_torch_f16_mma.py holds f16's datapath to it
+BWD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2), "float16": (4e-3, 4e-3)}
+# The f16 backward also at a training step's cotangents: dO times F16_TRAIN_DO,
+# compared with the plain version's f32 result relative to each gradient's max
+# (the results are f16 subnormals there).
+F16_TRAIN_DO = 2.0 ** -17
 MAIN_TOL = (1e-3, 1e-4)  # kernel path vs plain path, whole model forward, TF32 off
 # bf16 kernel path vs bf16 plain path, whole model: max|kernel - plain| /
 # max|plain| and NMSE(kernel, plain). The kernels compute attention in f32
@@ -385,6 +407,18 @@ BF16_TOL = (5e-2, 1e-3)
 # times the plain path's, and that the two paths differ by at most
 # BF16_GRAD_CAP.
 BF16_GRAD_FLOOR, BF16_GRAD_RATIO, BF16_GRAD_CAP = 5e-2, 1.25, 0.3
+# The same for float16 (cap 0.1: a probe on the card put the two paths 3.8e-2
+# apart, the first encoder's query weight, and each 4.6-4.9e-2 from the f32
+# twin): its cotangents round at 2^-11, but at the training batch many lie
+# among f16's subnormals (below 2^-14) on either path.
+F16_GRAD_FLOOR, F16_GRAD_RATIO, F16_GRAD_CAP = 1e-2, 1.25, 0.1
+LOW_GRAD = {"bfloat16": (BF16_GRAD_FLOOR, BF16_GRAD_RATIO, BF16_GRAD_CAP),
+            "float16": (F16_GRAD_FLOOR, F16_GRAD_RATIO, F16_GRAD_CAP)}
+# float16 kernel path vs float16 plain path, whole model, as BF16_TOL:
+# tests/test_torch_f16.py's bars against flax. At the xl widths the plain
+# path's attention over E 128 and L 256 runs in f16, the kernels' in f32.
+F16_TOL = (1e-2, 2e-5)
+F16_MHA_TOL = (2e-2, 6e-5)
 # Kernel path vs plain path, one training step: each gradient's max abs
 # difference over the larger of its own max abs and 1e-3 of the largest
 # gradient's (the two paths round the attention sums differently, and the
@@ -478,8 +512,8 @@ def _ptxas_instances(log):
 
 def _instance_label(name):
     """``kernel<dtype, template numbers>`` of a mangled template kernel name
-    and its dtype ("float32", "bfloat16", or None where the kernel takes no
-    type argument)."""
+    and its dtype ("float32", "bfloat16", "float16", or None where the
+    kernel takes no type argument)."""
     # A nested name (_ZN ... E) is a run of <length><text> parts; the
     # kernel's ends in "_kernel" and its template arguments follow (I ... E).
     i = 3 if name.startswith("_ZN") else 2
@@ -494,6 +528,7 @@ def _instance_label(name):
         return name, None
     args = name[i + 1:name.index("EEv", i)]
     dtype = ("bfloat16" if args.startswith("13__nv_bfloat16")
+             else "float16" if args.startswith("6__half")
              else "float32" if args.startswith("f") else None)
     nums = re.findall(r"L[ib](\d+)E", args)
     return f"{base}<{', '.join(([dtype] if dtype else []) + nums)}>", dtype
@@ -512,22 +547,38 @@ def _sass_hmma(lib):
                                             capture_output=True, text=True).stdout)
 
 
+MMA_KINDS = ("bf16", "tf32", "f16", "other")  # tensor-core MMAs by operand type
+# The MMAs each dtype's instances issue, and only these.
+MMA_KIND_OF = {"bfloat16": "bf16", "float32": "tf32", "float16": "f16"}
+
+
+def _mma_kind(op):
+    """The operand type of an HMMA or HGMMA by the rest of its name: a BF16
+    or TF32 suffix names it; f16 inputs with f32 accumulators carry none
+    (``HMMA.16816.F32``, ``HGMMA.64x128x16.F32``); anything else is
+    "other"."""
+    if "BF16" in op:
+        return "bf16"
+    if "TF32" in op:
+        return "tf32"
+    return "f16" if re.fullmatch(r"[0-9x]+\.F32", op) else "other"
+
+
 def _hmma_by_function(sass):
-    """{mangled name: {"bf16": n, "tf32": n, "other": n, "hgmma": n}} of a
-    SASS dump: each function's tensor-core MMAs (mma.sync's HMMA and
-    wgmma's HGMMA) by the operand type in their name, and how many of them
-    are HGMMA."""
+    """{mangled name: {"bf16": n, "tf32": n, "f16": n, "other": n, "hgmma":
+    n}} of a SASS dump: each function's tensor-core MMAs (mma.sync's HMMA
+    and wgmma's HGMMA) by their operand type (:func:`_mma_kind`), and how
+    many of them are HGMMA."""
     counts, name = {}, None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             name = fn.group(1)
-            counts[name] = dict(bf16=0, tf32=0, other=0, hgmma=0)
+            counts[name] = dict.fromkeys((*MMA_KINDS, "hgmma"), 0)
             continue
         op = re.search(r"\b(HG?MMA)\.(\S+)", line)
         if op and name:
-            kind = "bf16" if "BF16" in op.group(2) else "tf32" if "TF32" in op.group(2) else "other"
-            counts[name][kind] += 1
+            counts[name][_mma_kind(op.group(2))] += 1
             counts[name]["hgmma"] += op.group(1) == "HGMMA"
     return counts
 
@@ -539,26 +590,26 @@ def _build_instances(log, hmma):
     rows = []
     for inst in _ptxas_instances(log):
         label, dtype = _instance_label(inst["name"])
-        counts = (hmma or {}).get(inst["name"], dict(bf16=0, tf32=0, other=0, hgmma=0))
+        counts = (hmma or {}).get(inst["name"], dict.fromkeys((*MMA_KINDS, "hgmma"), 0))
         rows.append(dict(label=label, dtype=dtype, registers=inst["registers"],
                          spill_bytes=inst["spill_bytes"],
-                         **({f"hmma_{k}": counts[k] for k in ("bf16", "tf32", "other")}
-                            if hmma is not None
-                            else dict(hmma_bf16=None, hmma_tf32=None, hmma_other=None)),
+                         **{f"hmma_{k}": counts[k] if hmma is not None else None
+                            for k in MMA_KINDS},
                          hgmma=counts["hgmma"] if hmma is not None else None))
     return rows
 
 
 def _mma_faults(instances):
-    """Tensor-core instances that issue the wrong MMAs: a bfloat16 instance
-    with no bf16 MMA (HMMA or HGMMA) or with any TF32 one, a float32
-    instance with no TF32 MMA or with any bf16 one, a wgmma instance (its
-    name says so) with no HGMMA; and any whose dtype the name does not say."""
-    want = {"bfloat16": ("hmma_bf16", "hmma_tf32"), "float32": ("hmma_tf32", "hmma_bf16")}
-    return [r["label"] for r in instances if r["dtype"] not in want or (
-        r["hmma_bf16"] is not None
-        and (r[want[r["dtype"]][0]] == 0 or r[want[r["dtype"]][1]] or r["hmma_other"]
-             or ("wgmma" in r["label"] and not r.get("hgmma"))))]
+    """Tensor-core instances that issue the wrong MMAs: a bfloat16, float32
+    or float16 instance with no MMA of its own kind (bf16, TF32, f16; HMMA
+    or HGMMA) or with any MMA of another kind, a wgmma instance (its name
+    says so) with no HGMMA; and any whose dtype the name does not say."""
+    def wrong(r):
+        own = f"hmma_{MMA_KIND_OF[r['dtype']]}"
+        return r[own] == 0 or any(r[f"hmma_{k}"] for k in MMA_KINDS if f"hmma_{k}" != own) or (
+            "wgmma" in r["label"] and not r.get("hgmma"))
+    return [r["label"] for r in instances if r["dtype"] not in MMA_KIND_OF or (
+        r["hmma_bf16"] is not None and wrong(r))]
 
 
 def _occupancy(name, *sizes):
@@ -642,15 +693,18 @@ def _mha_route(mha, q, k, v, code):
 def phase_kernel(torch, F, kernel_fn, reference, shapes, prefix="kernel", seed=0,
                  timed=True, mha=None):
     """An eval forward kernel against its plain version at ``shapes``
-    ((label, l_q, l_k, causal, calls per eval batch, b, h, e, d)) in float32
-    and bfloat16, with kernel, plain and ``F.scaled_dot_product_attention``
+    ((label, l_q, l_k, causal, calls per eval batch, b, h, e, d)) in float32,
+    bfloat16 and float16, with kernel, plain and ``F.scaled_dot_product_attention``
     times (``timed=False``: the kernel's graph time alone). With ``mha``
     (the mha wrapper's module) each row names its route, checks that the
     launch counted on that route, and reports the launch's occupancy."""
+    from channelestimationtransformer_torch.ops.cuda.bd_attention import _DTYPE_CODE
+
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for code, (dtype_name, dtype) in enumerate((("float32", torch.float32),
-                                                ("bfloat16", torch.bfloat16))):
+    for dtype_name in KERNEL_DTYPES:
+        dtype = getattr(torch, dtype_name)
+        code = _DTYPE_CODE[dtype]  # the C entries' dtype code (the mha entry's too)
         for label, l_q, l_k, causal, calls, b, h, e, d in shapes:
             q, k, v = _inputs(torch, gen, dtype, l_q, l_k, b=b, h=h, e=e, d=d)
             routed = {}
@@ -716,15 +770,17 @@ def kernel_keep_mask(torch, ops, q, k, causal, seed):
 
 def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
     """The training kernels at ``shapes`` ((label, l_q, l_k, causal, calls
-    per step, b, h, e); the flagship's by default): forward with dropout
-    (and lse), its mask, and the backward, against their plain versions,
-    with kernel, plain and SDPA times (``timed=False``: the kernels' graph
-    times alone)."""
+    per step, b, h, e); the flagship's by default), in each of
+    ``KERNEL_DTYPES``: forward with dropout (and lse), its mask, and the
+    backward, against their plain versions, with kernel, plain and SDPA
+    times (``timed=False``: the kernels' graph times alone); in float16 the
+    backward also at a training step's cotangents (``F16_TRAIN_DO``)."""
     if shapes is None:
         shapes = [s + (B, H, E) for s in SHAPES]
     fwd_rows, bwd_rows = [], []
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for dtype_name in KERNEL_DTYPES:
+        dtype = getattr(torch, dtype_name)
         for label, l_q, l_k, causal, calls, b, h, e in shapes:
             q, k, v = _inputs(torch, gen, dtype, l_q, l_k, b=b, h=h, e=e)
             do = torch.randn(b, l_q, h, e, generator=gen, device="cuda").to(dtype)
@@ -787,6 +843,20 @@ def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
             pair_errs = [_compare(torch, g, w.to(dtype), BWD_TOL[dtype_name])
                          for g, w in zip(got, pair)]
             ok = all(err[2] for err in errs + pair_errs)
+            small, small_errs = "", []
+            if dtype_name == "float16":
+                # A training step's cotangents: relative to each gradient's max.
+                do_small = (do.float() * F16_TRAIN_DO).to(dtype)
+                got_small = ops.bd_attention_bwd(q, k, v, o, do_small, lse, seed, **kw)
+                torch.cuda.synchronize()
+                want_small = ops.bd_attention_bwd_reference(
+                    q.float(), k.float(), v.float(), o.float(), do_small.float(), lse, seed, **kw)
+                small_errs = [_compare(torch, g.float() / w.abs().max(), w / w.abs().max(),
+                                       BWD_TOL[dtype_name])
+                              for g, w in zip(got_small, want_small)]
+                ok = ok and all(err[2] for err in small_errs)
+                small = (f"; dO x 2^{int(math.log2(F16_TRAIN_DO))}, over each gradient's max: "
+                         + " ".join(f"{err[0]:.2e}" for err in small_errs))
 
             def bwd():
                 return ops.bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
@@ -794,6 +864,7 @@ def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
                        causal=causal, calls_per_step=calls, dropout=DROPOUT,
                        max_abs_err=max(err[0] for err in errs), max_rel_err=max(err[1] for err in errs),
                        pair_max_abs_err=max(err[0] for err in pair_errs),
+                       train_do_max_err=max((err[0] for err in small_errs), default=None),
                        rtol=BWD_TOL[dtype_name][0], atol=BWD_TOL[dtype_name][1],
                        ms=time_ms(torch, bwd),
                        occupancy=_occupancy(ops.BWD_LIB, b, h, l_q, l_k, e, 1, code),
@@ -819,8 +890,8 @@ def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
             bwd_rows.append(row)
             print(f"{prefix} bwd {label:22s} {dtype_name:8s} dQ/dK/dV max_abs "
                   f"{' '.join(f'{err[0]:.2e}' for err in errs)}, vs the plain pair "
-                  f"{' '.join(f'{err[0]:.2e}' for err in pair_errs)} (rtol {row['rtol']}, atol "
-                  f"{row['atol']}) {'ok' if ok else 'MISMATCH'} | {times}, bound "
+                  f"{' '.join(f'{err[0]:.2e}' for err in pair_errs)}{small} (rtol {row['rtol']}, "
+                  f"atol {row['atol']}) {'ok' if ok else 'MISMATCH'} | {times}, bound "
                   f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}) | "
                   f"{_occupancy_text(row['occupancy'])}", flush=True)
             if not ok:
@@ -872,17 +943,29 @@ def _rel_nmse(got, want):
             (diff.square().sum() / want.square().sum()).item())
 
 
-def _close(torch, got, want, dtype):
+LOW_TOL = {"bfloat16": BF16_TOL, "float16": F16_TOL}  # whole model, by activation dtype
+
+
+def _close(torch, got, want, dtype, tol=None):
     """Kernel path against plain path, one model output: (text, ok) at
-    MAIN_TOL in f32, at BF16_TOL in bf16."""
+    MAIN_TOL in f32, at ``tol`` (max|Δ|/max, NMSE; by default
+    ``LOW_TOL[dtype]``) in bf16 and f16."""
     if dtype == "float32":
         err = (got - want).abs().max().item()
         ok = torch.allclose(got, want, rtol=MAIN_TOL[0], atol=MAIN_TOL[1])
         return f"max_abs {err:.3e} (rtol {MAIN_TOL[0]}, atol {MAIN_TOL[1]})", ok, err
+    tol = tol or LOW_TOL[dtype]
     rel, nm = _rel_nmse(got, want)
-    ok = bool(torch.isfinite(got).all()) and rel <= BF16_TOL[0] and nm <= BF16_TOL[1]
-    return (f"max_abs/max {rel:.3e}, nmse {nm:.3e} (limits {BF16_TOL[0]}, {BF16_TOL[1]})",
+    ok = bool(torch.isfinite(got).all()) and rel <= tol[0] and nm <= tol[1]
+    return (f"max_abs/max {rel:.3e}, nmse {nm:.3e} (limits {tol[0]}, {tol[1]})",
             ok, (got.float() - want.float()).abs().max().item())
+
+
+def _reduced_flag(dtype):
+    """cuBLAS's reduced-precision-reduction switch of a 16-bit activation
+    dtype (``torch.backends.cuda.matmul``'s attribute name)."""
+    return {"bfloat16": "allow_bf16_reduced_precision_reduction",
+            "float16": "allow_fp16_reduced_precision_reduction"}[dtype]
 
 
 # Printed names of the kernel wrappers' launch counters (keys of _counts).
@@ -949,7 +1032,7 @@ def _profile(torch, run, label, card, out_name):
 
 def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
                     samples=65536, slots=None, batch=256, expected=None, beside=None,
-                    expected_routes=None):
+                    expected_routes=None, tol=None):
     """``eval_chunk`` of 8 batches through the kernels: the launch counts
     ``expected`` (by key of :func:`_counts`; by default every attention call
     on the bd forward kernel) and none elsewhere, the mha launches by route
@@ -957,10 +1040,11 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
     against the plain path (each model given a generator of the same seed,
     so a ProbSparse model draws the same ``index_sample``), and samples/s of
     both paths and of the ``beside`` models (name -> model, or a function
-    of the kernel-path model giving them), all in turns. A bf16 ``cfg`` also
-    times its f32 twin (same weights) in the turns, and prints the NMSE of
-    its prediction against the twin's on the batch, with cuBLAS's bf16
-    reduced-precision reductions off (this script's setting) and on."""
+    of the kernel-path model giving them), all in turns. A bf16 or f16
+    ``cfg`` (held at ``tol``, by default ``LOW_TOL``) also times its f32
+    twin (same weights) in the turns, and prints the NMSE of its prediction
+    against the twin's on the batch, with cuBLAS's reduced-precision
+    reductions of its dtype off (this script's setting) and on."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from channelestimationtransformer_torch.data.windows import make_batch
@@ -1003,7 +1087,7 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
         return torch.Generator(device="cuda").manual_seed(6)
     with torch.no_grad():
         p_kernel, p_plain = (m(x_enc, x_dec, generator=draws()) for m in (model, plain))
-    text, ok, err = _close(torch, p_kernel, p_plain, cfg.dtype)
+    text, ok, err = _close(torch, p_kernel, p_plain, cfg.dtype, tol)
     ok = ok and p_kernel.shape == target.shape and p_kernel.dtype == p_plain.dtype
     print(f"{name} vs plain attention path, one batch ({p_kernel.dtype}): {text} "
           f"{'ok' if ok else 'MISMATCH'}", flush=True)
@@ -1017,11 +1101,12 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
         with torch.no_grad():
             p_f32 = twin(x_enc, x_dec)
             for reduced in (False, True):
-                matmul.allow_bf16_reduced_precision_reduction = reduced
+                setattr(matmul, _reduced_flag(cfg.dtype), reduced)
                 vs_f32[reduced] = _rel_nmse(model(x_enc, x_dec), p_f32)[1]
-            matmul.allow_bf16_reduced_precision_reduction = False
+            setattr(matmul, _reduced_flag(cfg.dtype), False)
         print(f"{name} vs its f32 twin (same weights and batch): nmse {vs_f32[False]:.3e} "
-              f"(with bf16 reduced-precision reductions: {vs_f32[True]:.3e})", flush=True)
+              f"(with {cfg.dtype} reduced-precision reductions: {vs_f32[True]:.3e})",
+              flush=True)
         if not all(math.isfinite(v) for v in vs_f32.values()):
             fail(f"non-finite NMSE against the f32 twin on the {name}")
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
@@ -1100,24 +1185,25 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
     """The training path (``cfg``, by default the f32 flagship): one step
     through the kernels against one through the plain attention path (same
     weights, batch and generator seed, so the same dropout masks and
-    ProbSparse draws; the plain path's max pooling, and a bf16 ``cfg``'s
-    f32 twin's, take the kernel path's routing, :func:`_maxpool_routing`),
+    ProbSparse draws; the plain path's max pooling, and a bf16 or f16
+    ``cfg``'s f32 twin's, take the kernel path's routing, :func:`_maxpool_routing`),
     the launch counts of
     ``train_chunk`` (``per_step``
     a step by key of :func:`_counts`; by default the 13 attention calls on
     the bd forward and backward kernels) and its loss, and steady-state
     samples/s of both paths and of the ``beside`` models (a function of the
     kernel-path model giving name -> model) in turns; ``reference`` (label,
-    samples/s) is printed beside them. A bf16 ``cfg`` holds its gradients
-    to its f32 twin's (same weights) too, times the twin in the turns, and
-    checks that the parameters and Adam state stay f32."""
+    samples/s) is printed beside them. A bf16 or f16 ``cfg`` holds its
+    gradients to its f32 twin's (same weights) too (``LOW_GRAD``), times the
+    twin in the turns, and checks that the parameters and Adam state stay
+    f32."""
     from channelestimationtransformer_torch.core.config import TrainConfig
     from channelestimationtransformer_torch.core.metrics import nmse
     from channelestimationtransformer_torch.data.windows import make_batch
     from channelestimationtransformer_torch.train.trainer import create_train_state, train_chunk
 
     cfg, model, plain, ds = _models_and_data(torch, cfg)
-    bf16 = cfg.dtype != "float32"
+    low = cfg.dtype != "float32"  # bf16 or f16 activations
     batch = 256
 
     # (a) One step's loss and gradients, kernel path vs plain path: the same
@@ -1125,11 +1211,11 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
     x_enc, x_dec, target = make_batch(ds, batch, cfg.label_len,
                                       generator=torch.Generator(device="cuda").manual_seed(3))
     paths = {"kernel": model, "plain": plain}
-    if bf16:
+    if low:
         paths["f32"] = _f32_twin(model, cfg)
     results = {}
-    # The paths after the first take its max-pooling routing (in bf16 the f32
-    # twin too).
+    # The paths after the first take its max-pooling routing (in bf16 and f16
+    # the f32 twin too).
     routing, flips = [], {}
     for i, (path, m) in enumerate(paths.items()):
         m.train()
@@ -1144,22 +1230,23 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
         m.zero_grad(set_to_none=True)
     (pk, lk, gk, sk), (pp, lp, gp, sp) = results["kernel"], results["plain"]
     stat_err = max(((sk[n] - sp[n]).abs().max()).item() for n in sp)
-    if bf16:
+    if low:
         _, _, gf, _ = results["f32"]
-        floor = BF16_GRAD_FLOOR * max(g.abs().max().item() for g in gf.values())
+        grad_floor, grad_ratio, grad_cap = LOW_GRAD[cfg.dtype]
+        floor = grad_floor * max(g.abs().max().item() for g in gf.values())
         grad_err = _grad_errors(gk, gp, floor)
         vs_f32 = {path: max(_grad_errors(results[path][2], gf, floor).values())
                   for path in ("kernel", "plain")}
         out_text, out_ok, out_err = _close(torch, pk, pp, cfg.dtype)
         worst = max(grad_err, key=grad_err.get)
         ok = (math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp) and out_ok
-              and grad_err[worst] <= BF16_GRAD_CAP
-              and vs_f32["kernel"] <= BF16_GRAD_RATIO * vs_f32["plain"]
-              and stat_err <= 1e-2 and pk.dtype == torch.bfloat16)
-        grad_text = (f"worst max_abs/max {grad_err[worst]:.3e} at {worst} (cap {BF16_GRAD_CAP}, "
-                     f"floor {BF16_GRAD_FLOOR} of the largest f32 gradient); against the f32 "
+              and grad_err[worst] <= grad_cap
+              and vs_f32["kernel"] <= grad_ratio * vs_f32["plain"]
+              and stat_err <= 1e-2 and pk.dtype == getattr(torch, cfg.dtype))
+        grad_text = (f"worst max_abs/max {grad_err[worst]:.3e} at {worst} (cap {grad_cap}, "
+                     f"floor {grad_floor} of the largest f32 gradient); against the f32 "
                      f"twin's gradients: kernel path worst {vs_f32['kernel']:.3e}, plain path "
-                     f"{vs_f32['plain']:.3e} (limit {BF16_GRAD_RATIO}x); max pooling routed "
+                     f"{vs_f32['plain']:.3e} (limit {grad_ratio}x); max pooling routed "
                      f"as the kernel path's, whose argmax differs from the plain path's and "
                      f"the twin's own in {flips['plain']} and {flips['f32']} windows")
     else:
@@ -1186,7 +1273,7 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
     train_cfg = TrainConfig(batch_size=batch, lr=1e-4)
     states = {"kernel": create_train_state(model, train_cfg),
               "plain": create_train_state(plain, train_cfg)}
-    if bf16:
+    if low:
         states["f32-kernel"] = create_train_state(paths["f32"], train_cfg)
     for path, m in (beside(model) if beside else {}).items():
         states[path] = create_train_state(m, train_cfg)
@@ -1213,7 +1300,7 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
         fail(f"kernels launched {launches} times on the {name} path, not {expected}")
     if not (math.isfinite(loss) and all(math.isfinite(s) for s in split)):
         fail(f"non-finite loss on the {name} path")
-    if bf16:
+    if low:
         opt = states["kernel"].optimizer
         state_dtypes = {t.dtype for st in opt.state.values() for t in st.values()
                         if torch.is_tensor(t)}
@@ -4508,6 +4595,7 @@ def parallel_rank(out_path):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     device = join_local()
     world, rank = dist.get_world_size(), dist.get_rank()
     wrappers = dict(bd_fwd=ops.bd_attention_fwd, bd_bwd=ops.bd_attention_bwd,
@@ -4594,13 +4682,16 @@ def main(argv):
                           text=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # bf16 GEMMs accumulate in f32 throughout, as the JAX package's dots do.
+    # bf16 and fp16 GEMMs accumulate in f32 throughout, as the JAX package's dots do.
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     print(f"device: {card} | torch {torch.__version__}, CUDA {torch.version.cuda} | "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_bf16_reduced_precision_reduction="
-          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}", flush=True)
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction} "
+          f"matmul.allow_fp16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction}", flush=True)
 
     t0 = time.perf_counter()
     libs = (ops.FWD_LIB, ops.BWD_LIB, mha.LIB, quant.FIXED_LIB, quant.CODEWORD_LIB)
@@ -4614,8 +4705,7 @@ def main(argv):
         instances = _build_instances(log, hmma)
         info = build_info[name] = dict(
             **_ptxas_summary(log), instances=instances,
-            hmma=None if hmma is None else sum(c[k] for c in hmma.values()
-                                               for k in ("bf16", "tf32", "other")),
+            hmma=None if hmma is None else sum(c[k] for c in hmma.values() for k in MMA_KINDS),
             hgmma=None if hmma is None else sum(c["hgmma"] for c in hmma.values()))
         print(f"build: {lib.name} ({build_s:.2f} s for all {len(libs)}): "
               f"{info['kernels']} kernels, registers {info['registers_min']}-"
@@ -4624,21 +4714,23 @@ def main(argv):
               f"{info['smem_max']} bytes (ptxas -v); SASS: {info['hmma']} tensor-core MMAs "
               f"(HMMA and HGMMA), {info['hgmma']} of them HGMMA", flush=True)
         if name in TENSOR_CORE_LIBS:
-            for dtype_name in ("float32", "bfloat16"):
+            for dtype_name in MMA_KIND_OF:
                 rows = [r for r in instances if r["dtype"] == dtype_name]
                 regs = [r["registers"] for r in rows]
                 hm = {k: (None if hmma is None else sum(r[f"hmma_{k}"] for r in rows))
-                      for k in ("bf16", "tf32", "other")}
+                      for k in MMA_KINDS}
                 hg = None if hmma is None else sum(r["hgmma"] for r in rows)
                 print(f"build: {name} {dtype_name} instances: {len(rows)}, registers "
                       f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
                       f"{sum(r['spill_bytes'] for r in rows)}; MMA bf16 {hm['bf16']}, TF32 "
-                      f"{hm['tf32']}, other {hm['other']} (HGMMA {hg})", flush=True)
+                      f"{hm['tf32']}, f16 {hm['f16']}, other {hm['other']} (HGMMA {hg})",
+                      flush=True)
                 for r in rows:
                     if "wgmma" in r["label"]:
                         print(f"build: {name} {r['label']}: {r['registers']} registers, "
                               f"{r['spill_bytes']} spill bytes, HGMMA {r['hgmma']}, bf16 "
-                              f"{r['hmma_bf16']}, TF32 {r['hmma_tf32']}", flush=True)
+                              f"{r['hmma_bf16']}, TF32 {r['hmma_tf32']}, f16 "
+                              f"{r['hmma_f16']}", flush=True)
             faults = _mma_faults(instances)
             if faults:
                 fail(f"{name}: instances issuing MMAs of another dtype: {faults}")
@@ -4679,8 +4771,8 @@ def main(argv):
     scale_rows["train_fwd"], scale_rows["train_bwd"] = phase_kernel_train(
         torch, F, ops, [s[:-1] for s in scale_bd], prefix="scale train", timed=False)
     print(f"scale kernels: {len(scale_bd)} bd shapes (eval, train forward and backward) and "
-          f"{len(scale_mha)} mha shapes, float32 and bfloat16, each against its plain version",
-          flush=True)
+          f"{len(scale_mha)} mha shapes, {', '.join(KERNEL_DTYPES)}, each against its plain "
+          f"version", flush=True)
     eval_path = phase_eval_path(torch, wrappers, card, profile)
     xl_cfg = InformerConfig(d_model=1024, d_ff=4096, seq_len=256, use_pallas=True)
     xl_eval_path = phase_eval_path(torch, wrappers, card, profile, name="xl eval path",
@@ -4713,10 +4805,26 @@ def main(argv):
     bf16_train_path = phase_train_path(torch, wrappers, card, profile,
                                        cfg=InformerConfig(use_pallas=True, dtype="bfloat16"),
                                        name="bf16 train")
-    # The bd kernels' f32 and bf16 instances side by side, a training step each.
+
+    # float16 activations: the same paths (the xl eval path at F16_MHA_TOL).
+    f16_eval_path = phase_eval_path(torch, wrappers, card, profile, name="f16 eval path",
+                                    cfg=InformerConfig(use_pallas=True, dtype="float16"))
+    f16_xl_eval_path = phase_eval_path(
+        torch, wrappers, card, profile, name="f16 xl eval path",
+        cfg=dataclasses.replace(xl_cfg, dtype="float16"), samples=4096,
+        slots=xl_cfg.seq_len + 10, batch=64, expected={"mha": 13 * 8},
+        expected_routes=mha_routes(xl_cfg, torch.float16, 8), tol=F16_MHA_TOL)  # wgmma 40, mma 64
+    f16_lsq_batch = phase_one_batch(
+        torch, wrappers, "f16 lsq-fibbinary eval batch",
+        dataclasses.replace(lsq_cfg, dtype="float16"), {"bd_fwd": 13, "codeword": 72})
+    f16_train_path = phase_train_path(torch, wrappers, card, profile,
+                                      cfg=InformerConfig(use_pallas=True, dtype="float16"),
+                                      name="f16 train")
+    # The bd kernels' instances side by side, a training step each.
     for kernel, rows, key in ((ops.FWD_LIB, fwd_rows, "launches_fwd"),
                               (ops.BWD_LIB, bwd_rows, "launches_bwd")):
-        for dtype_name, path in (("float32", train_path), ("bfloat16", bf16_train_path)):
+        for dtype_name, path in (("float32", train_path), ("bfloat16", bf16_train_path),
+                                 ("float16", f16_train_path)):
             rs = [r for r in rows if r["dtype"] == dtype_name]
             print(f"{kernel} {dtype_name}, one training step ({sum(r['calls_per_step'] for r in rs)}"
                   f" calls): {_per_path(rs, 'ms', 'calls_per_step') * 1e3:.1f} us by graph "
@@ -4802,6 +4910,7 @@ def main(argv):
 
     f32 = lambda rows: [r for r in rows if r["dtype"] == "float32"]  # noqa: E731
     bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]  # noqa: E731
+    f16 = lambda rows: [r for r in rows if r["dtype"] == "float16"]  # noqa: E731
     kernels = [
         _kernel_entry("bd_attention_fwd", ["bd_attention.py:121"], train_path["launches_fwd"],
                       f32(fwd_rows), "calls_per_step", "one training step: the 13 float32 calls "
@@ -4832,22 +4941,29 @@ def main(argv):
                       eval_ms=_per_path(f32(eval_rows), "ms", "calls_per_batch"),
                       eval_bound_ms=_per_path(f32(eval_rows), "bound_ms", "calls_per_batch"),
                       eval_library_ms=_per_path(f32(eval_rows), "library_ms", "calls_per_batch"))
-    # Each attention kernel's bf16 instance on its bf16 path, as the f32 keys.
+    # Each attention kernel's bf16 and f16 instances on their paths, as the f32 keys.
     bf16_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "per")
-    for kernel, launches, rows, weight, per in (
-            (kernels[0], bf16_train_path["launches_fwd"], fwd_rows, "calls_per_step",
-             "one bf16 training step: the 13 calls at their flagship shapes (dropout 0.05)"),
-            (kernels[1], bf16_train_path["launches_bwd"], bwd_rows, "calls_per_step",
-             "one bf16 training step: the 13 calls at their flagship shapes (dropout 0.05)"),
-            (kernels[2], bf16_xl_eval_path["launches"]["mha"], mha_rows, "calls_per_batch",
-             "one bf16 xl eval batch: the 13 calls at their xl shapes (B 64, H 8, E 128)")):
-        entry = _kernel_entry(kernel["name"], [], launches, bf16(rows), weight, per)
-        kernel["bfloat16"] = {k: entry[k] for k in bf16_keys}
+    for dtype_name, pick, train, xl in (("bfloat16", bf16, bf16_train_path, bf16_xl_eval_path),
+                                        ("float16", f16, f16_train_path, f16_xl_eval_path)):
+        tag = "bf16" if dtype_name == "bfloat16" else "f16"
+        for kernel, launches, rows, weight, per in (
+                (kernels[0], train["launches_fwd"], fwd_rows, "calls_per_step",
+                 f"one {tag} training step: the 13 calls at their flagship shapes (dropout "
+                 f"0.05)"),
+                (kernels[1], train["launches_bwd"], bwd_rows, "calls_per_step",
+                 f"one {tag} training step: the 13 calls at their flagship shapes (dropout "
+                 f"0.05)"),
+                (kernels[2], xl["launches"]["mha"], mha_rows, "calls_per_batch",
+                 f"one {tag} xl eval batch: the 13 calls at their xl shapes (B 64, H 8, "
+                 f"E 128)")):
+            entry = _kernel_entry(kernel["name"], [], launches, pick(rows), weight, per)
+            kernel[dtype_name] = {k: entry[k] for k in bf16_keys}
     # The mha launches by route, and the wgmma route (bf16, Lq > 32, E and D 64 or
     # 128) as an entry of its own: its 5 calls of the bf16 xl batch.
     kernels[2].update(launches_by_route=xl_eval_path["launches_by_route"])
     kernels[2]["bfloat16"].update(launches_by_route=bf16_xl_eval_path["launches_by_route"])
+    kernels[2]["float16"].update(launches_by_route=f16_xl_eval_path["launches_by_route"])
     wgmma_rows = [r for r in bf16(mha_rows) if r["route"] == "wgmma"]
     kernels.append(_kernel_entry(
         "mha_attention_fwd[wgmma]", ["attention.py:70"],
@@ -4857,11 +4973,22 @@ def main(argv):
     kernels[5].update(rows={r["shape"]: dict(ms=r["ms"], bound_ms=r["bound_ms"],
                                              library_ms=r["library_ms"],
                                              occupancy=r["occupancy"]) for r in wgmma_rows})
-    kernels[0]["bfloat16"].update(
-        eval_launches=bf16_eval_path["launches"]["bd_fwd"],
-        eval_ms=_per_path(bf16(eval_rows), "ms", "calls_per_batch"),
-        eval_bound_ms=_per_path(bf16(eval_rows), "bound_ms", "calls_per_batch"),
-        eval_library_ms=_per_path(bf16(eval_rows), "library_ms", "calls_per_batch"))
+    f16_wgmma_rows = [r for r in f16(mha_rows) if r["route"] == "wgmma"]
+    entry = _kernel_entry("mha_attention_fwd[wgmma]", [],
+                          f16_xl_eval_path["launches_by_route"]["wgmma"], f16_wgmma_rows,
+                          "calls_per_batch", "one f16 xl eval batch: the wgmma route's calls")
+    kernels[5]["float16"] = {k: entry[k] for k in bf16_keys}
+    kernels[5]["float16"].update(rows={r["shape"]: dict(ms=r["ms"], bound_ms=r["bound_ms"],
+                                                        library_ms=r["library_ms"],
+                                                        plain_ms=r["plain_ms"])
+                                       for r in f16_wgmma_rows})
+    for dtype_name, pick, path in (("bfloat16", bf16, bf16_eval_path),
+                                   ("float16", f16, f16_eval_path)):
+        kernels[0][dtype_name].update(
+            eval_launches=path["launches"]["bd_fwd"],
+            eval_ms=_per_path(pick(eval_rows), "ms", "calls_per_batch"),
+            eval_bound_ms=_per_path(pick(eval_rows), "bound_ms", "calls_per_batch"),
+            eval_library_ms=_per_path(pick(eval_rows), "library_ms", "calls_per_batch"))
     # The slice-10 paths' launches, beside each kernel's main path's.
     for kernel, key in ((kernels[0], "bd_fwd"), (kernels[1], "bd_bwd")):
         kernel.update(prob_train_launches=prob_train_path["launches"][key],
@@ -4939,7 +5066,9 @@ def main(argv):
         train_bwd_rows=bwd_rows, scale_kernel_rows=scale_rows, eval_path=eval_path, xl_eval_path=xl_eval_path,
         ptq_path=ptq_path, lsq_path=lsq_path, train_path=train_path,
         bf16_eval_path=bf16_eval_path, bf16_xl_eval_path=bf16_xl_eval_path,
-        bf16_lsq_batch=bf16_lsq_batch, bf16_train_path=bf16_train_path, datagen=datagen,
+        bf16_lsq_batch=bf16_lsq_batch, bf16_train_path=bf16_train_path,
+        f16_eval_path=f16_eval_path, f16_xl_eval_path=f16_xl_eval_path,
+        f16_lsq_batch=f16_lsq_batch, f16_train_path=f16_train_path, datagen=datagen,
         cli=cli, prob_eval_path=prob_eval_path, prob_train_path=prob_train_path,
         fused_eval_path=fused_eval_path, fused_train_path=fused_train_path,
         fused_vs_unfused=fused_vs_unfused, lsq_train=lsq_train, lsq_train_path=lsq_train_path,

@@ -77,12 +77,27 @@ def test_configs_have_jax_fields_and_defaults(name):
 
 
 def test_config_checks():
+    """The cell is checked; ``dtype="float16"`` builds both baselines, whose
+    outputs come out in JAX's dtypes: the Transformer's in float16, the
+    recurrent model's in float32 (it computes in f32 whatever the dtype);
+    their parameters stay f32."""
     with pytest.raises(ValueError, match="'rnn', 'gru' or 'lstm'"):
         tconfig.RecurrentConfig(cell="transformer")
-    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
-        build_transformer(tconfig.TransformerConfig(dtype="float16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
-        build_recurrent(tconfig.RecurrentConfig(dtype="float16"), device="cpu")
+    rng = np.random.default_rng(9)
+    x_enc = rng.normal(size=(2, TCFG["seq_len"], 16)).astype(np.float32)
+    x_dec = rng.normal(size=(2, TCFG["label_len"] + TCFG["pred_len"], 16)).astype(np.float32)
+    cases = [(build_transformer(tconfig.TransformerConfig(**TCFG, dtype="float16"), device="cpu"),
+              JaxTransformer(config=jconfig.TransformerConfig(**TCFG, dtype="float16")),
+              (x_enc, x_dec)),
+             (build_recurrent(tconfig.RecurrentConfig(**RCFG, dtype="float16"), device="cpu"),
+              JaxRecurrent(config=jconfig.RecurrentConfig(**RCFG, dtype="float16")), (x_enc,))]
+    for tmod, fmod, inputs in cases:
+        with torch.no_grad():
+            got = tmod(*map(torch.from_numpy, inputs))
+        jx = tuple(map(jnp.asarray, inputs))
+        want = jax.jit(fmod.apply)(jax.jit(fmod.init)(jax.random.key(0), *jx), *jx)
+        assert str(got.dtype) == f"torch.{want.dtype}" and torch.isfinite(got).all()
+        assert all(p.dtype == torch.float32 for p in tmod.parameters())
 
 
 def _transformer_pair(rng, batch):

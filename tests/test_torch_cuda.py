@@ -13,7 +13,8 @@ another order than the plain version's matmuls, both in f32); backward
 float32 rtol 2e-4 / atol 2e-5 (longer sums: dK and dV run over up to 512
 query rows); bfloat16 is checked in its own dtype against the plain version
 on the same bf16 inputs, rtol/atol 1e-2 (one bf16 rounding of the result,
-2^-8 relative). The dropout mask is compared exactly: both run the same
+2^-8 relative), float16 likewise at 2e-3 forward and 4e-3 backward (one
+f16 rounding is 2^-11 relative). The dropout mask is compared exactly: both run the same
 Philox. The quantization kernels are compared bit for bit: each rounding
 step is one float32 operation in both, and stochastic rounding draws the
 same Philox bits.
@@ -67,19 +68,23 @@ SHAPES = [
     (2, 512, 100, 2, 24, False),  # long query tiled over the warps; E not a power of two
     (3, 1, 1, 1, 1, True),
 ]
-DTYPES = [torch.float32, torch.bfloat16]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+# (rtol, atol) of a 16-bit result against the plain version's, rounded to its dtype.
+TOL16 = {torch.bfloat16: (1e-2, 1e-2), torch.float16: (2e-3, 2e-3)}
+BWD_TOL16 = {torch.bfloat16: (1e-2, 1e-2), torch.float16: (4e-3, 4e-3)}
 
 
 def _seed(device, value=0x1234_5678_9ABC):
     return torch.tensor([value], dtype=torch.int64, device=device)
 
 
-def _assert_close(got, want, dtype, tol=(1e-4, 1e-5)):
+def _assert_close(got, want, dtype, tol=(1e-4, 1e-5), tol16=TOL16):
     assert got.dtype == dtype and got.shape == want.shape
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
     else:
-        torch.testing.assert_close(got, want.to(dtype), rtol=1e-2, atol=1e-2)
+        rtol, atol = tol16[dtype]
+        torch.testing.assert_close(got, want.to(dtype), rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("b,l_q,l_k,h,e,causal", SHAPES)
@@ -92,16 +97,13 @@ def test_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, causal, dtype):
     assert bd_attention_fwd.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = bd_attention_reference(q.float(), k.float(), v.float(), causal=causal)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
-    else:
-        torch.testing.assert_close(got, want.to(dtype), rtol=1e-2, atol=1e-2)
+    _assert_close(got, want, dtype)
 
 
 def test_kernel_raises_instead_of_falling_back(cuda):
     q, k, v = _qkv(2, 8, 8, 2, 16, torch.float32, cuda)
     with pytest.raises(TypeError):
-        bd_attention(q.half(), k.half(), v.half())
+        bd_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="contiguous"):
         bd_attention(q[:, ::2], k[:, ::2].contiguous(), v[:, ::2].contiguous())
     with pytest.raises(ValueError, match="device and dtype"):
@@ -226,7 +228,7 @@ def test_backward_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, causal, 
     want = bd_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), do.float(),
                                       lse, seed, causal=causal, dropout=dropout)
     for g, w in zip(got, want):
-        _assert_close(g, w, dtype, tol=(2e-4, 2e-5))
+        _assert_close(g, w, dtype, tol=(2e-4, 2e-5), tol16=BWD_TOL16)
 
 
 # The tensor-core backward's edges: E 8, 32 and 64 at L 128 (one query slab,
@@ -278,19 +280,46 @@ def test_bf16_kernels_with_dropout_match_plain_versions_at_flagship_shapes(
     lo for their products) at a training step's shapes, dropout 0.05: the forward
     and its lse against the plain forward, and the backward on the kernel
     forward's output and lse against the plain backward on the same."""
-    q, k, v = _qkv(b, l_q, l_k, h, e, torch.bfloat16, cuda, seed=20 + l_q)
-    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(21),
-                     device=cuda).to(torch.bfloat16)
+    _check_16bit_training_kernels(cuda, b, l_q, l_k, h, e, causal, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,l_q,l_k,h,e,causal", FLAGSHIP_SHAPES)
+@pytest.mark.parametrize("do_scale", [1.0, 2.0 ** -17])
+def test_f16_kernels_with_dropout_match_plain_versions_at_flagship_shapes(
+        cuda, b, l_q, l_k, h, e, causal, do_scale):
+    """The f16 datapath (f16 MMAs; P, dS and P_drop rounded to f16 once,
+    dS scaled by a power of two first) as the bf16 test, with dO of unit
+    size and of a training step's size (2^-17: dS below f16's normal range
+    unscaled), the backward held to its tolerance relative to each
+    gradient's max."""
+    _check_16bit_training_kernels(cuda, b, l_q, l_k, h, e, causal, torch.float16, do_scale)
+
+
+def _check_16bit_training_kernels(cuda, b, l_q, l_k, h, e, causal, dtype, do_scale=1.0):
+    q, k, v = _qkv(b, l_q, l_k, h, e, dtype, cuda, seed=20 + l_q)
+    do = (do_scale * torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(21),
+                                 device=cuda)).to(dtype)
     seed = _seed(cuda)
     kw = dict(causal=causal, scale=e ** -0.5, dropout=0.05)
     o, lse = bd_attention_fwd(q, k, v, seed, with_lse=True, **kw)
     want, want_lse = _reference_forward(q, k, v, seed=seed, with_lse=True, **kw)
-    _assert_close(o, want, torch.bfloat16)
+    _assert_close(o, want, dtype)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
     got = bd_attention_bwd(q, k, v, o, do, lse, seed, **kw)
-    want = bd_attention_bwd_reference(q, k, v, o, do, lse, seed, **kw)
+    if dtype == torch.bfloat16:
+        want = bd_attention_bwd_reference(q, k, v, o, do, lse, seed, **kw)
+        for g, w in zip(got, want):
+            _assert_close(g, w, dtype)
+        return
+    # float16: relative to each gradient's max, since at dO 2^-17 the results
+    # are f16 subnormals, whose one rounding is up to 2^-25 absolute.
+    want = bd_attention_bwd_reference(q.float(), k.float(), v.float(), o.float(), do.float(),
+                                      lse, seed, **kw)
+    rtol, atol = BWD_TOL16[dtype]
     for g, w in zip(got, want):
-        _assert_close(g, w, torch.bfloat16)
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        top = w.abs().max()
+        torch.testing.assert_close(g.float() / top, w / top, rtol=rtol, atol=atol)
 
 
 def test_autograd_through_the_kernels_matches_plain_autograd(cuda):
@@ -314,7 +343,7 @@ def test_backward_kernel_raises_instead_of_falling_back(cuda):
     o = o.contiguous()
     kwargs = dict(causal=False, scale=0.25, dropout=0.0)
     with pytest.raises(TypeError):
-        bd_attention_bwd(*(t.half() for t in (q, k, v, o, o)), lse, **kwargs)
+        bd_attention_bwd(*(t.double() for t in (q, k, v, o, o)), lse, **kwargs)
     with pytest.raises(ValueError, match="contiguous"):
         bd_attention_bwd(q, k, v, o, o.transpose(1, 2).contiguous().transpose(1, 2), lse,
                          **kwargs)
@@ -378,7 +407,7 @@ def test_mha_kernel_tiling_edges(cuda, b, l_q, l_k, h, e, d, causal, dtype):
     test_mha_kernel_matches_plain_version(cuda, b, l_q, l_k, h, e, d, causal, dtype)
 
 
-# The wgmma route (bf16, Lq > 32, E and D 64 or 128): the xl encoder's L 256,
+# The wgmma route (bf16 and f16, Lq > 32, E and D 64 or 128): the xl encoder's L 256,
 # 128 and 64 (B cut to 8), E 64, and ragged lengths (65, 100, 129, 333: past
 # a 64-row warpgroup, a 128-row block, a 128-key tile), causal and not,
 # D != E both ways.
@@ -399,10 +428,11 @@ MHA_WGMMA_SHAPES = [
 
 
 @pytest.mark.parametrize("b,l_q,l_k,h,e,d,causal", MHA_WGMMA_SHAPES)
-def test_mha_wgmma_route_matches_plain_version(cuda, b, l_q, l_k, h, e, d, causal):
-    q, k, _ = _qkv(b, l_q, l_k, h, e, torch.bfloat16, cuda, seed=8)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_mha_wgmma_route_matches_plain_version(cuda, b, l_q, l_k, h, e, d, causal, dtype):
+    q, k, _ = _qkv(b, l_q, l_k, h, e, dtype, cuda, seed=8)
     v = torch.randn(b, l_k, h, d, generator=torch.Generator(device=cuda).manual_seed(9),
-                    device=cuda).to(torch.bfloat16)
+                    device=cuda).to(dtype)
     assert mha_route(q.dtype, l_q, l_k, e, d, True) == "wgmma"
     before = dict(mha_attention_fwd.launches_by_route)
     got = mha_attention(q, k, v, causal=causal)
@@ -410,10 +440,11 @@ def test_mha_wgmma_route_matches_plain_version(cuda, b, l_q, l_k, h, e, d, causa
     assert mha_attention_fwd.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
     assert got.shape == (b, l_q, h, d)
     _assert_close(got, mha_attention_reference(q.float(), k.float(), v.float(), causal=causal),
-                  torch.bfloat16)
+                  dtype)
 
 
-@pytest.mark.parametrize("dtype,l_q", [(torch.float32, 128), (torch.bfloat16, 32)])
+@pytest.mark.parametrize("dtype,l_q", [(torch.float32, 128), (torch.bfloat16, 32),
+                                       (torch.float16, 32)])
 def test_mha_wgmma_route_failure_raises(cuda, monkeypatch, dtype, l_q):
     """A call the wgmma route does not take (f32; Lq <= 32), forced onto it,
     is refused by the kernel's entry, and the wrapper raises: it never
@@ -429,7 +460,7 @@ def test_mha_wgmma_route_failure_raises(cuda, monkeypatch, dtype, l_q):
 def test_mha_kernel_raises_instead_of_falling_back(cuda):
     q, k, v = _qkv(2, 8, 8, 2, 128, torch.float32, cuda)
     with pytest.raises(TypeError):
-        mha_attention(q.half(), k.half(), v.half())
+        mha_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="contiguous"):
         mha_attention(q[:, ::2], k[:, ::2].contiguous(), v[:, ::2].contiguous())
     with pytest.raises(ValueError, match="device"):

@@ -208,7 +208,8 @@ def test_unported_options_raise(world_of_one):
     """``attn="ring"`` builds with distil off and refuses distil on; a ring
     model trains (its ring has a backward: one ``_update`` on a seq axis of
     one equals the full model's with the same weights, rtol 2e-4 / atol
-    2e-5); float16 is not ported."""
+    2e-5); float16 builds and serves (f32 parameters, a float16 output),
+    and a float dtype the port does not run (longdouble) raises."""
     from channelestimationtransformer_torch.train.trainer import TrainState, _update
 
     small = dict(seq_len=16, label_len=4, pred_len=2, d_model=16, n_heads=2, e_layers=(1,),
@@ -231,8 +232,13 @@ def test_unported_options_raise(world_of_one):
     want = models["full"].state_dict()
     for name, t in models["ring"].state_dict().items():
         assert torch.allclose(t, want[name], rtol=2e-4, atol=2e-5), name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_informer(InformerConfig(dtype="float16"), device="cpu")
+    f16 = build_informer(InformerConfig(dtype="float16", **small), device="cpu").eval()
+    with torch.no_grad():
+        out = f16(batch[0], batch[1])
+    assert out.dtype == torch.float16 and torch.isfinite(out).all()
+    assert all(p.dtype == torch.float32 for p in f16.parameters())
+    with pytest.raises(NotImplementedError, match="float16"):
+        build_informer(InformerConfig(dtype="longdouble"), device="cpu")
 
 
 def test_model_serves_only_in_eval_mode():
