@@ -1,0 +1,9 @@
+"""A served request's share of the card's peak: the model's FLOPs a
+window (forward, counted on the reference) times the windows a
+second of an untraced slice, over the dtype's peak."""
+
+from portbench import arith
+
+
+def read(ctx):
+    return 100.0 * ctx.flops_per_sample * ctx.rate_samples_per_s / arith.MODEL_PEAK_FLOPS[ctx.dtype]
