@@ -1,4 +1,5 @@
-"""Device selection, keyed random streams and matmul precision for the port's entry points."""
+"""Device selection, keyed random streams, matmul precision and profiler
+spans for the port's entry points."""
 
 from __future__ import annotations
 
@@ -43,3 +44,25 @@ def full_f32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the enclosed work as ``name`` in a
+    running ``torch.profiler`` trace: a ``record_function`` range, a host
+    event on the profiler's own clock, so a kernel can be tied to the span
+    that was open when the host launched it. With no profiler running it
+    is one shared no-op, and costs one check.
+
+    The port's spans, all named ``cet.``: ``cet.step`` (one training step)
+    holds ``cet.batch`` (windows, AWGN and decoder input), ``cet.model``
+    (the model's forward), ``cet.backward`` (autograd; its kernels launch
+    from autograd's device thread while the step's thread waits inside the
+    span) and ``cet.optimizer`` (the schedule and the optimizer's update);
+    ``cet.conv`` marks each circular convolution inside the forward. Serving
+    passes through ``cet.batch`` and ``cet.model`` alone."""
+    if torch.autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _NO_SPAN

@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..core.runtime import resolve_device
+from ..core.runtime import resolve_device, span
 from .packing import ri_pack
 
 # ri channel [..., T, Nr, Nt, 2] -> packed [..., T, Nr*Nt*2]: the JAX
@@ -138,7 +138,8 @@ def make_batch(
     ``draws`` are :func:`sample_windows`'s keyword arguments (``generator``
     and any injected ``idx``/``starts``/``noise``).
     """
-    _, _, enc_in, target = sample_windows(dataset, batch_size, **draws)
-    label = enc_in[:, enc_in.shape[1] - label_len:]
-    zeros = enc_in.new_zeros((enc_in.shape[0], target.shape[1], enc_in.shape[2]))
-    return enc_in, torch.cat([label, zeros], dim=1), target
+    with span("cet.batch"):
+        _, _, enc_in, target = sample_windows(dataset, batch_size, **draws)
+        label = enc_in[:, enc_in.shape[1] - label_len:]
+        zeros = enc_in.new_zeros((enc_in.shape[0], target.shape[1], enc_in.shape[2]))
+        return enc_in, torch.cat([label, zeros], dim=1), target

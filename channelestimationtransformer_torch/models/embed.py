@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.runtime import span
 from ..parallel.tensor import column_parallel
 from .dropout import dropout
 from .init import variance_scaling_
@@ -40,9 +41,10 @@ def circular_conv1d(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.T
     """1D conv with circular padding on ``[B, L, C_in]`` activations;
     ``weight`` ``[C_out, C_in, K]``. Equals torch's
     ``Conv1d(padding=K//2, padding_mode='circular')``."""
-    pad = weight.shape[-1] // 2
-    xt = F.pad(x.transpose(1, 2), (pad, pad), mode="circular")
-    return F.conv1d(xt, weight, bias).transpose(1, 2)
+    with span("cet.conv"):
+        pad = weight.shape[-1] // 2
+        xt = F.pad(x.transpose(1, 2), (pad, pad), mode="circular")
+        return F.conv1d(xt, weight, bias).transpose(1, 2)
 
 
 class TokenEmbedding(nn.Module):

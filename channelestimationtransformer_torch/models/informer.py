@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from ..core.config import InformerConfig, activation_dtype
-from ..core.runtime import resolve_device
+from ..core.runtime import resolve_device, span
 from ..ops.quant.lsq import DenseLSQ
 from .attention import Dense
 from .decoder import Decoder
@@ -77,10 +77,11 @@ class InformerBase(nn.Module):
         if self.training and cfg.dropout > 0.0 and generator is None:
             raise ValueError("train mode with dropout > 0 needs a torch.Generator "
                              "(model(x_enc, x_dec, generator=...))")
-        enc_out, attns = self.encoder(self.enc_embedding(x_enc, generator), generator)
-        dec_out = self.decoder(self.dec_embedding(x_dec, generator), enc_out, generator)
-        pred = self.projection(dec_out)[:, -cfg.pred_len:, :]
-        return (pred, attns) if cfg.output_attention else pred
+        with span("cet.model"):
+            enc_out, attns = self.encoder(self.enc_embedding(x_enc, generator), generator)
+            dec_out = self.decoder(self.dec_embedding(x_dec, generator), enc_out, generator)
+            pred = self.projection(dec_out)[:, -cfg.pred_len:, :]
+            return (pred, attns) if cfg.output_attention else pred
 
 
 class Informer(InformerBase):

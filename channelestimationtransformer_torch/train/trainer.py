@@ -44,7 +44,7 @@ from torch import nn
 
 from ..core.config import InformerConfig, TrainConfig
 from ..core.metrics import nmse, nmse_share, nmse_split, nmse_split_global
-from ..core.runtime import stream_generator
+from ..core.runtime import span, stream_generator
 from ..data.windows import WindowDataset, make_batch
 from ..models.encoder import batch_stats_group
 from ..parallel.collectives import all_reduce_grads, all_reduce_sum
@@ -126,11 +126,12 @@ def apply_gradients(state: TrainState) -> None:
     """One optimizer update from the gradients in ``state.model`` at the
     schedule's rate for this update (flax ``TrainState.apply_gradients``:
     optax evaluates the schedule at the update count before incrementing it)."""
-    lr = state.schedule(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
-    state.step += 1
+    with span("cet.optimizer"):
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
 
 
 def _predict(model, x_enc, x_dec, generator=None):
@@ -155,7 +156,8 @@ def _update(state: TrainState, x_enc, x_dec, target, generator: torch.Generator,
         pred = _predict(model, x_enc, x_dec, generator)
     loss = nmse(pred, target) if group is None else nmse_share(pred, target, group)
     state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("cet.backward"):
+        loss.backward()
     if group is None:
         apply_gradients(state)
         return {"loss": loss.detach(), "loss_split": nmse_split(pred.detach(), target)}
@@ -170,8 +172,9 @@ def train_step(state: TrainState, dataset: WindowDataset, *, batch_size: int, la
     """One step: sample windows -> AWGN -> forward/backward -> Adam, every
     draw from ``generator`` (on the dataset's device); ``group`` as in
     :func:`_update`."""
-    x_enc, x_dec, target = make_batch(dataset, batch_size, label_len, generator=generator)
-    return _update(state, x_enc, x_dec, target, generator, group)
+    with span("cet.step"):
+        x_enc, x_dec, target = make_batch(dataset, batch_size, label_len, generator=generator)
+        return _update(state, x_enc, x_dec, target, generator, group)
 
 
 def train_chunk(state: TrainState, dataset: WindowDataset, *, num_steps: int, batch_size: int,

@@ -1016,7 +1016,9 @@ def _profile(torch, run, label, card, out_name):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         events = prof.key_averages()
-        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        # the device-side shadows of the program's spans (``cet.``) are not device work
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("cet.")]
         busy_us = sum(getattr(e, "self_device_time_total", 0) for e in device)
         kernels = sum(e.count for e in device)
         line = (f"profile {name} path: one {label}, wall {wall_us:.0f} us under the "
