@@ -13,8 +13,8 @@ samples/s, FLOPs a step and the achieved share of the card's peak.
 
 FLOPs: XLA's ``cost_analysis`` has no counterpart, so one training step is
 counted by ``torch.utils.flop_counter.FlopCounterMode`` on the plain path of
-the same config (``use_pallas=False``; the counter cannot see inside the
-hand-written kernels). It counts matmuls and convolutions, not elementwise
+the same config (``use_pallas=False``), on the CPU (the counter cannot see
+inside the hand-written kernels). It counts matmuls and convolutions, not elementwise
 work. The peak is the H100's (``PEAK_TFLOPS``: dense bf16 and fp16 on the
 tensor cores, f32 on the CUDA cores with TF32 off), not JAX's v5e figure; the share
 keeps JAX's key ``mxu_fraction``. On the card the model takes the attention
@@ -73,16 +73,18 @@ def size_config(d_model: int, d_ff: int, seq_len: int, dtype: str, **kw) -> Info
 
 def step_flops(cfg: InformerConfig, tc: TrainConfig, ds: WindowDataset) -> float:
     """FLOPs of one training step (forward, backward) of ``cfg`` on the plain
-    path, as ``FlopCounterMode`` counts them."""
-    device = ds.h.device
+    path, as ``FlopCounterMode`` counts them: one window's step on the CPU,
+    times the batch (every counted product is linear in it). The counter
+    sees aten ops and not the port's CUDA kernels, among them the float32
+    circular convolution's, which the plain path takes on the card."""
+    cpu = torch.device("cpu")
     state = create_train_state(
-        build_informer(dataclasses.replace(cfg, use_pallas=False), device=device, seed=0), tc)
-    gen = stream_generator(device, 1)
-    batch = make_batch(ds, tc.batch_size, cfg.label_len, generator=gen)
+        build_informer(dataclasses.replace(cfg, use_pallas=False), device=cpu, seed=0), tc)
+    window = make_batch(ds, 1, cfg.label_len, generator=stream_generator(ds.h.device, 1))
     counter = FlopCounterMode(display=False)
     with counter:
-        _update(state, *batch, gen)
-    return float(counter.get_total_flops())
+        _update(state, *(t.cpu() for t in window), stream_generator(cpu, 1))
+    return float(counter.get_total_flops()) * tc.batch_size
 
 
 def run_size(name, d_model, d_ff, seq_len, batch, *, dtype, steps, chunks, device, rng) -> dict:

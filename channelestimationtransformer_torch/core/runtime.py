@@ -61,8 +61,10 @@ def span(name: str):
     (the model's forward), ``cet.backward`` (autograd; its kernels launch
     from autograd's device thread while the step's thread waits inside the
     span) and ``cet.optimizer`` (the schedule and the optimizer's update);
-    ``cet.conv`` marks each circular convolution inside the forward. Serving
-    passes through ``cet.batch`` and ``cet.model`` alone."""
+    ``cet.conv`` marks each circular convolution inside the forward, and the
+    gradients of a float32 one on the card inside the backward
+    (``ops/cuda/circular_conv.py``).
+    Serving passes through ``cet.batch`` and ``cet.model`` alone."""
     if torch.autograd._profiler_enabled():
         return torch.autograd.profiler.record_function(name)
     return _NO_SPAN

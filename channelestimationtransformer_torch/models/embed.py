@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.runtime import span
+from ..ops.cuda import circular_conv
 from ..parallel.tensor import column_parallel
 from .dropout import dropout
 from .init import variance_scaling_
@@ -40,8 +41,16 @@ def sinusoid_position_encoding(length: int, d_model: int, dtype=torch.float32,
 def circular_conv1d(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
     """1D conv with circular padding on ``[B, L, C_in]`` activations;
     ``weight`` ``[C_out, C_in, K]``. Equals torch's
-    ``Conv1d(padding=K//2, padding_mode='circular')``."""
+    ``Conv1d(padding=K//2, padding_mode='circular')``.
+
+    Three taps in float32 on the card take the kernels of
+    ``ops/cuda/circular_conv.py``. Everything else, the CPU, bf16 and f16,
+    and any other K, takes a circular pad and ``F.conv1d`` (cuDNN on the
+    card)."""
     with span("cet.conv"):
+        if (x.is_cuda and x.dtype == torch.float32
+                and weight.shape[-1] == circular_conv.TAPS):
+            return circular_conv.circular_conv1d(x, weight, bias)
         pad = weight.shape[-1] // 2
         xt = F.pad(x.transpose(1, 2), (pad, pad), mode="circular")
         return F.conv1d(xt, weight, bias).transpose(1, 2)

@@ -13,7 +13,10 @@ Reference: ``ComparisonLSTMvsRNNvsGRUvsTransformer/complexityAnalysis.py:73-127`
   ``torch.gru``, ``torch.rnn_tanh``, ``torch.rnn_relu``) from their weight
   shapes, which the counter does not see: on the CPU ``torch.lstm`` runs as
   one oneDNN op, and on the card all four are one cuDNN op. So the count is
-  the same on both devices. JAX's XLA ``cost_analysis`` also counts
+  the same on both devices. :func:`model_complexity` counts on the CPU all
+  the same: the counter does not see the port's CUDA kernels either, the
+  circular convolution's among them, which a float32 model on the card
+  runs even on its plain path. JAX's XLA ``cost_analysis`` also counts
   elementwise work (the flagship: 44,853,756 against these 43,688,704) and
   counts a ``lax.scan`` body once (hence its ``sequential_steps``); here the
   whole sequence is counted.
@@ -86,12 +89,13 @@ def plain_twin(model: torch.nn.Module) -> torch.nn.Module:
 
 
 def model_complexity(model: torch.nn.Module, *example_inputs) -> dict:
-    """Parameters and MACs of ``model(*example_inputs)`` in eval mode, on
-    its plain twin (:func:`plain_twin`), with JAX's keys (per-sample MACs =
-    total / batch). JAX's ``sequential_steps`` is not needed: the recurrent
-    models' whole sequence is counted (:func:`estimate_macs`)."""
+    """Parameters and MACs of ``model(*example_inputs)`` in eval mode, on a
+    CPU copy of its plain twin (:func:`plain_twin`), with JAX's keys
+    (per-sample MACs = total / batch). JAX's ``sequential_steps`` is not
+    needed: the recurrent models' whole sequence is counted
+    (:func:`estimate_macs`)."""
     batch = example_inputs[0].shape[0]
-    macs = estimate_macs(plain_twin(model), *example_inputs)
+    macs = estimate_macs(plain_twin(model).cpu(), *(x.cpu() for x in example_inputs))
     return {
         "params": count_params(model),
         "macs_total": macs,

@@ -12,13 +12,14 @@ multi-chip dry run (``cli/multichip.py``).
 
     python3 chip_smoke.py            # the check, as run on the card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of the eval and training paths
+    python3 chip_smoke.py --conv     # phase 1, then the circular convolution's kernels alone
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and convs,
    and cuBLAS's bf16 and fp16 reduced-precision reductions off (16-bit GEMMs
    accumulate in f32, as the JAX package's dots);
-2. build: the five CUDA kernel libraries, compiled in parallel with nvcc
+2. build: the six CUDA kernel libraries, compiled in parallel with nvcc
    from the sources here; per library its kernels' registers, spill bytes
    and static shared memory from ``-Xptxas -v`` (the full logs go beside
    ``chip_smoke.json``, as ``ptxas_<name>.txt``) and its count of
@@ -75,11 +76,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    that those lists leave out (``scale_kernel_shapes``: the bd kernels at
    E 32 and 64, mha at L 256, E 64, its rows timed beside SDPA with their
    routes as in 4), so that every kernel instance the scale phases launch
-   is held against its plain version;
+   is held against its plain version; then the circular convolution's
+   kernels (forward, data gradient, weight and bias gradient) against
+   their plain versions at the flagship's seven convolutions of a training
+   step at batch 1024 (``CONV_SHAPES``), two runs bit for bit, each timed
+   beside its bound, its plain version and cuDNN (``F.conv1d`` on the
+   padded input and its ``convolution_backward``, TF32 off); ``--conv``
+   runs this alone after 1 and its own build;
 8. eval path: ``build_informer(InformerConfig(use_pallas=True))`` at full
    width and ``eval_chunk`` over 8 batches of 256 from a 65,536-sample
    dataset resident on the card, with the kernels' launch counts (all 104
-   attention calls through the bd forward kernel), NMSE, a comparison with
+   attention calls through the bd forward kernel, the 56 circular
+   convolutions through the conv kernel; every later phase counts the conv
+   kernels too, ``_conv_launches``), NMSE, a comparison with
    the plain attention path on one batch, the model's parameters and FLOPs
    per batch, and steady-state eval samples/s and TFLOP/s;
 9. xl eval path: the same at the xl width (d_model 1024, d_ff 4096, seq_len
@@ -314,6 +323,7 @@ record and ``{"ok": true, "device": {...}}``. Details go to
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -899,6 +909,134 @@ def phase_kernel_train(torch, F, ops, shapes=None, prefix="train", timed=True):
     return fwd_rows, bwd_rows
 
 
+# The flagship's seven circular k=3 convolutions of a training step at batch
+# CONV_B: (label, L, C_in, C_out, bias, data gradient, calls a step).
+CONV_SHAPES = [
+    ("embed enc L=90", 90, 16, 128, False, False, 1),
+    ("embed dec L=15", 15, 16, 128, False, False, 1),
+    ("distil L=90", 90, 128, 128, True, True, 1),
+    ("distil L=45", 45, 128, 128, True, True, 2),
+    ("distil L=23", 23, 128, 128, True, True, 2),
+]
+CONV_B = 1024
+# Kernel against plain version, both float32 (TF32 off): forward and dx sum
+# 3 * C terms in other orders (rtol/atol 1e-4 / 1e-5, as the attention
+# forward); dW and db sum B * L = 92,160 rows, in splits and then their sum
+# against cuBLAS's blocked order, so their atol is 1e-5 of the result's own
+# largest magnitude (an error of ~sqrt(n) 2^-24 of the terms' scale).
+CONV_TOL = (1e-4, 1e-5)
+CONV_GRAD_RTOL, CONV_GRAD_SCALED_ATOL = 1e-4, 1e-5
+
+
+def phase_circular_conv(torch, F):
+    """The circular convolution's kernels (forward, data gradient, weight
+    and bias gradient with its reduction) against their plain versions at
+    the flagship's seven convolutions of a batch-1024 training step, float32
+    with TF32 off: max errors, two runs bit for bit, device times (graph
+    replay) beside the bound (FLOPs at 67 TFLOP/s FFMA or bytes at 3.35
+    TB/s), the plain versions and cuDNN (``F.conv1d`` on the circularly
+    padded input, its ``convolution_backward`` for the gradients). Returns
+    the rows."""
+    from channelestimationtransformer_torch.ops.cuda import circular_conv as cc
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rows = []
+    for label, l, c_in, c_out, with_bias, with_dx, calls in CONV_SHAPES:
+        x = torch.randn(CONV_B, l, c_in, generator=gen, device="cuda")
+        w = torch.randn(c_out, c_in, 3, generator=gen, device="cuda") / math.sqrt(3 * c_in)
+        bias = torch.randn(c_out, generator=gen, device="cuda") if with_bias else None
+        dy = torch.randn(CONV_B, l, c_out, generator=gen, device="cuda")
+        fwd = cc.circular_conv1d_fwd(x, w, bias)
+        fwd_err = _compare(torch, fwd, cc.circular_conv1d_reference(x, w, bias), CONV_TOL)
+        dw, db = cc.circular_conv1d_wgrad(x, dy, with_bias)
+        dw2, db2 = cc.circular_conv1d_wgrad(x, dy, with_bias)
+        want_dw, want_db = cc.circular_conv1d_wgrad_reference(x, dy, with_bias)
+        errs = dict(forward=fwd_err)
+        for name, got, want in (("dW", dw, want_dw), ("db", db, want_db)):
+            if want is not None:
+                errs[name] = _compare(torch, got, want, (CONV_GRAD_RTOL, CONV_GRAD_SCALED_ATOL
+                                                         * want.abs().max().item()))
+        same = torch.equal(dw, dw2) and (db is None or torch.equal(db, db2))
+        if with_dx:
+            dx = cc.circular_conv1d_dgrad(dy, w)
+            errs["dx"] = _compare(torch, dx, cc.circular_conv1d_dgrad_reference(dy, w), CONV_TOL)
+            same = same and torch.equal(dx, cc.circular_conv1d_dgrad(dy, w))
+        torch.cuda.synchronize()
+        bad = [k for k, (_, _, ok) in errs.items() if not ok]
+        # cuDNN on the padded, transposed input, TF32 off (the port's earlier route).
+        xp = F.pad(x.transpose(1, 2), (1, 1), mode="circular").contiguous()
+        dyt = dy.transpose(1, 2).contiguous()
+        bias_sizes = [c_out] if with_bias else None
+
+        def lib_bwd():
+            return torch.ops.aten.convolution_backward(
+                dyt, xp, w, bias_sizes, [1], [0], [1], False, [0], 1,
+                [with_dx, True, with_bias])
+
+        # Each pass: 2 * B * L * C_in * C_out * 3 FLOPs; one activation read, one written, W.
+        bound = _bound(4 * (CONV_B * l * (c_in + c_out) + w.numel()),
+                       2 * CONV_B * l * c_in * c_out * 3, "float32")
+        row = dict(
+            label=label, l=l, c_in=c_in, c_out=c_out, calls_per_step=calls,
+            max_abs_err={k: v[0] for k, v in errs.items()}, bit_for_bit=same,
+            fwd=dict(ms=time_ms(torch, lambda: cc.circular_conv1d_fwd(x, w, bias)),
+                     plain_ms=time_ms(torch, lambda: cc.circular_conv1d_reference(x, w, bias)),
+                     library_ms=time_ms(torch, lambda: F.conv1d(xp, w, bias)),
+                     library_pad_ms=time_ms(torch, lambda: F.conv1d(
+                         F.pad(x.transpose(1, 2), (1, 1), mode="circular"), w,
+                         bias).transpose(1, 2).contiguous()),
+                     **bound,
+                     occupancy=_occupancy(cc.LIB, 0, c_in)),
+            wgrad=dict(ms=time_ms(torch, lambda: cc.circular_conv1d_wgrad(x, dy, with_bias)),
+                       plain_ms=time_ms(torch, lambda: cc.circular_conv1d_wgrad_reference(
+                           x, dy, with_bias)),
+                       **bound,
+                       splits=cc._splits(x.device.index, CONV_B, l, c_in, c_out,
+                                         cc._smem(1, c_in)),
+                       occupancy=_occupancy(cc.LIB, 2, c_in)),
+            library_bwd_ms=time_ms(torch, lib_bwd))
+        if with_dx:
+            row["dgrad"] = dict(
+                ms=time_ms(torch, lambda: cc.circular_conv1d_dgrad(dy, w)),
+                plain_ms=time_ms(torch, lambda: cc.circular_conv1d_dgrad_reference(dy, w)),
+                **bound,
+                occupancy=_occupancy(cc.LIB, 1, c_in))
+        rows.append(row)
+        print(f"conv {label} (B {CONV_B}, C_in {c_in}, C_out {c_out}, bias {with_bias}): "
+              + ", ".join(f"{k} max_abs {v[0]:.3g} rel {v[1]:.3g}" for k, v in errs.items())
+              + f"; two runs bit for bit {same} | forward {row['fwd']['ms'] * 1e3:.1f} us "
+              f"(plain {row['fwd']['plain_ms'] * 1e3:.1f}, cuDNN "
+              f"{row['fwd']['library_ms'] * 1e3:.1f}, with pad and transposes {row['fwd']['library_pad_ms'] * 1e3:.1f}), "
+              + (f"dgrad {row['dgrad']['ms'] * 1e3:.1f} us (plain "
+                 f"{row['dgrad']['plain_ms'] * 1e3:.1f}), " if with_dx else "")
+              + f"wgrad {row['wgrad']['ms'] * 1e3:.1f} us in {row['wgrad']['splits']} splits "
+              f"(plain {row['wgrad']['plain_ms'] * 1e3:.1f}), cuDNN backward "
+              f"{row['library_bwd_ms'] * 1e3:.1f} us; bound forward "
+              f"{row['fwd']['bound_ms'] * 1e3:.1f} us ({row['fwd']['bound_by']}) a pass | "
+              f"forward {_occupancy_text(row['fwd']['occupancy'])}; wgrad "
+              f"{_occupancy_text(row['wgrad']['occupancy'])}", flush=True)
+        if bad or not same:
+            fail(f"conv {label}: {bad or 'runs differ'}")
+    per_step = {}
+    for key in ("fwd", "dgrad", "wgrad"):
+        have = [r for r in rows if key in r]
+        per_step[key] = {k: sum(r[key][k] * r["calls_per_step"] for r in have)
+                         for k in ("ms", "plain_ms", "bound_ms")}
+    per_step["fwd"]["library_ms"] = sum(r["fwd"]["library_ms"] * r["calls_per_step"]
+                                        for r in rows)
+    per_step["fwd"]["library_pad_ms"] = sum(r["fwd"]["library_pad_ms"] * r["calls_per_step"]
+                                            for r in rows)
+    per_step["library_bwd_ms"] = sum(r["library_bwd_ms"] * r["calls_per_step"] for r in rows)
+    print("conv, one training step (7 forwards, 5 dgrads, 7 wgrads): "
+          + "; ".join(f"{k} {v['ms'] * 1e3:.1f} us (plain {v['plain_ms'] * 1e3:.1f}, bound "
+                      f"{v['bound_ms'] * 1e3:.1f})" for k, v in per_step.items()
+                      if isinstance(v, dict))
+          + f"; cuDNN forward {per_step['fwd']['library_ms'] * 1e3:.1f} us (with pad and "
+          f"transposes {per_step['fwd']['library_pad_ms'] * 1e3:.1f}), cuDNN backward "
+          f"{per_step['library_bwd_ms'] * 1e3:.1f} us", flush=True)
+    return dict(rows=rows, per_step=per_step)
+
+
 def _card_data(torch, seq_len, pred_len, samples=65536, slots=None):
     """A random window dataset resident on the card (seed 0), by default
     65,536 x 100 x 16 samples (as ``bench.py``)."""
@@ -970,7 +1108,8 @@ def _reduced_flag(dtype):
 
 # Printed names of the kernel wrappers' launch counters (keys of _counts).
 COUNT_LABELS = dict(bd_fwd="bd", bd_bwd="bd backward", mha="mha", fixed="fixed",
-                    codeword="codeword")
+                    codeword="codeword", conv="conv", conv_dgrad="conv dgrad",
+                    conv_wgrad="conv wgrad", conv_reduce="conv reduce")
 
 
 def _zero_counts(wrappers):
@@ -978,10 +1117,33 @@ def _zero_counts(wrappers):
         fn.launches = 0
         if hasattr(fn, "launches_by_route"):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        if hasattr(fn, "reductions"):
+            fn.reductions = 0
 
 
 def _counts(wrappers):
-    return {key: fn.launches for key, fn in wrappers.items()}
+    """Each wrapper's launches by key; the conv weight gradient's reductions
+    as ``conv_reduce``."""
+    counts = {key: fn.launches for key, fn in wrappers.items()}
+    if "conv_wgrad" in wrappers:
+        counts["conv_reduce"] = wrappers["conv_wgrad"].reductions
+    return counts
+
+
+# A float32 InformerStack of e_layers (4, 3) on the card runs 7 circular k=3
+# convs a forward on the conv kernels (ops/cuda/circular_conv.py): 2
+# embeddings and 5 distil convs. Its training step adds the data gradient of
+# the 5 distil convs (the embeddings' input is data) and the weight gradient,
+# a pass and its reduction, of all 7. bf16 and f16 convs take cuDNN.
+FLAGSHIP_CONVS, FLAGSHIP_DISTIL = 7, 5
+
+
+def _conv_launches(forwards=0, steps=0, convs=FLAGSHIP_CONVS, distil=FLAGSHIP_DISTIL):
+    """The conv kernels' launches (keys of :func:`_counts`) of ``forwards``
+    eval forwards and ``steps`` training steps of a float32 model with
+    ``convs`` circular k=3 convs, ``distil`` of them on a hidden input."""
+    return dict(conv=convs * (forwards + steps), conv_dgrad=distil * steps,
+                conv_wgrad=convs * steps, conv_reduce=convs * steps)
 
 
 def _launch_report(launches, expected):
@@ -1037,7 +1199,8 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
                     expected_routes=None, tol=None):
     """``eval_chunk`` of 8 batches through the kernels: the launch counts
     ``expected`` (by key of :func:`_counts`; by default every attention call
-    on the bd forward kernel) and none elsewhere, the mha launches by route
+    on the bd forward kernel; a float32 ``cfg`` adds its 7 convs a forward,
+    :func:`_conv_launches`) and none elsewhere, the mha launches by route
     ``expected_routes`` where given, a finite NMSE, one batch
     against the plain path (each model given a generator of the same seed,
     so a ProbSparse model draws the same ``index_sample``), and samples/s of
@@ -1047,10 +1210,9 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
     twin (same weights) in the turns, and prints the NMSE of its prediction
     against the twin's on the batch, with cuBLAS's reduced-precision
     reductions of its dtype off (this script's setting) and on."""
-    from torch.utils.flop_counter import FlopCounterMode
-
     from channelestimationtransformer_torch.data.windows import make_batch
     from channelestimationtransformer_torch.train.trainer import eval_chunk
+    from channelestimationtransformer_torch.utils.complexity import model_complexity
 
     cfg, model, plain, ds = _models_and_data(torch, cfg, samples, slots)
     if callable(beside):
@@ -1068,7 +1230,9 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
     torch.cuda.synchronize()
     launches = _counts(wrappers)
     routes = dict(wrappers["mha"].launches_by_route)
-    expected = {key: (expected or {"bd_fwd": 13 * n_batches}).get(key, 0) for key in launches}
+    want = (expected or {"bd_fwd": 13 * n_batches}) | (
+        _conv_launches(forwards=n_batches) if cfg.dtype == "float32" else {})
+    expected = {key: want.get(key, 0) for key in launches}
     nmse, split = res["nmse"].item(), res["split"].cpu().tolist()
     print(f"{name}: eval_chunk {n_batches} x {batch}: nmse {nmse:.6f}, split "
           f"{[round(s, 6) for s in split]}, launches {_launch_report(launches, expected)}"
@@ -1111,12 +1275,12 @@ def phase_eval_path(torch, wrappers, card, profile, name="eval path", cfg=None,
               flush=True)
         if not all(math.isfinite(v) for v in vs_f32.values()):
             fail(f"non-finite NMSE against the f32 twin on the {name}")
-    with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        plain(x_enc, x_dec)
-    batch_flops = counter.get_total_flops()
+    # The counter sees aten ops and not the conv kernels, which the plain path
+    # takes on the card: one window on a CPU copy, times the batch.
+    batch_flops = 2 * batch * model_complexity(plain, x_enc[:1], x_dec[:1])["macs_total"]
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{name}: {n_params:,} parameters, {batch_flops / 1e9:.1f} GFLOP per batch of "
-          f"{batch} (FlopCounterMode, plain path)", flush=True)
+          f"{batch} (FlopCounterMode, plain path, on the CPU)", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     models = {"kernel": model, "plain": plain, **(beside or {})}
@@ -1192,7 +1356,8 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
     the launch counts of
     ``train_chunk`` (``per_step``
     a step by key of :func:`_counts`; by default the 13 attention calls on
-    the bd forward and backward kernels) and its loss, and steady-state
+    the bd forward and backward kernels; a float32 ``cfg`` adds its convs'
+    kernels, :func:`_conv_launches`) and its loss, and steady-state
     samples/s of both paths and of the ``beside`` models (a function of the
     kernel-path model giving name -> model) in turns; ``reference`` (label,
     samples/s) is printed beside them. A bf16 or f16 ``cfg`` holds its
@@ -1291,8 +1456,9 @@ def phase_train_path(torch, wrappers, card, profile, cfg=None, name="train", per
     torch.cuda.synchronize()
     launches = _counts(wrappers)
     fwd, bwd = launches["bd_fwd"], launches["bd_bwd"]
-    expected = {key: TRAIN_STEPS * (per_step or dict(bd_fwd=13, bd_bwd=13)).get(key, 0)
-                for key in launches}
+    per = (per_step or dict(bd_fwd=13, bd_bwd=13)) | (
+        _conv_launches(steps=1) if cfg.dtype == "float32" else {})
+    expected = {key: TRAIN_STEPS * per.get(key, 0) for key in launches}
     loss = m["loss_sum"].item() / TRAIN_STEPS
     split = (m["split_sum"] / TRAIN_STEPS).cpu().tolist()
     print(f"{name} path: train_chunk {TRAIN_STEPS} x {batch}: mean loss {loss:.6f}, split "
@@ -1766,7 +1932,8 @@ def phase_ptq_path(torch, wrappers, card):
         res = run(qmodel, 1)
         torch.cuda.synchronize()
         launches = _counts(wrappers)
-        expected = {k: 0 for k in launches} | dict(fixed=1, bd_fwd=13 * n_batches)
+        expected = ({k: 0 for k in launches} | dict(fixed=1, bd_fwd=13 * n_batches)
+                    | _conv_launches(forwards=n_batches))
         want = plain(s, PTQ_WL, PTQ_FL, rounding)
         equal = all(torch.equal(q[k], want[k]) for k in sd)
         nmse = res["nmse"].item()
@@ -1814,7 +1981,8 @@ def phase_ptq_path(torch, wrappers, card):
 def phase_one_batch(torch, wrappers, name, cfg, expected):
     """One eval batch of 256 of ``cfg`` through the kernels, against its
     plain path (the kernels' plain versions and plain attention), with the
-    launch counts ``expected`` and none elsewhere."""
+    launch counts ``expected`` (a float32 ``cfg`` adds its convs') and none
+    elsewhere."""
     from channelestimationtransformer_torch.data.windows import make_batch
 
     cfg, model, plain, ds = _models_and_data(torch, cfg, samples=4096)
@@ -1826,7 +1994,8 @@ def phase_one_batch(torch, wrappers, name, cfg, expected):
         p_kernel = model(x_enc, x_dec)
     torch.cuda.synchronize()
     launches = _counts(wrappers)
-    expected = {key: expected.get(key, 0) for key in launches}
+    want = expected | (_conv_launches(forwards=1) if cfg.dtype == "float32" else {})
+    expected = {key: want.get(key, 0) for key in launches}
     with torch.no_grad():
         p_plain = plain(x_enc, x_dec)
     text, ok, err = _close(torch, p_kernel, p_plain, cfg.dtype)
@@ -1951,14 +2120,16 @@ def phase_datagen(torch, card):
 def phase_cli(torch, wrappers):
     """``cli.train_informer.main`` in this process on a short recipe: the bd
     launch counts against 13 x (steps + 8 x epochs) forward and 13 x steps
-    backward, none elsewhere; finite losses; the result JSON written."""
+    backward, the conv kernels' as :func:`_conv_launches`, none elsewhere;
+    finite losses; the result JSON written."""
     from channelestimationtransformer_torch.cli import train_informer
 
     out = OUT / "cli"
     argv = [*CLI_ARGS, "--out", str(out)]
     steps = CLI_EPOCHS * CLI_STEPS
-    expected = {key: 0 for key in wrappers}
-    expected.update(bd_fwd=13 * (steps + 8 * CLI_EPOCHS), bd_bwd=13 * steps)
+    expected = {key: 0 for key in _counts(wrappers)}
+    expected.update(bd_fwd=13 * (steps + 8 * CLI_EPOCHS), bd_bwd=13 * steps,
+                    **_conv_launches(forwards=8 * CLI_EPOCHS, steps=steps))
     log = io.StringIO()
     _zero_counts(wrappers)
     t0 = time.perf_counter()
@@ -2053,9 +2224,10 @@ def phase_lsq_train(torch, wrappers, lsq, checkpoint):
     launches = _counts(wrappers)
     steps = LSQ_TRAIN_EPOCHS * LSQ_TRAIN_STEPS
     val_batches = 8 * LSQ_TRAIN_EPOCHS
-    expected = {key: 0 for key in wrappers}
+    expected = {key: 0 for key in _counts(wrappers)}
     expected.update(bd_fwd=13 * (steps + val_batches), bd_bwd=13 * steps,
-                    codeword=72 * (2 * steps + val_batches))
+                    codeword=72 * (2 * steps + val_batches),
+                    **_conv_launches(forwards=val_batches, steps=steps))
     expected_lsq_mode = 72 * (steps + val_batches)
     row = results.get(f"lsqfib_n{LSQ_NBITS}", {})
     losses = [float(v) for v in re.findall(r"\| loss (\S+)", log.getvalue())]
@@ -2224,8 +2396,8 @@ def phase_qat_prune(torch, wrappers, card):
         run(name, 5)
         torch.cuda.synchronize()
         launches = _counts(wrappers)
-        expected = {k: TRAIN_STEPS * (dict(bd_fwd=13, bd_bwd=13) | extra).get(k, 0)
-                    for k in launches}
+        per = dict(bd_fwd=13, bd_bwd=13) | _conv_launches(steps=1) | extra
+        expected = {k: TRAIN_STEPS * per.get(k, 0) for k in launches}
         finite = all(torch.isfinite(v).all().item() for v in params[name].values())
         print(f"{name} chunk: {TRAIN_STEPS} steps x {batch}, launches "
               f"{_launch_report(launches, expected)}; weights finite {finite}", flush=True)
@@ -2280,7 +2452,8 @@ def phase_study_drivers(torch, wrappers, checkpoint):
     process on their short recipes from ``checkpoint``: the launch counts
     the recipes give (a quantization one fixed-point launch, a QAT step one
     codeword launch, 13 bd forward and backward a step, 13 bd forward a
-    validation batch), finite losses and the files written. The drivers'
+    validation batch, the conv kernels' of :func:`_conv_launches`), finite
+    losses and the files written. The drivers'
     checkpoints (~16 MB each) are deleted once seen."""
     from channelestimationtransformer_torch.cli import prune, ptq_sweep, qat_incremental
 
@@ -2289,20 +2462,22 @@ def phase_study_drivers(torch, wrappers, checkpoint):
     study = OUT / "study"
     runs = [
         ("ptq_sweep", ptq_sweep, [*DRIVER_PTQ, "--out", str(study / "ptq_results.json")],
-         dict(fixed=2 * 3, bd_fwd=13 * 8 * (1 + 2 * 3)),
+         dict(fixed=2 * 3, bd_fwd=13 * 8 * (1 + 2 * 3), **_conv_launches(8 * (1 + 2 * 3))),
          ["ptq_results.json", "loss_list_nearest.pkl", "loss_list_stochastic.pkl"]),
         ("qat_incremental", qat_incremental, [*DRIVER_QAT, "--out", str(study)],
-         dict(codeword=qat_steps, bd_fwd=13 * (qat_steps + 8 * fractions), bd_bwd=13 * qat_steps),
+         dict(codeword=qat_steps, bd_fwd=13 * (qat_steps + 8 * fractions), bd_bwd=13 * qat_steps,
+              **_conv_launches(8 * fractions, qat_steps)),
          ["qat_wl2_fl-2_proximal_partial_fibonacci.json",
           f"qat_wl2_fl-2_proximal_partial_fibonacci_{fractions}.pt"]),
         ("prune", prune, [*DRIVER_PRUNE, "--out", str(study)],
-         dict(bd_fwd=13 * (prune_steps + 4 * DRIVER_PRUNE_EPOCHS), bd_bwd=13 * prune_steps),
+         dict(bd_fwd=13 * (prune_steps + 4 * DRIVER_PRUNE_EPOCHS), bd_bwd=13 * prune_steps,
+              **_conv_launches(4 * DRIVER_PRUNE_EPOCHS, prune_steps)),
          ["prune_results.json", f"pruned_{DRIVER_PRUNE_EPOCHS}.pt"]),
     ]
     out = {}
     for name, cli, argv, counts, files in runs:
         argv = [*DRIVER_COMMON, *argv, "--checkpoint", str(checkpoint)]
-        expected = {key: counts.get(key, 0) for key in wrappers}
+        expected = {key: counts.get(key, 0) for key in _counts(wrappers)}
         log = io.StringIO()
         _zero_counts(wrappers)
         t0 = time.perf_counter()
@@ -2425,7 +2600,10 @@ def phase_int8_path(torch, wrappers, gemms, card):
         res = run(mode, 1, hits=hits)
         torch.cuda.synchronize()
         launches, gemm = _counts(wrappers), _counts(gemms)
-        expected = {key: 13 * n_batches if key == "bd_fwd" else 0 for key in launches}
+        # Served in int8 the distil convs run the int8 conv; the embeddings'
+        # stay float32 on the conv kernels.
+        expected = ({key: 0 for key in launches} | dict(bd_fwd=13 * n_batches)
+                    | _conv_launches(forwards=n_batches, convs=7 if mode == "f32" else 2))
         want_gemm = {key: 0 for key in gemms}
         if mode != "f32":
             want_gemm["int8" if mode == "w8a8" else "bf16_f32"] = 77 * n_batches
@@ -2499,7 +2677,8 @@ def phase_streaming(torch, wrappers, card):
         preds = streaming_rollout(model, cfg, stream, STREAM_BLOCK)
     torch.cuda.synchronize()
     launches = _counts(wrappers)
-    expected = {key: 13 * n_blocks if key == "bd_fwd" else 0 for key in launches}
+    expected = ({key: 0 for key in launches} | dict(bd_fwd=13 * n_blocks)
+                | _conv_launches(forwards=n_blocks))
     window = stream[:, STREAM_SLOTS - cfg.seq_len:]
     x_dec = torch.cat([window[:, -cfg.label_len:],
                        window.new_zeros(STREAM_BATCH, cfg.pred_len, cfg.enc_in)], dim=1)
@@ -2553,7 +2732,8 @@ def phase_baselines(torch, wrappers, card):
     rnn (``cli/comparison.py``'s ``RecurrentConfig``) in a chunk of 8
     teacher-forced Adam steps at batch 64 and one 5-step rollout at batch 256
     on windows of 25 + 5 slots; each against the same model on the CPU on
-    one batch (``BASELINE_TOL``); no attention or quant kernel launched."""
+    one batch (``BASELINE_TOL``); no attention or quant kernel launched, the
+    Transformer's two embeddings on the conv kernels."""
     from channelestimationtransformer_torch.core.config import (
         RecurrentConfig,
         TrainConfig,
@@ -2594,14 +2774,17 @@ def phase_baselines(torch, wrappers, card):
                        names=("eval", "train"))
     rates = {kind: 8 * 256 / statistics.median(ts[2:]) for kind, ts in times.items()}
     launches = _counts(wrappers)
+    # 7 eval and 7 training chunks of 8 (the first of each, then 6 rounds).
+    expected = {key: 0 for key in launches} | _conv_launches(
+        forwards=7 * 8, steps=7 * 8, convs=2, distil=0)
     ok = rel <= BASELINE_TOL and all(math.isfinite(v) for v in values.values())
-    print(f"baseline transformer (TransformerConfig(), no kernel route): one batch card vs "
-          f"CPU max_abs/max {rel:.3e} (limit {BASELINE_TOL}) {'ok' if ok else 'MISMATCH'}; "
+    print(f"baseline transformer (TransformerConfig(), no attention kernel route): one batch "
+          f"card vs CPU max_abs/max {rel:.3e} (limit {BASELINE_TOL}) {'ok' if ok else 'MISMATCH'}; "
           f"eval nmse {values['eval']:.6f}, train loss {values['train']:.6f}; eval "
           f"{rates['eval']:.1f}, train {rates['train']:.1f} samples/s (chunks of 8 x 256, in "
-          f"turns); kernel launches {launches} on {card}", flush=True)
-    if not ok or any(launches.values()):
-        fail("the Transformer baseline disagrees with the CPU or launched a kernel")
+          f"turns); launches {_launch_report(launches, expected)} on {card}", flush=True)
+    if not ok or launches != expected:
+        fail("the Transformer baseline disagrees with the CPU or launched the wrong kernels")
     out["transformer"] = dict(vs_cpu=rel, **values, eval_samples_per_s=rates["eval"],
                               train_samples_per_s=rates["train"])
 
@@ -2671,7 +2854,8 @@ def phase_serving_drivers(torch, wrappers, gemms, checkpoint):
     """``cli.int8_serving``, ``cli.train_streaming`` and ``cli.comparison``
     in this process, the first two from ``checkpoint``: their launch counts
     (bd 13 a forward; one GEMM a served layer; the comparison's Informer 13
-    forward and backward a step), finite results and files."""
+    forward and backward a step; the conv kernels' of :func:`_conv_launches`),
+    finite results and files."""
     from channelestimationtransformer_torch.cli import comparison, int8_serving, train_streaming
 
     folder = OUT / "serving_drivers"
@@ -2682,20 +2866,26 @@ def phase_serving_drivers(torch, wrappers, gemms, checkpoint):
         ("int8_serving", int8_serving,
          [*INT8_DRIVER, "--checkpoint", str(checkpoint), "--out",
           str(folder / "int8_serving.json")],
-         dict(bd_fwd=13 * forwards), dict(int8=77 * served, bf16_f32=77 * served),
+         # the conv kernels: 7 a float32 forward, 2 (the embeddings) an int8 one
+         dict(bd_fwd=13 * forwards, **_conv_launches(served, convs=7 + 2 + 2)),
+         dict(int8=77 * served, bf16_f32=77 * served),
          lambda r: [r["nmse_f32"], r["nmse_int8"], r["nmse_int8_wo"], r["nmse_delta_db"]]),
         ("train_streaming", train_streaming,
          [*STREAM_DRIVER, "--checkpoint", str(checkpoint), "--out",
           str(folder / "streaming_results.json")],
-         dict(bd_fwd=13 * STREAM_SLOTS // STREAM_BLOCK), {},
+         dict(bd_fwd=13 * STREAM_SLOTS // STREAM_BLOCK,
+              **_conv_launches(STREAM_SLOTS // STREAM_BLOCK)), {},
          lambda r: r["per_block_nmse"] + [r["warm_window_nmse"]]),
         ("comparison", comparison, [*COMPARISON_DRIVER, "--out", str(folder / "comparison")],
-         dict(bd_fwd=13 * (100 + 8 + 8 * n_snr), bd_bwd=13 * 100), {},
+         # the Informer's 7 convs and the Transformer's 2 embeddings, each model
+         # 100 steps and 8 + 8 a SNR validation batches
+         dict(bd_fwd=13 * (100 + 8 + 8 * n_snr), bd_bwd=13 * 100,
+              **_conv_launches(8 + 8 * n_snr, 100, convs=7 + 2)), {},
          lambda r: [v for sweep in r.values() for row in sweep.values() for v in row]),
     ]
     out = {}
     for name, cli, argv, counts, gemm_counts, values in runs:
-        expected = {key: counts.get(key, 0) for key in wrappers}
+        expected = {key: counts.get(key, 0) for key in _counts(wrappers)}
         want_gemm = {key: gemm_counts.get(key, 0) for key in gemms}
         log = io.StringIO()
         _zero_counts(wrappers)
@@ -2877,13 +3067,14 @@ E2E_RUNS = [("uncoded", "e2e_results.json", []),
 
 def phase_e2e_drivers(torch, wrappers, card, checkpoint):
     """``cli.end_to_end_sim`` five times and ``cli.collect_e2e`` over them, in
-    this process: 13 bd forward launches a run and none of the other
-    kernels, finite rows, files written, seconds and Monte-Carlo bits/s."""
+    this process: 13 bd forward and 7 conv launches a run and none of the
+    other kernels, finite rows, files written, seconds and Monte-Carlo
+    bits/s."""
     from channelestimationtransformer_torch.cli import collect_e2e, end_to_end_sim
 
     folder = OUT / "e2e"
-    expected = {key: 0 for key in wrappers}
-    expected["bd_fwd"] = 13
+    expected = ({key: 0 for key in _counts(wrappers)} | dict(bd_fwd=13)
+                | _conv_launches(forwards=1))
     out = {}
     for branch, fname, flags in E2E_RUNS:
         argv = [*E2E_COMMON, *flags, "--checkpoint", str(checkpoint), "--out",
@@ -3047,7 +3238,7 @@ def phase_scale_demo(torch, wrappers, card):
     for name, d_model, d_ff, seq_len, batch in scale_demo.SIZES:
         bd, _ = routed_calls(scale_demo.size_config(d_model, d_ff, seq_len, "bfloat16"), True)
         steps = SCALE_STEPS * (1 + SCALE_CHUNKS)
-        expected = {key: 0 for key in wrappers}
+        expected = {key: 0 for key in _counts(wrappers)}
         expected.update(bd_fwd=bd * steps, bd_bwd=bd * steps)
         _zero_counts(wrappers)
         t0 = time.perf_counter()
@@ -3101,8 +3292,11 @@ def phase_int8_scale_ab(torch, wrappers, gemms, card):
         bd, mha = routed_calls(cfg, False)
         with torch.device("meta"):
             served = len(build_int8_table(InformerStack(cfg)))
-        expected = {key: 0 for key in wrappers}
-        expected.update(bd_fwd=4 * forwards * bd, mha=4 * forwards * mha)
+        expected = {key: 0 for key in _counts(wrappers)}
+        # conv kernels: the float32 variant's 7 convs and the W8A8 variant's
+        # 2 embeddings (its distil convs int8); the bf16-based ones take cuDNN
+        expected.update(bd_fwd=4 * forwards * bd, mha=4 * forwards * mha,
+                        **_conv_launches(forwards, convs=7 + 2))
         variants = (mha_routes(cfg, torch.float32, 2 * forwards),
                     mha_routes(cfg, torch.bfloat16, forwards),
                     mha_routes(cfg, weight_only_call_dtypes(torch, cfg), forwards))
@@ -3296,7 +3490,7 @@ def phase_analysis(torch, wrappers, card, checkpoint_dir, cli_name, cli_log):
     folder = OUT / "analysis"
     folder.mkdir(exist_ok=True)
     out = {}
-    none = {key: 0 for key in wrappers}
+    none = {key: 0 for key in _counts(wrappers)}
 
     # The bd shapes of the full timing sweep that no phase holds yet.
     shapes = timing_kernel_shapes()
@@ -3324,7 +3518,7 @@ def phase_analysis(torch, wrappers, card, checkpoint_dir, cli_name, cli_log):
     events = json.loads(pathlib.Path(prof.trace_path).read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     bd = [e for e in kernels if "bd_attention_fwd_kernel" in e.get("name", "")]
-    expected = dict(none, bd_fwd=13 * 8)
+    expected = dict(none, bd_fwd=13 * 8) | _conv_launches(forwards=8)
     ok = len(bd) == 13 * 8 and launches == expected
     print(f"trace: utils.profiling.trace over one flagship eval chunk (8 x 256, kernels on): "
           f"{prof.trace_path} ({pathlib.Path(prof.trace_path).stat().st_size / 1e6:.1f} MB), "
@@ -3332,6 +3526,11 @@ def phase_analysis(torch, wrappers, card, checkpoint_dir, cli_name, cli_log):
           f"104; e.g. {bd[0]['name'][:60] if bd else None!r}); launches "
           f"{_launch_report(launches, expected)} {'ok' if ok else 'FAILED'}", flush=True)
     if not ok:
+        calls = [e for e in events if e.get("cat") == "cuda_runtime"
+                 and "Launch" in e.get("name", "")]
+        names = collections.Counter(e.get("name", "")[:60] for e in kernels)
+        print(f"trace: {len(calls)} launch calls on the host for {len(kernels)} device kernels; "
+              f"kernels by name {names.most_common()}", flush=True)
         fail("the trace does not hold the bd forward kernel 104 times")
     out["trace"] = dict(path=prof.trace_path, device_kernels=len(kernels), bd_fwd=len(bd),
                         launches=launches)
@@ -3431,7 +3630,8 @@ def phase_analysis(torch, wrappers, card, checkpoint_dir, cli_name, cli_log):
         wrappers, timing_analysis.main,
         [*TIMING_ARGS, "--out", str(folder / "runtime.json")])
     print(log, end="", flush=True)
-    expected = dict(none, bd_fwd=13 * TIMING_FORWARDS * TIMING_POINTS)
+    expected = (dict(none, bd_fwd=13 * TIMING_FORWARDS * TIMING_POINTS)
+                | _conv_launches(forwards=TIMING_FORWARDS * TIMING_POINTS))
     ok = results["_monotonic"] is True and launches == expected
     print(f"driver phase: cli.timing_analysis {' '.join(TIMING_ARGS)}: {secs:.1f} s; monotonic: "
           f"{str(results['_monotonic']).lower()}; launches {_launch_report(launches, expected)} "
@@ -3455,7 +3655,7 @@ def phase_analysis(torch, wrappers, card, checkpoint_dir, cli_name, cli_log):
                                         device=torch.device("cuda"), use_pallas=False,
                                         ds_cache={})
     rel = abs(row["mean"] - plain["mean"]) / plain["mean"]
-    expected = dict(none, bd_fwd=13 * PARITY_CI_BATCHES)
+    expected = dict(none, bd_fwd=13 * PARITY_CI_BATCHES) | _conv_launches(PARITY_CI_BATCHES)
     ok = launches == expected and rel <= PARITY_CI_RTOL and row["n"] == PARITY_CI_BATCHES
     print(f"driver phase: cli.eval_parity_ci --batches {PARITY_CI_BATCHES} (the cli phase's "
           f"checkpoint, epoch {row['checkpoint_epoch']}): {secs:.1f} s; mean {row['mean']:.6f}, "
@@ -4673,6 +4873,7 @@ def main(argv):
         fail("torch.cuda.is_available() is false: this check runs on a CUDA card")
     from channelestimationtransformer_torch.ops.cuda import _build
     from channelestimationtransformer_torch.ops.cuda import bd_attention as ops
+    from channelestimationtransformer_torch.ops.cuda import circular_conv as cc
     from channelestimationtransformer_torch.ops.cuda import mha_attention as mha
     from channelestimationtransformer_torch.ops.cuda import quant
     from channelestimationtransformer_torch.ops.quant import codebooks, lsq
@@ -4696,7 +4897,9 @@ def main(argv):
           f"{torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction}", flush=True)
 
     t0 = time.perf_counter()
-    libs = (ops.FWD_LIB, ops.BWD_LIB, mha.LIB, quant.FIXED_LIB, quant.CODEWORD_LIB)
+    conv_only = "--conv" in argv
+    libs = (cc.LIB,) if conv_only else (ops.FWD_LIB, ops.BWD_LIB, mha.LIB, quant.FIXED_LIB,
+                                         quant.CODEWORD_LIB, cc.LIB)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         builds = list(pool.map(_build.build, libs))
     build_s = time.perf_counter() - t0
@@ -4748,10 +4951,22 @@ def main(argv):
         x = torch.tanh(x @ x)
         torch.cuda.synchronize()
 
+    if conv_only:
+        conv = phase_circular_conv(torch, F)
+        (OUT / "chip_smoke_conv.json").write_text(json.dumps(dict(
+            card=card, build_s=build_s, build_info=build_info, conv=conv), indent=1))
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                  "kind": torch.cuda.get_device_name(0),
+                                                  "count": torch.cuda.device_count()}}),
+              flush=True)
+        return None
+
     profile = "--profile" in argv
     wrappers = dict(bd_fwd=ops.bd_attention_fwd, bd_bwd=ops.bd_attention_bwd,
                     mha=mha.mha_attention_fwd, fixed=quant.fused_fixed_point_quantize,
-                    codeword=quant.fused_nearest_codeword)
+                    codeword=quant.fused_nearest_codeword, conv=cc.circular_conv1d_fwd,
+                    conv_dgrad=cc.circular_conv1d_dgrad, conv_wgrad=cc.circular_conv1d_wgrad)
     eval_rows = phase_kernel(torch, F, ops.bd_attention, ops.bd_attention_reference,
                              [s + (B, H, E, E) for s in SHAPES])
     mha_rows = phase_kernel(torch, F, mha.mha_attention, mha.mha_attention_reference,
@@ -4762,6 +4977,7 @@ def main(argv):
     codeword_rows = phase_codeword_kernel(torch, quant, codebooks)
     lsq_rows = phase_lsq_codeword(torch, quant, lsq, codebooks)
     fwd_rows, bwd_rows = phase_kernel_train(torch, F, ops)
+    conv = phase_circular_conv(torch, F)
     # The scale demo's and the int8 A/B's attention shapes beyond the lists above (E 32
     # and 64; L 256 at E 64 on mha), checked in eval and in training.
     scale_bd, scale_mha = scale_kernel_shapes()
@@ -5060,6 +5276,21 @@ def main(argv):
         kernel["drivers16_launches"] = sum(run["launches"][key]
                                            for name, run in driver_phase.items()
                                            if name != "seconds")
+    # The circular convolution's kernels: times of one training step at batch
+    # 1024 (phase_circular_conv); launches of the train path's chunk and the
+    # eval path's, counted there.
+    for key, count, fn, replaces in (
+            ("fwd", "conv", "shift_kernel<false>", "forward"),
+            ("dgrad", "conv_dgrad", "shift_kernel<true>", "data gradient"),
+            ("wgrad", "conv_wgrad", "wgrad_kernel, wgrad_reduce_kernel", "weight gradient")):
+        kernels.append(dict(name=f"circular_conv1d[{key}]", route="cuda", kernel=fn,
+                            source=f"channelestimationtransformer_torch/ops/cuda/csrc/{cc.LIB}.cu",
+                            replaces=f"none (cuDNN's {replaces} of the circular k=3 conv)",
+                            launches=train_path["launches"][count],
+                            per="one flagship training step at batch 1024",
+                            **conv["per_step"][key]))
+    kernels[-3].update(eval_launches=eval_path["launches"]["conv"])
+    kernels[-1].update(reductions=train_path["launches"]["conv_reduce"])
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_info=build_info, kernel_rows=eval_rows,
         mha_kernel_rows=mha_rows, fixed_rows=fixed_rows, fixed_grouped_rows=grouped_rows,
@@ -5078,7 +5309,7 @@ def main(argv):
         baselines=baselines, comparison_informer_batch=cmp_batch,
         comparison_informer_train_path=cmp_train_path, serving_drivers=serving_drivers,
         link=link, e2e_drivers=e2e, scale_demo=scale, int8_scale_ab=int8_ab, analysis=analysis,
-        drivers16=driver_phase, parallel=parallel, two_axis=two_axis,
+        drivers16=driver_phase, parallel=parallel, two_axis=two_axis, circular_conv=conv,
         kernels=kernels),
         indent=1))
     print(card, flush=True)

@@ -1,7 +1,8 @@
 """The CUDA kernels (bd-attention forward, with and without dropout, and
 backward; the mha-attention forward on both its routes; fixed-point
-quantization and the nearest-codeword snap, plain and in its LSQ mode)
-against their plain versions, on the card.
+quantization and the nearest-codeword snap, plain and in its LSQ mode; the
+circular k=3 convolution's forward and gradients) against their plain
+versions, on the card.
 
 Marked ``cuda``; each test skips when no card is present. This file imports
 only torch and numpy, so it also runs where JAX is not installed:
@@ -941,3 +942,162 @@ def test_bf16_xl_forward_through_mha_matches_the_plain_path(cuda):
     assert got.dtype == want.dtype == torch.bfloat16 and torch.isfinite(got).all()
     rel, nmse_ = _rel_nmse(got, want)
     assert rel <= BF16_MODEL_TOL[0] and nmse_ <= BF16_MODEL_TOL[1], (rel, nmse_)
+
+
+# The circular k=3 convolution's kernels (ops/cuda/circular_conv.py): the
+# flagship's seven convolutions (C_in, C_out, L) and a tensor-parallel shard.
+CONV_SHAPES = [(16, 128, 90), (16, 128, 15), (128, 128, 90), (128, 128, 45), (128, 128, 23),
+               (128, 128, 12), (128, 64, 45)]
+# Forward and dx: float32 sums of 3 * C products in another order than the
+# plain version's matmul (rtol/atol 1e-4 / 1e-5, as the attention forward).
+# dW and db sum B * L rows (92,160 at the training batch) in splits and then
+# across them: atol 1e-5 of the result's largest magnitude.
+CONV_TOL = (1e-4, 1e-5)
+
+
+def _conv_inputs(b, l, c_in, c_out, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, l, c_in, generator=g, device=device)
+    w = torch.randn(c_out, c_in, 3, generator=g, device=device) / (3 * c_in) ** 0.5
+    bias = torch.randn(c_out, generator=g, device=device)
+    dy = torch.randn(b, l, c_out, generator=g, device=device)
+    return x, w, bias, dy
+
+
+def _conv_close(got, want, scaled=False):
+    atol = CONV_TOL[1] * (want.abs().max().item() if scaled else 1.0)
+    torch.testing.assert_close(got, want, rtol=CONV_TOL[0], atol=atol)
+
+
+def _conv_counts():
+    from channelestimationtransformer_torch.ops.cuda import circular_conv as cc
+
+    return (cc.circular_conv1d_fwd.launches, cc.circular_conv1d_dgrad.launches,
+            cc.circular_conv1d_wgrad.launches, cc.circular_conv1d_wgrad.reductions)
+
+
+@pytest.mark.parametrize("c_in,c_out,l", CONV_SHAPES)
+@pytest.mark.parametrize("b", [1024, 3, 1025])
+def test_circular_conv_kernels_match_plain_version(cuda, b, c_in, c_out, l):
+    """Forward, dx, dW and db of the kernels against the plain versions on
+    the card (TF32 off), each launch counted once."""
+    from channelestimationtransformer_torch.ops.cuda import circular_conv as cc
+
+    x, w, bias, dy = _conv_inputs(b, l, c_in, c_out, cuda, seed=l)
+    before = _conv_counts()
+    y = cc.circular_conv1d_fwd(x, w, bias)
+    dx = cc.circular_conv1d_dgrad(dy, w)
+    dw, db = cc.circular_conv1d_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert _conv_counts() == tuple(n + 1 for n in before)
+    _conv_close(y, cc.circular_conv1d_reference(x, w, bias))
+    _conv_close(dx, cc.circular_conv1d_dgrad_reference(dy, w))
+    want_dw, want_db = cc.circular_conv1d_wgrad_reference(x, dy)
+    _conv_close(dw, want_dw, scaled=True)
+    _conv_close(db, want_db, scaled=True)
+    dw_only, none = cc.circular_conv1d_wgrad(x, dy, with_bias=False)
+    assert none is None and torch.equal(dw_only, dw)
+
+
+def test_circular_conv_kernels_are_deterministic(cuda):
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    from channelestimationtransformer_torch.ops.cuda import circular_conv as cc
+
+    x, w, bias, dy = _conv_inputs(1024, 90, 128, 128, cuda)
+    runs = [(cc.circular_conv1d_fwd(x, w, bias), cc.circular_conv1d_dgrad(dy, w),
+             *cc.circular_conv1d_wgrad(x, dy)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flagship_training_step_goes_through_the_conv_kernels(cuda):
+    """One float32 training step of the flagship: 7 forward launches, 5 data
+    gradients (not the embeddings', whose input is data), 7 weight-gradient
+    passes and 7 reductions, and finite gradients."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.core.metrics import nmse
+    from channelestimationtransformer_torch.models.informer import build_informer
+
+    model = build_informer(InformerConfig(use_pallas=True), device=cuda, seed=0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x_enc = torch.randn(32, 90, 16, generator=g, device=cuda)
+    x_dec = torch.randn(32, 15, 16, generator=g, device=cuda)
+    target = torch.randn(32, 5, 16, generator=g, device=cuda)
+    model.train()
+    before = _conv_counts()
+    nmse(model(x_enc, x_dec, generator=torch.Generator(device=cuda).manual_seed(2)),
+         target).backward()
+    torch.cuda.synchronize()
+    assert tuple(n - m for n, m in zip(_conv_counts(), before)) == (7, 5, 7, 7)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+
+
+def test_bf16_conv_keeps_the_cudnn_route(cuda):
+    """A bf16 (or f16) convolution, or one of another K, takes the circular
+    pad and cuDNN's F.conv1d: the kernels' counters stay where they were."""
+    from channelestimationtransformer_torch.models.embed import circular_conv1d
+
+    x, w, bias, _ = _conv_inputs(8, 45, 128, 128, cuda)
+    before = _conv_counts()
+    for dtype in (torch.bfloat16, torch.float16):
+        xr = x.to(dtype).requires_grad_()
+        circular_conv1d(xr, w.to(dtype), bias.to(dtype)).sum().backward()
+    circular_conv1d(x, torch.randn(128, 128, 5, device=cuda))
+    torch.cuda.synchronize()
+    assert _conv_counts() == before
+
+
+def test_flop_count_of_the_flagship_on_the_card_equals_the_cpus(cuda):
+    """``model_complexity`` counts matmuls and convolutions under a dispatch
+    mode, which sees no ctypes launch, so it counts on a CPU copy of the
+    model: the count equals the CPU's and no conv kernel runs."""
+    from channelestimationtransformer_torch.core.config import InformerConfig
+    from channelestimationtransformer_torch.models.informer import build_informer
+    from channelestimationtransformer_torch.utils.complexity import model_complexity
+
+    counts = []
+    for device in ("cpu", cuda):
+        model = build_informer(InformerConfig(use_pallas=True), device=device, seed=0)
+        x_enc, x_dec = torch.zeros(2, 90, 16, device=device), torch.zeros(2, 15, 16, device=device)
+        before = _conv_counts()
+        counts.append(model_complexity(model, x_enc, x_dec)["macs_per_sample"])
+        assert _conv_counts() == before
+    assert counts[0] == counts[1] == 43_688_704
+
+
+def test_circular_conv_launch_refused_for_shared_memory_raises(cuda, monkeypatch):
+    """A launch asking for more shared memory than an SM has is refused, and
+    the wrapper raises; nothing is counted."""
+    from channelestimationtransformer_torch.ops.cuda import circular_conv as cc
+
+    x, w, bias, dy = _conv_inputs(4, 23, 128, 128, cuda)
+    monkeypatch.setattr(cc, "_smem", lambda kind, c_in: 300 * 1024)
+    before = _conv_counts()
+    with pytest.raises(RuntimeError, match="forward launch failed"):
+        cc.circular_conv1d_fwd(x, w, bias)
+    with pytest.raises(RuntimeError, match="data gradient launch failed"):
+        cc.circular_conv1d_dgrad(dy, w)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cc.circular_conv1d_wgrad(x, dy)
+    assert _conv_counts() == before
+
+
+def test_circular_conv_kernels_raise_instead_of_falling_back(cuda):
+    from channelestimationtransformer_torch.ops.cuda import circular_conv as cc
+
+    x, w, bias, dy = _conv_inputs(4, 23, 16, 32, cuda)
+    with pytest.raises(TypeError):
+        cc.circular_conv1d_fwd(x.double(), w.double())
+    with pytest.raises(TypeError):
+        cc.circular_conv1d_wgrad(x.bfloat16(), dy.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        cc.circular_conv1d_fwd(x.transpose(0, 1), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        cc.circular_conv1d_dgrad(dy[:, ::2], w)
+    with pytest.raises(ValueError, match="device"):
+        cc.circular_conv1d_fwd(x, w.cpu())
+    with pytest.raises(ValueError, match="channels"):
+        cc.circular_conv1d_dgrad(x, w)
+    with pytest.raises(ValueError, match="bias"):
+        cc.circular_conv1d_fwd(x, w, bias[:8])
+    assert torch.isfinite(cc.circular_conv1d_fwd(x, w, bias)).all()
